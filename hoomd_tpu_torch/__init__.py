@@ -1,0 +1,44 @@
+"""hoomd_tpu_torch — the PyTorch and CUDA port of hoomd_tpu.
+
+It mirrors hoomd_tpu's module names and job-script API, so a script
+written for the JAX package runs with ``import hoomd_tpu_torch as
+hoomd``:
+
+    import hoomd_tpu_torch as hoomd
+    from hoomd_tpu_torch import md
+    hoomd.context.initialize('--mode=gpu')
+    hoomd.init.create_lattice(unitcell=hoomd.lattice.sc(a=1.0583), n=40)
+    nl = md.nlist.cell(r_buff=0.4)
+    lj = md.pair.lj(r_cut=2.5, nlist=nl)
+    lj.pair_coeff.set('A', 'A', epsilon=1.0, sigma=1.0)
+    lj.set_params(mode='shift')
+    md.integrate.mode_standard(dt=0.005)
+    md.integrate.nvt(group=hoomd.group.all(), kT=1.2, tau=0.5)
+    hoomd.run(1000)
+
+The port so far runs the single-type LJ liquid on the cell-major engine
+(nve, nvt, langevin); other configurations raise NotImplementedError
+naming the gate they failed.  It imports torch and numpy, never jax.
+"""
+
+from __future__ import annotations
+
+from . import _config  # noqa: F401  (precision settings at import)
+from . import context, data, group, init, lattice, md, variant
+from .snapshot import Snapshot
+
+__version__ = "0.1.0"
+
+__all__ = ['context', 'data', 'group', 'init', 'lattice', 'md', 'variant',
+           'run', 'get_step', 'Snapshot']
+
+
+def run(tsteps, quiet=False):
+    """Advance the simulation by tsteps."""
+    if context.current is None or context.current.system is None:
+        raise RuntimeError("initialize the system before run()")
+    context.current.system.run(int(tsteps), quiet=quiet)
+
+
+def get_step():
+    return context.current.system.timestep

@@ -1,0 +1,480 @@
+"""Cell-stencil LJ kernels: counterpart of hoomd_tpu/ops/pallas_pair.py.
+
+Three wrappers carry the main path, each beside the plain torch version
+of the same function:
+
+  cell_pair_plane       (pallas_pair.py _kernel_plane)     forces only
+  cell_pair_planar      (pallas_pair.py _kernel_planar)    forces, PE, virial
+  cell_megastep_planes  (pallas_pair.py _kernel_megastep)  k fused VV steps
+
+On a CUDA tensor a wrapper launches its hand-written kernel
+(csrc/cell_pair.cu, built by ops/_build.py) or raises; on a CPU tensor
+it runs the plain version.  Nothing falls back from one to the other.
+Each wrapper counts its launches in ``<wrapper>.launches``.
+
+Validity comes from the tag (>= 0), and the self pair is excluded by
+index, in the kernels and the plain versions alike.  ``cell_pair_xla``
+is the torch port of the JAX package's XLA formulation (expanded r^2,
+padding excluded by magnitude), kept as a second, independent reference.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from . import pair_eval
+
+# largest cell capacity the kernels take: 27*C*13 bytes of shared memory
+# per block and C threads per block
+MAX_C = 512
+
+
+def build_cell_shifts(cell_dim, box_L):
+    """(ncells, 27) neighbour ids and (ncells, 27, 3) periodic image
+    shifts of the 27-cell stencil, (dz, dy, dx) order with dx fastest.
+    Host-side numpy, identical to the JAX package's table."""
+    nx, ny, nz = cell_dim
+    ncells = nx * ny * nz
+    ids = np.arange(ncells)
+    ix = ids % nx
+    iy = (ids // nx) % ny
+    iz = ids // (nx * ny)
+    adj = np.empty((ncells, 27), np.int32)
+    sh = np.zeros((ncells, 27, 3), np.float64)
+    c = 0
+    for dz in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                jx, wx = (ix + dx) % nx, (ix + dx) // nx
+                jy, wy = (iy + dy) % ny, (iy + dy) // ny
+                jz, wz = (iz + dz) % nz, (iz + dz) // nz
+                adj[:, c] = jx + nx * (jy + ny * jz)
+                sh[:, c, 0] = wx * box_L[0]
+                sh[:, c, 1] = wy * box_L[1]
+                sh[:, c, 2] = wz * box_L[2]
+                c += 1
+    return adj, sh
+
+
+@functools.lru_cache(maxsize=16)
+def _adjacency_np(cell_dim):
+    return build_cell_shifts(cell_dim, (0.0, 0.0, 0.0))[0]
+
+
+def _adjacency(cell_dim, device):
+    return torch.as_tensor(_adjacency_np(tuple(cell_dim)), dtype=torch.int64,
+                           device=device)
+
+
+def _lj_params(params_vec):
+    """[rc2, e_shift, lj1, lj2, ...] -> scalars of the LJ stencil."""
+    return params_vec[0], params_vec[1], {'lj1': params_vec[2],
+                                          'lj2': params_vec[3]}
+
+
+def _recip_flag(recip):
+    """1 for the fast reciprocal ('approx'), 0 for the exact divide."""
+    if recip not in ('div', 'approx'):
+        raise ValueError(f"recip must be 'div' or 'approx', not {recip!r}")
+    return int(recip == 'approx')
+
+
+# ---------------------------------------------------------------------------
+# plain torch versions
+
+
+def _stencil_plain(cell_pos, cell_tag, cell_dim, cell_shift, params_vec,
+                   want_pv):
+    """Direct-dr 27-cell stencil over all cells, chunked to bound memory.
+    Returns F (nc, C, 3) and, with want_pv, pe (nc, C), vir (nc, C, 6)."""
+    nc, C, _ = cell_pos.shape
+    dev = cell_pos.device
+    rc2, e_shift, p = _lj_params(params_vec)
+    adj = _adjacency(cell_dim, dev)
+    ar = torch.arange(C, device=dev)
+    valid = cell_tag >= 0
+    chunk = max(1, (1 << 22) // (27 * C * C))
+    F = torch.zeros((nc, C, 3), dtype=cell_pos.dtype, device=dev)
+    pe = torch.zeros((nc, C), dtype=cell_pos.dtype, device=dev) \
+        if want_pv else None
+    vir = torch.zeros((nc, C, 6), dtype=cell_pos.dtype, device=dev) \
+        if want_pv else None
+    for c0 in range(0, nc, chunk):
+        c1 = min(nc, c0 + chunk)
+        a = adj[c0:c1]                                    # (n, 27)
+        xj = (cell_pos[a] + cell_shift[c0:c1, :, None, :]).reshape(
+            c1 - c0, 27 * C, 3)
+        vj = valid[a].reshape(c1 - c0, 27 * C)
+        xi = cell_pos[c0:c1]
+        dr = xi[:, :, None, :] - xj[:, None, :, :]        # (n, C, 27C, 3)
+        dx, dy, dz = dr[..., 0], dr[..., 1], dr[..., 2]
+        r2 = dx * dx + dy * dy + dz * dz
+        pair = valid[c0:c1, :, None] & vj[:, None, :] & (r2 < rc2)
+        pair[:, ar, 13 * C + ar] = False                  # self pair
+        f_raw, e_raw = pair_eval.lj.energy_force(torch.clamp(r2, min=1e-3),
+                                                 p)
+        fdivr = torch.where(pair, f_raw, 0.0)
+        F[c0:c1] = torch.stack([(fdivr * dx).sum(-1), (fdivr * dy).sum(-1),
+                                (fdivr * dz).sum(-1)], dim=-1)
+        if want_pv:
+            e = torch.where(pair & (r2 > 1e-6), e_raw - e_shift, 0.0)
+            pe[c0:c1] = 0.5 * e.sum(-1)
+            vir[c0:c1] = 0.5 * torch.stack(
+                [(fdivr * u * w).sum(-1) for u, w in
+                 ((dx, dx), (dx, dy), (dx, dz), (dy, dy), (dy, dz),
+                  (dz, dz))], dim=-1)
+    return F, pe, vir
+
+
+def cell_pair_plane_plain(cell_pos, cell_dim, cell_shift, params_vec, *,
+                          cell_tag):
+    """Plain torch version of cell_pair_plane (exact divide)."""
+    return _stencil_plain(cell_pos, cell_tag, cell_dim, cell_shift,
+                          params_vec, want_pv=False)[0]
+
+
+def cell_pair_planar_plain(cell_pos, cell_dim, cell_shift, params_vec, *,
+                           cell_tag):
+    """Plain torch version of cell_pair_planar: (F, pe, vir)."""
+    return _stencil_plain(cell_pos, cell_tag, cell_dim, cell_shift,
+                          params_vec, want_pv=True)
+
+
+def _planes_to_cells(a, nc, C):
+    """(3, nz, ny, nx, C) -> (nc, C, 3)."""
+    return a.permute(1, 2, 3, 4, 0).reshape(nc, C, 3)
+
+
+def _cells_to_planes(a, cell_dim, C):
+    nx, ny, nz = cell_dim
+    return a.reshape(nz, ny, nx, C, 3).permute(4, 0, 1, 2, 3)
+
+
+def _as_scalar(x, ref):
+    return torch.as_tensor(x, dtype=ref.dtype, device=ref.device).reshape(())
+
+
+def _inv_thresholds(skin, ref):
+    skin3 = torch.as_tensor(skin, dtype=ref.dtype,
+                            device=ref.device).reshape(-1).expand(3)
+    return 1.0 / (0.5 * skin3) ** 2
+
+
+def cell_megastep_planes_plain(gp, gv, gf, gw, gm, gr, cell_dim, cell_shift,
+                               params_vec, dt, kt_table, xi, eta, skin, *, C,
+                               k, method, gt, ndof=1.0, tau_inv2=0.0,
+                               gamma=0.0, gn=None):
+    """Plain torch version of cell_megastep_planes: the same 8-tuple,
+    with exact divides."""
+    nx, ny, nz = cell_dim
+    nc = nx * ny * nz
+    dt = _as_scalar(dt, gp)
+    hdt = 0.5 * dt
+    tinv2 = _as_scalar(tau_inv2, gp)
+    gamma = _as_scalar(gamma, gp)
+    xi = _as_scalar(xi, gp)
+    eta = _as_scalar(eta, gp)
+    it3 = _inv_thresholds(skin, gp)
+    kt_table = torch.as_tensor(kt_table, dtype=gp.dtype, device=gp.device)
+    tag_cells = gt.reshape(nc, C)
+    p, v, f = gp.clone(), gv.clone(), gf.clone()
+    w = gw[None]
+    ke2 = (v * v * gm[None]).sum()
+    mdmax = torch.zeros((), dtype=gp.dtype, device=gp.device)
+    for si in range(k):
+        if method == 'nvt':
+            kT = kt_table[si]
+            xi1 = xi + hdt * (ke2 / (ndof * kT) - 1.0) * tinv2
+            s = torch.exp(-hdt * xi1)
+            eta = eta + dt * xi1
+        else:
+            xi1 = xi
+            s = 1.0
+        v = s * v + hdt * f * w
+        p = p + dt * v
+        d = p - gr
+        md2 = mdmax
+        for a in range(3):
+            q = (d[a] * d[a]).reshape(-1)
+            m1 = q.max()
+            eq = q == m1
+            tie = eq.sum() > 1
+            m2 = torch.clamp(torch.where(eq, -1.0, q).max(), min=0.0)
+            m2 = torch.where(tie, m1, m2)
+            sd = 0.5 * (torch.sqrt(m1 * it3[a]) + torch.sqrt(m2 * it3[a]))
+            md2 = torch.maximum(md2, sd * sd)
+        mdmax = md2
+        F = _stencil_plain(_planes_to_cells(p, nc, C), tag_cells, cell_dim,
+                           cell_shift, params_vec, want_pv=False)[0]
+        F = _cells_to_planes(F, cell_dim, C)
+        if method == 'langevin':
+            f = F + gn[si] - gamma * v
+            v = v + hdt * f * w
+            xi = xi1
+            continue
+        f = F
+        v = v + hdt * f * w
+        if method == 'nvt':
+            v = v * s
+            ke2 = (v * v * gm[None]).sum()
+            xi = xi1 + hdt * (ke2 / (ndof * kT) - 1.0) * tinv2
+        else:
+            xi = xi1
+    return p, v, f, xi, eta, mdmax > 1.0, ke2, mdmax
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+
+
+_LIB = []
+
+
+def _kernel_lib():
+    """The kernel library, built and loaded at the first launch."""
+    if not _LIB:
+        from ._build import load
+        _LIB.append(load())
+    return _LIB[0]
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _require_cuda_inputs(*tensors):
+    for t in tensors:
+        if t.device.type != 'cuda':
+            raise ValueError("kernel inputs must all lie on the CUDA device")
+
+
+def _check_shapes(C, **shapes):
+    """Raise unless every named tensor has its expected shape; the
+    kernels index by these shapes."""
+    if C > MAX_C:
+        raise NotImplementedError(f"cell capacity C={C} exceeds the "
+                                  f"kernels' limit of {MAX_C}")
+    for name, (t, want) in shapes.items():
+        if tuple(t.shape) != tuple(want):
+            raise ValueError(f"{name}: expected shape {tuple(want)}, got "
+                             f"{tuple(t.shape)}")
+
+
+def _check_pair_args(cell_pos, cell_tag, cell_dim, cell_shift, params_vec,
+                     C):
+    nc = int(np.prod(cell_dim))
+    _check_shapes(C, cell_pos=(cell_pos, (nc, C, 3)),
+                  cell_tag=(cell_tag, (nc, C)),
+                  cell_shift=(cell_shift, (nc, 27, 3)))
+    if params_vec.numel() < 4:
+        raise ValueError("params_vec needs [rc2, e_shift, lj1, lj2, ...]")
+
+
+def _device_of(t):
+    if t.device.type not in ('cuda', 'cpu'):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device.type
+
+
+def cell_pair_plane(cell_pos, cell_dim, cell_shift, params_vec, *, C,
+                    cell_tag, recip='div'):
+    """Forces (nc, C, 3) of the full 27-cell LJ stencil.  params_vec =
+    [rc2, e_shift, lj1, lj2, ...].  recip='approx' takes the fast
+    reciprocal on the card, 'div' the exact divide."""
+    approx = _recip_flag(recip)
+    _check_pair_args(cell_pos, cell_tag, cell_dim, cell_shift, params_vec, C)
+    if _device_of(cell_pos) == 'cpu':
+        return cell_pair_plane_plain(cell_pos, cell_dim, cell_shift,
+                                     params_vec, cell_tag=cell_tag)
+    _require_cuda_inputs(cell_tag, cell_shift, params_vec)
+    lib = _kernel_lib()
+    pos = cell_pos.contiguous().float()
+    tag = cell_tag.contiguous().to(torch.int32)
+    sh = cell_shift.contiguous().float()
+    par = params_vec.contiguous().float()
+    out = torch.empty_like(pos)
+    nx, ny, nz = cell_dim
+    err = lib.lib.hoomd_cell_pair_plane(
+        pos.data_ptr(), 3, 1, tag.data_ptr(), sh.data_ptr(), par.data_ptr(),
+        out.data_ptr(), 3, 1, nx, ny, nz, C, approx, _stream(pos))
+    lib.check(err, 'cell_pair_plane')
+    cell_pair_plane.launches += 1
+    return out
+
+
+cell_pair_plane.launches = 0
+
+
+def cell_pair_planar(cell_pos, cell_dim, cell_shift, params_vec, *, C,
+                     cell_tag):
+    """Forces, per-particle PE (1/2 per pair) and the 6-component virial
+    (1/2 per pair, order xx, xy, xz, yy, yz, zz) of the single-type LJ
+    stencil."""
+    _check_pair_args(cell_pos, cell_tag, cell_dim, cell_shift, params_vec, C)
+    if _device_of(cell_pos) == 'cpu':
+        return cell_pair_planar_plain(cell_pos, cell_dim, cell_shift,
+                                      params_vec, cell_tag=cell_tag)
+    _require_cuda_inputs(cell_tag, cell_shift, params_vec)
+    lib = _kernel_lib()
+    pos = cell_pos.contiguous().float()
+    tag = cell_tag.contiguous().to(torch.int32)
+    sh = cell_shift.contiguous().float()
+    par = params_vec.contiguous().float()
+    nc = pos.shape[0]
+    F = torch.empty_like(pos)
+    pe = torch.empty((nc, C), dtype=pos.dtype, device=pos.device)
+    vir = torch.empty((nc, C, 6), dtype=pos.dtype, device=pos.device)
+    nx, ny, nz = cell_dim
+    err = lib.lib.hoomd_cell_pair_planar(
+        pos.data_ptr(), 3, 1, tag.data_ptr(), sh.data_ptr(), par.data_ptr(),
+        F.data_ptr(), pe.data_ptr(), vir.data_ptr(), nx, ny, nz, C,
+        _stream(pos))
+    lib.check(err, 'cell_pair_planar')
+    cell_pair_planar.launches += 1
+    return F, pe, vir
+
+
+cell_pair_planar.launches = 0
+
+_METHODS = {'nve': 0, 'nvt': 1, 'langevin': 2}
+
+
+def cell_megastep_planes(gp, gv, gf, gw, gm, gr, cell_dim, cell_shift,
+                         params_vec, dt, kt_table, xi, eta, skin, *, C, k,
+                         method, gt, recip='approx', ndof=1.0, tau_inv2=0.0,
+                         gamma=0.0, gn=None):
+    """k fused velocity-Verlet steps on plane-layout state.
+
+    gp/gv/gf/gr (3, nz, ny, nx, C); gw = 1/m and gm = m (nz, ny, nx, C);
+    gt the tag planes (nz, ny, nx, C), which give slot validity;
+    kt_table (k,) per-step kT; xi/eta the Nose-Hoover scalars; skin a
+    scalar or per-axis (3,) Verlet skin.  method 'langevin' takes gamma
+    and gn, the (k, 3, nz, ny, nx, C) amplitude-scaled noise planes.
+    Returns (pos, vel, frc, xi, eta, danger, ke2, mdmax) as in the JAX
+    package: danger is mdmax > 1, mdmax the largest normalised drift
+    ratio ((d1 + d2) / skin_a)^2 of the window.  recip='approx' takes
+    the fast reciprocal on the card, 'div' the exact divide."""
+    approx = _recip_flag(recip)
+    if method not in _METHODS:
+        raise NotImplementedError(f"megastep method {method!r}")
+    if method == 'langevin' and gn is None:
+        raise ValueError("langevin needs the noise planes gn")
+    nx, ny, nz = cell_dim
+    p5, p4 = (3, nz, ny, nx, C), (nz, ny, nx, C)
+    shapes = dict(gp=(gp, p5), gv=(gv, p5), gf=(gf, p5), gr=(gr, p5),
+                  gw=(gw, p4), gm=(gm, p4), gt=(gt, p4),
+                  cell_shift=(cell_shift, (nx * ny * nz, 27, 3)),
+                  kt_table=(torch.as_tensor(kt_table).reshape(-1), (k,)))
+    if method == 'langevin':
+        shapes['gn'] = (gn, (k,) + p5)
+    _check_shapes(C, **shapes)
+    if _device_of(gp) == 'cpu':
+        return cell_megastep_planes_plain(
+            gp, gv, gf, gw, gm, gr, cell_dim, cell_shift, params_vec, dt,
+            kt_table, xi, eta, skin, C=C, k=k, method=method, gt=gt,
+            ndof=ndof, tau_inv2=tau_inv2, gamma=gamma, gn=gn)
+    _require_cuda_inputs(gv, gf, gw, gm, gr, gt, cell_shift, params_vec)
+    lib = _kernel_lib()
+    dev = gp.device
+    f32 = torch.float32
+    p = gp.contiguous().to(f32).clone()
+    v = gv.contiguous().to(f32).clone()
+    f = gf.contiguous().to(f32).clone()
+    w = gw.contiguous().to(f32)
+    m = gm.contiguous().to(f32)
+    r = gr.contiguous().to(f32)
+    tag = gt.contiguous().to(torch.int32)
+    sh = cell_shift.contiguous().to(f32)
+    it3 = _inv_thresholds(skin, p)
+    host = [dt, tau_inv2, gamma, ndof]
+    if all(isinstance(x, (int, float)) for x in host):
+        dts, ti2, gam, nd = torch.tensor(host, dtype=f32).to(
+            dev, non_blocking=True)
+    else:
+        dts, ti2, gam, nd = (_as_scalar(x, p) for x in host)
+    pv = params_vec.to(f32)
+    mp = torch.stack([pv[0], pv[2], pv[3], dts, ti2, it3[0], it3[1],
+                      it3[2], gam, nd]).contiguous()
+    z = torch.zeros((), dtype=f32, device=dev)
+    sc = torch.stack([_as_scalar(xi, p), _as_scalar(eta, p), z,
+                      z]).contiguous()
+    kt = torch.as_tensor(kt_table, dtype=f32, device=dev).reshape(
+        -1).contiguous()
+    M = p[0].numel()
+    nb = -(-M // 256)
+    dpart = torch.empty((nb * 3 * 3,), dtype=f32, device=dev)
+    kpart = torch.empty((max(nb, nx * ny * nz),), dtype=f32, device=dev)
+    noise = gn.contiguous().to(f32) if method == 'langevin' else None
+    err = lib.lib.hoomd_megastep(
+        p.data_ptr(), v.data_ptr(), f.data_ptr(), w.data_ptr(), m.data_ptr(),
+        r.data_ptr(), tag.data_ptr(), sh.data_ptr(), mp.data_ptr(),
+        sc.data_ptr(), kt.data_ptr(),
+        noise.data_ptr() if noise is not None else None,
+        dpart.data_ptr(), kpart.data_ptr(), nx, ny, nz, C, int(k),
+        _METHODS[method], approx, _stream(p))
+    lib.check(err, 'cell_megastep_planes')
+    cell_megastep_planes.launches += 1
+    return p, v, f, sc[0], sc[1], sc[3] > 1.0, sc[2], sc[3]
+
+
+cell_megastep_planes.launches = 0
+
+KERNEL_WRAPPERS = (cell_pair_plane, cell_pair_planar, cell_megastep_planes)
+
+
+def reset_launch_counts():
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0
+
+
+def launch_counts():
+    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+
+
+# ---------------------------------------------------------------------------
+# independent reference: the JAX package's XLA formulation, in torch
+
+
+def cell_pair_xla(cell_pos, cell_dim, cell_shift, params_vec):
+    """Roll-and-matmul formulation of the LJ cell-pair computation
+    (pallas_pair.py cell_pair_xla): expanded r^2, padding excluded by
+    magnitude and the self pair by r^2 > 1e-3.  Returns (F, pe, vir)."""
+    nc, C, _ = cell_pos.shape
+    nx, ny, nz = cell_dim
+    g3 = cell_pos.reshape(nz, ny, nx, C, 3)
+    blocks = []
+    k = 0
+    for dz in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                nb = torch.roll(g3, shifts=(-dz, -dy, -dx), dims=(0, 1, 2))
+                blocks.append(nb.reshape(nc, C, 3) + cell_shift[:, k, None, :])
+                k += 1
+    xj = torch.cat(blocks, dim=1)                          # (nc, 27C, 3)
+    rc2, e_shift, p = _lj_params(params_vec)
+    xi = cell_pos
+    xi2 = (xi * xi).sum(-1)
+    xj2 = (xj * xj).sum(-1)
+    S = torch.einsum('ncd,nkd->nck', xi, xj)
+    r2 = xi2[:, :, None] + xj2[:, None, :] - 2.0 * S
+    finite = (xi2[:, :, None] < 1e16) & (xj2[:, None, :] < 1e16)
+    valid = (r2 > 1e-3) & (r2 < rc2) & finite
+    r2s = torch.where(valid, r2, 1.0)
+    f_raw, e_raw = pair_eval.lj.energy_force(r2s, p)
+    fdivr = torch.where(valid, f_raw, 0.0)
+    e = torch.where(valid, e_raw - e_shift, 0.0)
+    w = fdivr.sum(2)
+    fxj = torch.einsum('nck,nkd->ncd', fdivr, xj)
+    F = w[:, :, None] * xi - fxj
+    pe = 0.5 * e.sum(2)
+    pairs = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
+    xj_sq = torch.stack([xj[..., a] * xj[..., b] for a, b in pairs], -1)
+    fq = torch.einsum('nck,nkp->ncp', fdivr, xj_sq)
+    vir = torch.stack(
+        [w * xi[..., a] * xi[..., b] - xi[..., a] * fxj[..., b]
+         - xi[..., b] * fxj[..., a] + fq[..., kk]
+         for kk, (a, b) in enumerate(pairs)], dim=-1)
+    return F, pe, 0.5 * vir

@@ -1,0 +1,453 @@
+"""Cell-major single-type LJ engine (counterpart of hoomd_tpu/ops/fast_lj.py).
+
+The state lives in cell-major layout (ncells, C, ...): drift, kick and
+thermostat are elementwise on padded slots, forces come from the cell
+stencil kernels (ops/cell_pair.py), and positions stay unwrapped between
+rebuilds so the stencil image shifts stay exact.  A per-axis drift
+monitor inside every step raises a sticky ``danger`` flag when a pair
+could have been missed; the host (System._run_fast_chunk) then retries
+the segment with a shorter rebuild cadence.
+
+Differences from the JAX engine, by design:
+  * one rebin: the stable sort rebin at every N (the JAX package uses an
+    XLA one-hot "xsel" rebin at N >= 4096);
+  * no impl switch: on CUDA the three kernels always run;
+  * the loops are plain Python loops around kernel launches, so the host
+    knows the timestep and every window count without a device fetch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .._config import PAD_COORD, int_dtype
+from .. import variant as variant_mod
+from . import hashrng
+from .cell_pair import (build_cell_shifts, cell_megastep_planes,
+                        cell_pair_plane, cell_pair_planar)
+
+
+@dataclass
+class FastCarry:
+    pos: torch.Tensor        # (nc, C, 3) unwrapped since last rebuild
+    vel: torch.Tensor        # (nc, C, 3)
+    frc: torch.Tensor        # (nc, C, 3)
+    pe: torch.Tensor         # (nc, C)
+    vir: torch.Tensor        # (nc, C, 6)
+    img: torch.Tensor        # (nc, C, 3) int
+    tag: torch.Tensor        # (nc, C) int, -1 padding
+    typ: torch.Tensor        # (nc, C) int, 0 padding
+    mass: torch.Tensor       # (nc, C)
+    ref_pos: torch.Tensor    # (nc, C, 3) at last rebuild
+    timestep: int
+    aux: dict                # thermostat variables (0-d tensors)
+    overflow: torch.Tensor   # () bool sticky: a cell held more than C
+    n_rebuilds: int
+    danger: torch.Tensor     # () bool sticky: skin crossed mid-window
+    since: int               # steps since last rebuild
+    wmax: torch.Tensor       # () largest normalised drift ratio seen
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+
+def plan_fast_lj(N, box_L, rcut, r_buff, conservative=False, frac=None):
+    """Static planning: cell grid and capacity.  Host numpy, the JAX
+    package's planner verbatim, so both give the same (cell_dim, nc, C).
+
+    The planner scans every feasible grid (width >= rcut + r_buff) and
+    picks the one with the fewest padded slots; C covers the mean
+    occupancy plus ~4 sigma of dense-liquid count fluctuations (plus an
+    absolute pad of 2 when conservative), and never less than the real
+    occupancy of ``frac`` (fractional positions) when given.  Its 3C <= 128
+    rule is the TPU's lane tile; it is kept so the two packages plan the
+    same grid, and C beyond it only changes the choice of grid here.
+    (The JAX planner's max_C cap and HOOMD_TPU_FAST_GRID override have
+    no caller in the port and are left out.)"""
+    from itertools import product
+    w0 = rcut + r_buff
+    L = np.asarray(box_L, float)
+    dmax = tuple(max(1, int(np.floor(l / w0))) for l in L)
+
+    def cap_for(mean):
+        C = int(np.ceil(mean + 2.0 * np.sqrt(mean)))
+        if conservative:
+            C += 2
+        return max(16, ((C + 7) // 8) * 8)
+
+    _axcache = {}
+
+    def _ax_idx(axis, r):
+        key = (axis, r)
+        if key not in _axcache:
+            _axcache[key] = np.minimum(
+                (frac[:, axis] * r).astype(np.int64), r - 1)
+        return _axcache[key]
+
+    def maxocc_of(cdim):
+        flat = (_ax_idx(0, cdim[0]) + cdim[0]
+                * (_ax_idx(1, cdim[1])
+                   + cdim[1] * _ax_idx(2, cdim[2])))
+        return int(np.bincount(flat,
+                               minlength=int(np.prod(cdim))).max())
+
+    def cap_round(c):
+        return max(16, ((int(c) + 7) // 8) * 8)
+
+    ranges = [range(1, d + 1) for d in dmax]
+    cands = []
+    for cdim in product(*ranges):
+        nc = int(np.prod(cdim))
+        C = cap_for(N / nc)
+        key = (min(cdim) < 3, nc * C, -(-cdim[1] // 7), cdim[2],
+               cdim[1])
+        cands.append((key, cdim, nc, C))
+    cands.sort(key=lambda t: t[0])
+    best = None
+    for key, cdim, nc, C in cands:
+        if best is not None:
+            if (key[0], nc * C) > (best[0][0], best[0][1]):
+                break
+        if frac is not None:
+            C = max(C, cap_round(maxocc_of(cdim) + 1))
+            key = (key[0], nc * C) + key[2:]
+        if 3 * C > 128:
+            continue
+        if best is None or key < best[0]:
+            best = (key, cdim, nc, C)
+    if best is None:
+        nc = int(np.prod(dmax))
+        C = cap_for(N / nc)
+        if frac is not None:
+            C = max(C, cap_round(maxocc_of(dmax) + 1))
+        return dmax, nc, C
+    _, cell_dim, ncells, C = best
+    return cell_dim, ncells, C
+
+
+def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
+                        method_seed, k_rebuild=4, device='cpu'):
+    """Returns (to_fast, refresh_forces, run, to_state).
+
+    dyn layout: {'pv': device tensor [rc2, e_shift, lj1, lj2, rcut],
+    'dt': float, 'kT': packed variant on the device, 'tau': float,
+    'gamma': float}."""
+    idt = int_dtype()
+    fdt = torch.float32
+    dev = torch.device(device)
+    nc = int(np.prod(cell_dim))
+    M = nc * C
+    nx, ny, nz = cell_dim
+    plane4 = (nz, ny, nx, C)
+    L_np = np.asarray(box.L.cpu().numpy(), dtype=np.float64)
+    # per-axis Verlet skins: stencil coverage is per axis, so each axis
+    # earns its own danger budget (the real slack of the cell width)
+    skin3_np = np.maximum(L_np / np.asarray(cell_dim, float) - rcut, r_buff)
+    skin3 = torch.as_tensor(skin3_np, dtype=fdt, device=dev)
+    inv_thr3 = 1.0 / (0.5 * skin3) ** 2
+    _, shift_np = build_cell_shifts(cell_dim, L_np)
+    shifts = torch.as_tensor(shift_np, dtype=fdt, device=dev)
+    nxyz = torch.as_tensor(cell_dim, dtype=fdt, device=dev)
+    nxyz_i = torch.as_tensor(cell_dim, dtype=torch.int64, device=dev)
+    ndof = 3.0 * N
+    recip = 'approx' if method_kind in ('nvt', 'langevin') else 'div'
+
+    def _cid_flat(pos_w):
+        f = box.make_fraction(pos_w)
+        f = f - torch.floor(f)
+        c3 = torch.minimum(torch.clamp((f * nxyz).to(torch.int64), min=0),
+                           nxyz_i - 1)
+        return c3[..., 0] + nx * (c3[..., 1] + ny * c3[..., 2])
+
+    # one padding row of the rebin payload: pos, vel, img, tag, typ, mass
+    # (+ frc); the int columns are float32 bit patterns
+    _fill = torch.tensor([PAD_COORD] * 3 + [0.0] * 3, dtype=fdt)
+    _fill_i = torch.tensor([0, 0, 0, -1, 0], dtype=idt).view(fdt)
+    fill_row = torch.cat([_fill, _fill_i, torch.ones(1, dtype=fdt)]).to(dev)
+
+    def _rebin(pos_f, vel_f, img_f, tag_f, typ_f, mass_f, frc_f=None):
+        """Flat (M, ...) arrays -> fresh cell-major layout, by one stable
+        sort on the cell id: rank within a cell from a cummax of segment
+        starts, one scatter of all columns (ints as float32 bit
+        patterns) into padded slots, and the overflow flag."""
+        valid = tag_f >= 0
+        pos_w, img_w = box.wrap(pos_f, img_f)
+        cid = torch.where(valid, _cid_flat(pos_w), nc)
+        scid, order = torch.sort(cid, stable=True)
+        idx = torch.arange(M, device=dev)
+        start = torch.ones(M, dtype=torch.bool, device=dev)
+        start[1:] = scid[1:] != scid[:-1]
+        first = torch.cummax(torch.where(start, idx, 0), 0).values
+        rank = idx - first
+        ok = (rank < C) & (scid < nc)
+        slot = torch.where(ok, scid * C + rank, M)
+        ovf = ((scid < nc) & (rank >= C)).any()
+        cols = [pos_w, vel_f, img_w.to(idt).view(fdt),
+                tag_f.to(idt).view(fdt)[:, None],
+                typ_f.to(idt).view(fdt)[:, None], mass_f[:, None]]
+        fill = fill_row
+        if frc_f is not None:
+            cols.append(frc_f)
+            fill = torch.cat([fill_row, torch.zeros(3, dtype=fdt,
+                                                    device=dev)])
+        out = fill.repeat(M + 1, 1)
+        out[slot] = torch.cat(cols, dim=1)[order]
+        out = out[:M]
+        res = (out[:, 0:3], out[:, 3:6], out[:, 6:9].contiguous().view(idt),
+               out[:, 9].contiguous().view(idt),
+               out[:, 10].contiguous().view(idt), out[:, 11])
+        if frc_f is not None:
+            res = res + (out[:, 12:15],)
+        return res + (ovf,)
+
+    def _forces_plane(pos_cells, tag_cells, dyn):
+        return cell_pair_plane(pos_cells, cell_dim, shifts, dyn['pv'], C=C,
+                               cell_tag=tag_cells, recip=recip)
+
+    def _kt(dyn, ts):
+        return variant_mod.eval_packed(dyn['kT'], ts)
+
+    def one_step(c: FastCarry, dyn):
+        dt = dyn['dt']
+        valid = (c.tag >= 0)[..., None]
+        minv = 1.0 / c.mass[..., None]
+        aux = dict(c.aux)
+        vel = c.vel
+        if method_kind == 'nvt':
+            kT0 = _kt(dyn, c.timestep)
+            ke2 = torch.where(valid, c.mass[..., None] * vel * vel,
+                              0.0).sum()
+            T = ke2 / ndof
+            xi = aux['xi'] + 0.5 * dt * (T / kT0 - 1.0) / dyn['tau'] ** 2
+            s = torch.exp(-0.5 * dt * xi)
+            vel = torch.where(valid, vel * s, vel)
+            aux['xi'] = xi
+            aux['eta'] = aux['eta'] + dt * xi
+        vel = torch.where(valid, vel + 0.5 * dt * c.frc * minv, vel)
+        pos = torch.where(valid, c.pos + dt * vel, c.pos)  # no wrap here
+
+        # per-axis exact pair bound: danger iff the two largest drifts
+        # along one axis sum past that axis' skin
+        d = pos - c.ref_pos
+        md2 = torch.zeros((), dtype=fdt, device=dev)
+        dv = torch.where(valid, d, 0.0)
+        for a in range(3):
+            q = (dv[..., a] * dv[..., a]).reshape(-1)
+            m1 = q.max()
+            eq = q == m1
+            tie = eq.sum() > 1
+            m2 = torch.clamp(torch.where(eq, -1.0, q).max(), min=0.0)
+            m2 = torch.where(tie, m1, m2)
+            sd = 0.5 * (torch.sqrt(m1 * inv_thr3[a])
+                        + torch.sqrt(m2 * inv_thr3[a]))
+            md2 = torch.maximum(md2, sd * sd)
+        danger = c.danger | (md2 > 1.0)
+        wmax = torch.maximum(c.wmax, md2)
+
+        frc = torch.where(valid, _forces_plane(pos, c.tag, dyn), 0.0)
+        if method_kind == 'langevin':
+            kT = _kt(dyn, c.timestep)
+            u = torch.stack([hashrng.uniform_pm1(method_seed, c.timestep,
+                                                 c.tag, salt=ax)
+                             for ax in (1, 2, 3)], dim=-1)
+            noise = torch.sqrt(6.0 * dyn['gamma'] * kT / dt) * u
+            f_tot = torch.where(valid, frc + noise - dyn['gamma'] * vel, 0.0)
+            vel = torch.where(valid, vel + 0.5 * dt * f_tot * minv, vel)
+            frc = f_tot
+        else:
+            vel = torch.where(valid, vel + 0.5 * dt * frc * minv, vel)
+            if method_kind == 'nvt':
+                kT0 = _kt(dyn, c.timestep)
+                xi = aux['xi']
+                s = torch.exp(-0.5 * dt * xi)
+                vel = torch.where(valid, vel * s, vel)
+                ke2 = torch.where(valid, c.mass[..., None] * vel * vel,
+                                  0.0).sum()
+                T = ke2 / ndof
+                aux['xi'] = xi + 0.5 * dt * (T / kT0 - 1.0) \
+                    / dyn['tau'] ** 2
+        return c.replace(pos=pos, vel=vel, frc=frc, timestep=c.timestep + 1,
+                         aux=aux, danger=danger, since=c.since + 1,
+                         wmax=wmax)
+
+    def _to_planes(a):
+        return a.reshape(nz, ny, nx, C, 3).permute(4, 0, 1, 2, 3)
+
+    def _from_planes(a):
+        return a.permute(1, 2, 3, 4, 0).reshape(nc, C, 3)
+
+    def _noise_planes(tag_p, dyn, ts, k):
+        """(k, 3, nz, ny, nx, C) Langevin noise planes for the window
+        starting at timestep ts: the per-(seed, tag, step) counter hash
+        (identical bits to one_step), amplitude sqrt(6 gamma kT(t) / dt),
+        zero on padding."""
+        steps = torch.arange(ts, ts + k, device=dev)
+        kt = _kt(dyn, steps)
+        amp = torch.sqrt(6.0 * dyn['gamma'] * kt / dyn['dt'])       # (k,)
+        u = torch.stack([hashrng.uniform_pm1(method_seed,
+                                             steps.reshape(k, 1, 1, 1, 1),
+                                             tag_p[None], salt=ax)
+                         for ax in (1, 2, 3)], dim=1)
+        valid = (tag_p >= 0).to(fdt)
+        return amp.reshape(k, 1, 1, 1, 1, 1) * u * valid[None, None]
+
+    def mega_windows(c: FastCarry, dyn, nw, k):
+        """nw chained megastep windows of k fused steps each, the state in
+        plane layout throughout; drift is monitored against c.ref_pos, so
+        the danger check stays exact across chained windows."""
+        if method_kind == 'nvt':
+            ti2 = 1.0 / dyn['tau'] ** 2
+        else:
+            ti2 = 0.0
+        aux = dict(c.aux)
+        gw = (1.0 / c.mass).reshape(plane4)
+        gm = c.mass.reshape(plane4)
+        gt = c.tag.reshape(plane4)
+        gr = _to_planes(c.ref_pos).contiguous()
+        gp = _to_planes(c.pos).contiguous()
+        gv = _to_planes(c.vel).contiguous()
+        gf = _to_planes(c.frc).contiguous()
+        z = torch.zeros((), dtype=fdt, device=dev)
+        xi = aux.get('xi', z)
+        eta = aux.get('eta', z)
+        danger, wmax, ts = c.danger, c.wmax, c.timestep
+        for _ in range(nw):
+            if method_kind in ('nvt', 'langevin'):
+                kt = _kt(dyn, torch.arange(ts, ts + k, device=dev))
+            else:
+                kt = torch.ones((k,), dtype=fdt, device=dev)
+            gn = (_noise_planes(gt, dyn, ts, k)
+                  if method_kind == 'langevin' else None)
+            gp, gv, gf, xi, eta, d, _, mdmax = cell_megastep_planes(
+                gp, gv, gf, gw, gm, gr, cell_dim, shifts, dyn['pv'],
+                dyn['dt'], kt, xi, eta, skin3, C=C, k=k, method=method_kind,
+                gt=gt, recip=recip, ndof=ndof, tau_inv2=ti2,
+                gamma=dyn['gamma'], gn=gn)
+            danger = danger | d
+            wmax = torch.maximum(wmax, mdmax)
+            ts += k
+        if method_kind == 'nvt':
+            aux['xi'] = xi
+            aux['eta'] = eta
+        return c.replace(pos=_from_planes(gp), vel=_from_planes(gv),
+                         frc=_from_planes(gf), aux=aux, danger=danger,
+                         wmax=wmax, timestep=ts, since=c.since + nw * k)
+
+    def rebuild_carry(c: FastCarry):
+        """Re-bin into fresh cell-major layout; forces ride the sort so the
+        next half-kick sees them in slot order."""
+        p, v, im, t, ty, m, f, o = _rebin(
+            c.pos.reshape(M, 3), c.vel.reshape(M, 3), c.img.reshape(M, 3),
+            c.tag.reshape(M), c.typ.reshape(M), c.mass.reshape(M),
+            c.frc.reshape(M, 3))
+        p = p.reshape(nc, C, 3)
+        return c.replace(
+            pos=p, vel=v.reshape(nc, C, 3), img=im.reshape(nc, C, 3),
+            tag=t.reshape(nc, C), typ=ty.reshape(nc, C),
+            mass=m.reshape(nc, C), ref_pos=p, frc=f.reshape(nc, C, 3),
+            overflow=c.overflow | o, n_rebuilds=c.n_rebuilds + 1, since=0)
+
+    def run_wins(c, dyn, nwin, k):
+        return mega_windows(c, dyn, nwin, k)
+
+    def run_steps(c, dyn, m):
+        for _ in range(m):
+            c = one_step(c, dyn)
+        return c
+
+    def run_cycles(c, dyn, ncycles, nwin, k):
+        """ncycles rebuild cycles of nwin megastep windows each."""
+        for _ in range(ncycles):
+            c = rebuild_carry(mega_windows(c, dyn, nwin, k))
+        return c
+
+    def run(carry, dyn, nsteps, nwin=1):
+        """Rebuild cycles of k_rebuild * nwin steps, honoring the carry's
+        steps-since-rebuild; head and tail run as whole windows plus
+        single steps."""
+        k = k_rebuild
+        nwin = max(int(nwin), 1)
+        cadence = k * nwin
+        left = int(nsteps)
+        since = carry.since
+        if since > 0 and since + left > cadence:
+            head = max(cadence - since, 0)
+            if head > 0:
+                hw, hrem = divmod(head, k)
+                if hw > 0:
+                    carry = run_wins(carry, dyn, hw, k)
+                if hrem > 0:
+                    carry = run_steps(carry, dyn, hrem)
+                left -= head
+            carry = rebuild_carry(carry)
+        nb = left // cadence
+        if nb > 0:
+            carry = run_cycles(carry, dyn, nb, nwin, k)
+            left -= nb * cadence
+        tw, trem = divmod(left, k)
+        if tw > 0:
+            carry = run_wins(carry, dyn, tw, k)
+        if trem > 0:
+            carry = run_steps(carry, dyn, trem)
+        return carry
+
+    def to_fast(state, aux):
+        pad = M - N
+
+        def cat(a, fill):
+            return torch.cat([a, torch.full((pad,) + a.shape[1:], fill,
+                                            dtype=a.dtype, device=dev)])
+        p, v, im, t, ty, m, ovf = _rebin(
+            cat(state.pos, PAD_COORD), cat(state.vel, 0.0),
+            cat(state.image, 0), cat(state.tag, -1),
+            cat(state.typeid.to(idt), 0), cat(state.mass, 1.0))
+        shape3 = (nc, C, 3)
+        return FastCarry(
+            pos=p.reshape(shape3), vel=v.reshape(shape3),
+            frc=torch.zeros(shape3, dtype=fdt, device=dev),
+            pe=torch.zeros((nc, C), dtype=fdt, device=dev),
+            vir=torch.zeros((nc, C, 6), dtype=fdt, device=dev),
+            img=im.reshape(shape3), tag=t.reshape(nc, C),
+            typ=ty.reshape(nc, C), mass=m.reshape(nc, C),
+            ref_pos=p.reshape(shape3), timestep=state.timestep, aux=aux,
+            overflow=ovf, n_rebuilds=0,
+            danger=torch.zeros((), dtype=torch.bool, device=dev), since=0,
+            wmax=torch.zeros((), dtype=fdt, device=dev))
+
+    def refresh_forces(carry, dyn):
+        frc, pe, vir = cell_pair_planar(carry.pos, cell_dim, shifts,
+                                        dyn['pv'], C=C, cell_tag=carry.tag)
+        valid = (carry.tag >= 0)[..., None]
+        return carry.replace(frc=torch.where(valid, frc, 0.0), pe=pe,
+                             vir=vir)
+
+    def to_state(carry, state):
+        """Scatter the cell-major carry back into the State by tag."""
+        tag_f = carry.tag.reshape(M).long()
+        valid = tag_f >= 0
+        dst = torch.where(valid, state.rtag.long()[tag_f.clamp(min=0)], N)
+
+        def scat(dest, src):
+            out = torch.cat([dest, dest[:1]])
+            out[dst] = src
+            return out[:N]
+        pos_w, img_w = box.wrap(carry.pos.reshape(M, 3),
+                                carry.img.reshape(M, 3))
+        return state.replace(
+            pos=scat(state.pos, pos_w),
+            vel=scat(state.vel, carry.vel.reshape(M, 3)),
+            image=scat(state.image, img_w),
+            net_force=scat(state.net_force, carry.frc.reshape(M, 3)),
+            net_pe=scat(state.net_pe, carry.pe.reshape(M)),
+            net_virial=scat(state.net_virial, carry.vir.reshape(M, 6)),
+            timestep=carry.timestep)
+
+    run.rebuild = rebuild_carry
+    run.wins = run_wins
+    run.steps = run_steps
+    run.cycles = run_cycles
+    return to_fast, refresh_forces, run, to_state

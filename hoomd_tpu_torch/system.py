@@ -1,0 +1,480 @@
+"""System orchestration: the run loop (counterpart of hoomd_tpu/system.py).
+
+The slice runs one engine, the cell-major LJ engine of ops/fast_lj.py.
+A configuration outside it raises NotImplementedError naming the first
+gate it failed, in the order the JAX package's fast-engine gates check
+them; there is no general engine to fall back to yet.
+
+Between runs the authoritative particle data lives in the engine's carry;
+``state`` is materialized lazily when a host op reads it.  A chunk runs
+in segments, each followed by ONE packed device->host fetch of the
+control flags:
+  * capacity overflow  -> conservative replan, then larger C; retry;
+  * danger (a pair may have been missed) -> shorter rebuild cadence, or
+    a smaller kernel window k; retry from the segment's start;
+  * clean -> accept, and double the window count per rebuild cycle
+    (fast_m) up to 64, fast-tracked by the measured drift.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+
+import numpy as np
+import torch
+
+from .state import snapshot_from_state, state_from_snapshot
+
+
+class System:
+    """Holds the device state and the registered operations, and runs
+    them on the cell-major engine."""
+
+    def __init__(self, snapshot, device='cpu'):
+        self.device = torch.device(device)
+        self.snapshot_template = snapshot
+        self._fast_carry = None
+        self._fast_state_stale = False
+        self.state = state_from_snapshot(snapshot, self.device)
+        self.particle_types = list(snapshot.particles.types)
+        self.forces = []
+        self.nlists = []
+        self.methods = []
+        self.integrator_mode = None
+        self._program = None
+        self._dirty_flag = True
+        self._params_dirty = True
+        self._dyn = None
+        self._method_aux_by_obj = {}
+        self._grow = {}
+        self._forces_fresh = False
+
+    # -- state residency -----------------------------------------------------
+    @property
+    def state(self):
+        if self._fast_state_stale:
+            self._sync_fast_state()
+        return self._state_raw
+
+    @state.setter
+    def state(self, value):
+        self._state_raw = value
+        self._fast_carry = None
+        self._fast_state_stale = False
+
+    def _sync_fast_state(self):
+        self._fast_state_stale = False
+        fast = self._program['fast']
+        # the hot loop computes forces only; fill pe/virial first
+        self._fast_carry = fast['refresh'](self._fast_carry,
+                                           self._dyn['fast'])
+        self._state_raw = fast['to_state'](self._fast_carry,
+                                           self._state_raw)
+        self._method_aux_by_obj[fast['method']] = self._fast_carry.aux
+        self._forces_fresh = True
+
+    # -- registration ------------------------------------------------------
+    def add_force(self, f):
+        self.forces.append(f)
+        self._dirty()
+
+    def add_nlist(self, nl):
+        self.nlists.append(nl)
+        self._dirty()
+
+    def add_integration_method(self, m):
+        self.methods.append(m)
+        self._dirty()
+
+    def set_integrator_mode(self, mode):
+        self.integrator_mode = mode
+        self._dirty()
+
+    def _dirty(self):
+        self._dirty_flag = True
+        self._params_dirty = True
+        self._forces_fresh = False
+
+    def _refresh_params(self):
+        self._params_dirty = True
+
+    @property
+    def timestep(self):
+        if self._fast_state_stale:
+            return self._fast_carry.timestep
+        return self._state_raw.timestep
+
+    # -- program construction ------------------------------------------------
+    def _active(self):
+        forces = [f for f in self.forces if f.enabled]
+        methods = [m for m in self.methods if m.enabled]
+        return forces, methods
+
+    def _rebuild_program(self):
+        # a new plan may change the layout: materialize the carry first
+        if self._fast_state_stale:
+            self._sync_fast_state()
+        self._fast_carry = None
+        forces, methods = self._active()
+        fast = self._build_fast(forces, methods)
+        self._program = {'fast': fast, 'forces': forces, 'methods': methods}
+        for m in methods:
+            if m not in self._method_aux_by_obj:
+                self._method_aux_by_obj[m] = m._init_aux(self.device)
+        self._dirty_flag = False
+        self._params_dirty = True
+
+    def _build_fast(self, forces, methods):
+        """Gates + construction of the cell-major LJ engine."""
+        from .ops.cell_pair import MAX_C
+        from .ops.fast_lj import build_fast_lj_chunk, plan_fast_lj
+
+        def _decline(why):
+            raise NotImplementedError(
+                f"hoomd_tpu_torch runs the cell-major LJ engine only, and "
+                f"this configuration is outside it: {why}")
+        if len(forces) != 1:
+            _decline(f'{len(forces)} pair forces (need exactly 1)')
+        if len(methods) != 1:
+            _decline(f'{len(methods)} integration methods (need 1)')
+        if self.integrator_mode is None:
+            _decline('no integration mode (md.integrate.mode_standard)')
+        if self.integrator_mode.aniso:
+            _decline('anisotropic integration')
+        if len(self.particle_types) != 1:
+            _decline(f'{len(self.particle_types)} particle types (need 1)')
+        snap = self.snapshot_template
+        for name in ('bonds', 'angles', 'dihedrals', 'impropers',
+                     'constraints', 'pairs'):
+            if getattr(snap, name).N:
+                _decline(f'bonded topology ({name})')
+        if np.any(np.asarray(snap.particles.charge) != 0):
+            _decline('particle charges')
+        f = forces[0]
+        eval_name = getattr(getattr(f, '_evaluator', None), '__name__', None)
+        if eval_name != 'lj':
+            _decline(f'pair evaluator {eval_name!r} (need lj)')
+        if f.mode not in ('none', 'shift'):
+            _decline(f'pair shift mode {f.mode!r} (need none/shift)')
+        nl = f._nlist
+        if nl is None:
+            _decline('no neighbor list attached')
+        if (np.asarray(snap.particles.body) >= 0).any():
+            _decline('rigid/floppy body particles')
+        if np.any(np.asarray(snap.particles.moment_inertia) > 0):
+            _decline('rotational degrees of freedom (moment_inertia)')
+        m = methods[0]
+        kind = type(m).__name__
+        if kind not in ('nve', 'langevin', 'nvt'):
+            _decline(f'integration method {kind!r}')
+        if kind == 'nve' and (m.limit is not None or m.zero_force):
+            _decline('nve limit/zero_force options')
+        if kind == 'langevin' and (m.dscale or m.noiseless_t):
+            _decline('langevin dscale/noiseless options')
+        if len(m.group.member_tags) != self.state.N:
+            _decline('method group is not group.all()')
+        box = self._state_raw.box
+        L_np, tilt_np, _ = box.to_numpy()
+        if box.dimensions != 3 or np.abs(tilt_np).max() > 1e-12:
+            _decline('non-orthorhombic or 2D box')
+        N = self._state_raw.N
+        rcut = float(np.max(f._rcut_matrix(self.particle_types)))
+        r_buff = nl.r_buff
+        L = np.asarray(L_np, np.float64)
+        # small systems plan conservatively from the start, as the JAX
+        # package does; the planner sizes C from the real occupancy too
+        conservative = bool(self._grow.get('fast_plan_conservative')) \
+            or N < 4096
+        pos_h = self._state_raw.pos.cpu().numpy()
+        frac = (pos_h / L_np + 0.5) % 1.0
+        cell_dim, ncells, C = plan_fast_lj(N, L, rcut, r_buff,
+                                           conservative=conservative,
+                                           frac=frac)
+        if min(L / np.array(cell_dim)) < rcut + r_buff - 1e-9:
+            _decline('box too small for the 27-cell stencil')
+        C = max(C, self._grow.get('fast_C', 0))
+        if C > MAX_C:
+            _decline(f'cell capacity {C} above the kernels\' {MAX_C}')
+        # rebuild window k: steps for the fastest particle to cross half
+        # the skin, capped at 4; the danger retry makes any estimate safe
+        skin = max(float(min(L / np.asarray(cell_dim)) - rcut), r_buff)
+        vmax = float(torch.linalg.norm(self._state_raw.vel, dim=-1).max())
+        dt = float(self.integrator_mode.dt or 0.005)
+        k_dt = getattr(self, '_fast_k_dt', dt)
+        if abs(dt - k_dt) > 0.25 * max(k_dt, 1e-12):
+            self._reset_cadence()
+        k_est = int(0.55 * (0.5 * skin) / max(vmax * dt, 1e-12))
+        k_rebuild = next(q for q in (4, 3, 2, 1) if q <= max(k_est, 1))
+        cap = self._grow.get('fast_k_cap')
+        if cap:
+            k_rebuild = min(k_rebuild, cap)
+        self._fast_k_dt = dt
+        to_fast, refresh, run_chunk, to_state = build_fast_lj_chunk(
+            N=N, box=box, cell_dim=tuple(cell_dim), C=C, r_buff=r_buff,
+            rcut=rcut, method_kind=kind, method_seed=getattr(m, 'seed', 0),
+            k_rebuild=k_rebuild, device=self.device)
+        return {'to_fast': to_fast, 'refresh': refresh,
+                'run_chunk': run_chunk, 'to_state': to_state,
+                'C': C, 'cell_dim': tuple(cell_dim), 'method': m,
+                'kind': kind, 'rcut': rcut, 'k_rebuild': k_rebuild,
+                'skin': skin, 'pair_force': f}
+
+    def _reset_cadence(self):
+        for key in ('fast_m', 'fast_m_ceil', 'fast_m_pinned', 'fast_k_cap',
+                    'fast_m_probe_fails', 'fast_clean_segs'):
+            self._grow.pop(key, None)
+
+    def _pack_dyn(self):
+        p = self._program
+        dt_val = self.integrator_mode.dt if self.integrator_mode else 0.0
+        self._dyn = {
+            'dt': float(dt_val),
+            'forces': tuple(f._pack_params(self) for f in p['forces']),
+            'methods': tuple(m._pack_params(self) for m in p['methods']),
+        }
+        self._dyn['fast'] = self._fast_dyn()
+        self._params_dirty = False
+
+    def _fast_dyn(self):
+        fast = self._program['fast']
+        f = fast['pair_force']
+        fp = self._dyn['forces'][self._program['forces'].index(f)]
+        dev = self.device
+
+        def T(x):
+            return torch.as_tensor(np.float32(x), device=dev)
+        rc = T(fp['rcut'][0, 0])
+        rc2 = rc * rc
+        scal = {k: T(v[0, 0]) for k, v in fp['tables'].items()}
+        scal['rcut'] = rc
+        if f.mode == 'shift':
+            _, e_shift = f._evaluator.energy_force(rc2, scal)
+        else:
+            e_shift = torch.zeros((), dtype=torch.float32, device=dev)
+        pnames = tuple(sorted(fp['tables'].keys())) + ('rcut',)
+        pv = torch.stack([rc2, e_shift] + [scal[k] for k in pnames])
+        mp = self._dyn['methods'][0]
+        out = {'pv': pv, 'dt': self._dyn['dt']}
+        if fast['kind'] in ('langevin', 'nvt'):
+            out['kT'] = mp['kT']
+        else:
+            out['kT'] = (torch.zeros((1,), device=dev),
+                         torch.ones((1,), device=dev))
+        out['tau'] = float(mp.get('tau', 1.0))
+        gam = mp.get('gamma')
+        out['gamma'] = float(np.float32(gam[0])) if gam is not None else 1.0
+        return out
+
+    def _ensure_ready(self):
+        if self._program is None or self._dirty_flag:
+            self._rebuild_program()
+        if self._params_dirty or self._dyn is None:
+            self._pack_dyn()
+
+    # -- the engine's retry protocol -------------------------------------------
+    def _grow_capacity(self):
+        """A cell held more than C: replan with the conservative margin
+        first, then grow C."""
+        if not self._grow.get('fast_plan_conservative'):
+            self._grow['fast_plan_conservative'] = True
+        else:
+            self._grow['fast_C'] = int(self._program['fast']['C'] * 1.5) + 8
+
+    def _fresh_carry(self):
+        fast = self._program['fast']
+        m = fast['method']
+        aux = self._method_aux_by_obj.get(m) or m._init_aux(self.device)
+        carry = fast['to_fast'](self._state_raw, dict(aux))
+        return fast['refresh'](carry, self._dyn['fast'])
+
+    def _run_fast_chunk(self, chunk):
+        """Run ``chunk`` steps in segments with the retry protocol."""
+        dt_now = float(self.integrator_mode.dt or 0.005)
+        k_dt = getattr(self, '_fast_k_dt', dt_now)
+        if abs(dt_now - k_dt) > 0.25 * max(k_dt, 1e-12):
+            # the kernel window was sized for another dt: replan
+            self._reset_cadence()
+            self._rebuild_program()
+            self._pack_dyn()
+        done = 0
+        seg_cap = getattr(self, '_fast_seg_cap', 512)
+        while done < chunk:
+            seg = min(seg_cap, chunk - done)
+            for _attempt in range(6):
+                m_now = max(int(self._grow.get('fast_m', 1)), 1)
+                fast = self._program['fast']
+                carry0 = self._fast_carry
+                if carry0 is None:
+                    carry0 = self._fresh_carry()
+                carry = fast['run_chunk'](carry0, self._dyn['fast'], seg,
+                                          m_now)
+                # ONE packed device->host fetch for all control flags
+                fl = torch.stack([carry.overflow.float(),
+                                  carry.danger.float(),
+                                  carry.wmax.float()]).cpu().numpy()
+                ovf, dng = bool(fl[0] > 0.5), bool(fl[1] > 0.5)
+                if not (ovf or dng):
+                    self._fast_carry = carry
+                    self._fast_state_stale = True
+                    seg_cap = min(seg_cap * 2, 8192)
+                    self._fast_seg_cap = seg_cap
+                    self._grow_cadence(carry, seg, m_now, float(fl[2]))
+                    seg_cap = self._fast_seg_cap
+                    break
+                # restore the segment's start, adjust, retry
+                seg_cap = 512
+                self._fast_seg_cap = seg_cap
+                seg = min(seg, seg_cap)
+                if not bool(carry0.overflow):
+                    self._state_raw = fast['to_state'](carry0,
+                                                       self._state_raw)
+                # the thermostat state rewinds with the particles (the
+                # JAX package keeps the aux of the last state sync here)
+                self._method_aux_by_obj[fast['method']] = carry0.aux
+                self._fast_carry = None
+                self._fast_state_stale = False
+                need_rebuild = False
+                if ovf:
+                    self._grow_capacity()
+                    need_rebuild = True
+                if dng:
+                    if m_now > 1:
+                        # back off one window when the edge was barely
+                        # crossed, proportionally when far past it
+                        wm = max(float(fl[2]), 1.0)
+                        m_tgt = (max(int(m_now * 0.8 / math.sqrt(wm)), 1)
+                                 if math.isfinite(wm) else 1)
+                        m_tgt = max(min(m_tgt, m_now - 1), 1)
+                        if self._grow.get('fast_m_pinned'):
+                            self._grow['fast_m_probe_fails'] = \
+                                self._grow.get('fast_m_probe_fails', 0) + 1
+                        self._grow['fast_m'] = m_tgt
+                        self._grow['fast_m_ceil'] = m_tgt
+                        self._grow['fast_m_pinned'] = True
+                        self._grow['fast_clean_segs'] = 0
+                    else:
+                        k_now = fast['k_rebuild']
+                        self._grow['fast_k_cap'] = next(
+                            (q for q in (8, 6, 4, 3, 2, 1) if q < k_now), 1)
+                        need_rebuild = True
+                if need_rebuild:
+                    self._rebuild_program()
+                    self._pack_dyn()
+            else:
+                raise RuntimeError(
+                    "fast LJ engine: capacity overflow or dangerous "
+                    "rebuild persists after repeated adjustment — this "
+                    "usually means the dynamics diverged (NaN "
+                    "positions); check dt and the initial configuration")
+            done += seg
+
+    def _grow_cadence(self, carry, seg, m_now, wmax):
+        """After a clean segment: double fast_m (the windows per rebuild
+        cycle) up to its ceiling, or further when the measured drift
+        ratio wmax says a longer cadence is safe.  A ceiling that danger
+        pinned is re-probed one window higher after 4 clean segments at
+        it (transients such as a melt or a dt switch pin it low), until
+        two probes of the same edge have failed."""
+        k_now = self._program['fast']['k_rebuild']
+        cadence = k_now * m_now
+        ceil_m = int(self._grow.get('fast_m_ceil', 64))
+        clean = self._grow.get('fast_clean_segs', 0) + 1
+        self._grow['fast_clean_segs'] = clean
+        if (ceil_m < 64 and m_now >= ceil_m and clean >= 4
+                and self._grow.get('fast_m_probe_fails', 0) < 2):
+            ceil_m += 1
+            self._grow['fast_m_ceil'] = ceil_m
+            self._grow['fast_clean_segs'] = 0
+            self._fast_seg_cap = 512      # a failed probe redoes little
+        if seg < 2 * cadence or m_now >= ceil_m:
+            return
+        m_next = m_now * 2
+        if wmax > 0.0:
+            cad_max = cadence * 0.7 / max(math.sqrt(wmax), 1e-9)
+            m_next = max(m_next, int(cad_max // k_now))
+        m_next = min(m_next, ceil_m, max(seg // (2 * k_now), 1))
+        if m_next > m_now:
+            self._grow['fast_m'] = m_next
+            self._fast_carry = carry.replace(wmax=torch.zeros_like(
+                carry.wmax))
+
+    def _prep_forces(self):
+        """Forces, PE and virial at the current positions."""
+        self._ensure_ready()
+        for _ in range(6):
+            carry = self._fresh_carry()
+            if not bool(carry.overflow):
+                break
+            self._grow_capacity()
+            self._rebuild_program()
+            self._pack_dyn()
+        else:
+            raise RuntimeError("cell capacity still overflowing after "
+                               "repeated growth")
+        self._state_raw = self._program['fast']['to_state'](
+            carry, self._state_raw)
+        self._forces_fresh = True
+
+    # -- run loop ---------------------------------------------------------------
+    def run(self, nsteps, quiet=False):
+        """Advance the simulation by nsteps."""
+        nsteps = int(nsteps)
+        self._ensure_ready()
+        start = self.timestep
+        t0 = time.perf_counter()
+        if not quiet:
+            print(f"** starting run at step {start} **")
+        if nsteps > 0:
+            self._run_fast_chunk(nsteps)
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+        elapsed = time.perf_counter() - t0
+        done = self.timestep - start
+        if not quiet:
+            tps = done / elapsed if elapsed > 0 else 0.0
+            print(f"** run complete: {done} steps in {elapsed:.3f} s = "
+                  f"{tps:.1f} TPS **")
+
+    # -- observables -------------------------------------------------------------
+    def take_snapshot(self):
+        return snapshot_from_state(self.state, self.snapshot_template)
+
+    def restore_snapshot(self, snap):
+        self.state = state_from_snapshot(snap, self.device)
+        self.snapshot_template = snap
+        self.particle_types = list(snap.particles.types)
+        self._dirty()
+
+    def thermo_quantities(self):
+        """Kinetic/potential energy, temperature and pressure (with its
+        tensor) of all particles, summed in float64."""
+        st = self.state          # materializes a resident carry first
+        if not self._forces_fresh and self.forces:
+            self._prep_forces()
+            st = self.state
+        n = st.N
+        dim = st.box.dimensions
+        m = st.mass.double()
+        v = st.vel.double()
+        ke = 0.5 * float((m * (v * v).sum(-1)).sum())
+        pe = float(st.net_pe.double().sum())
+        ndof = dim * n
+        T = 2.0 * ke / ndof if ndof else 0.0
+        vol = float(st.box.volume())
+        w_sum = st.net_virial.double().sum(0).cpu().numpy()
+        P = (2.0 * ke + w_sum[0] + w_sum[3] + w_sum[5]) / (dim * vol)
+        mom = (m[:, None] * v).sum(0).cpu().numpy()
+        mvv = (m[:, None, None] * v[:, :, None]
+               * v[:, None, :]).sum(0).cpu().numpy()
+        out = {
+            'temperature': T, 'pressure': float(P),
+            'kinetic_energy': ke, 'potential_energy': pe,
+            'ndof': float(ndof), 'num_particles': float(n),
+            'volume': vol, 'momentum': float(np.linalg.norm(mom)),
+        }
+        names = ('xx', 'xy', 'xz', 'yy', 'yz', 'zz')
+        idx = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
+        for c, (nm, (a, b)) in enumerate(zip(names, idx)):
+            out[f'pressure_{nm}'] = float((mvv[a, b] + w_sum[c]) / vol)
+        return out
