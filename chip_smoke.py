@@ -11,14 +11,31 @@ from the root of the repository.  In order it prints:
      jittered-lattice liquid-like fill) and at one ragged small shape,
      element by element, with the largest error and CUDA-event times,
      failing past tolerance;
-  4. the bench.py job script (64k LJ, Langevin melt then Nose-Hoover NVT)
+  4. one phase per HPMC sweep kernel (fused_poly_sweep,
+     fused_sphere_sweep): the kernel against its plain torch version on
+     the same planes, class orders and uniforms at three shapes (the job
+     script's plan, a 32^3-lattice fill, a ragged grid), with equal try
+     counts, every slot within 1e-5 (positions) and 1e-6 (quaternions)
+     but for at most 1 flipped decision per 10^4 trials (each printed
+     with its cell), and CUDA-event times;
+  5. the bench.py job script (64k LJ, Langevin melt then Nose-Hoover NVT)
      through ``import hoomd_tpu_torch as hoomd`` on --mode=gpu, with all
      three launch counters > 0, finite output, T = 1.2 +- 0.03 and
      PE/N in [-4.80, -4.60];
-  5. the kernels' JSON line, the card line, and the final
-     {"ok": true, "device": {...}} line.
-It exits non-zero without a CUDA device, outside a checkout, or when any
-phase fails.
+  6. the BASELINE.json config-5 job script (4096 hard cubes at phi = 0.4,
+     50 settle and 200 timed sweeps) and the hard-sphere job (4096
+     spheres at a = 1.05), each with its metric line, zero overlaps
+     after the run, translate acceptance within 0.03 of the JAX
+     package's value for the script, and its kernel launched; then a
+     torch.profiler trace of 50 more sweeps (device busy share, device
+     time by kernel);
+  7. the kernels' JSON line (each with its bound: the larger of the bytes
+     its inputs and outputs move over 3.35 TB/s and the operations this
+     run's data needs over 67 TFLOP/s fp32), the card line, and the
+     final {"ok": true, "device": {...}} line.
+Every path runs with the launch counters set to 0 just before it and
+read just after.  It exits non-zero without a CUDA device, outside a
+checkout, or when any phase fails.
 """
 
 from __future__ import annotations
@@ -47,6 +64,25 @@ POS_TOL = 1e-4
 GAMMA = 1.0                     # Langevin drag of the megastep phases
 TEMP_TARGET, TEMP_TOL = 1.2, 0.03
 PE_RANGE = (-4.80, -4.60)
+
+# the H100 SXM's published peaks (on-chip-measurement guide): HBM bytes/s
+# and fp32 operations/s outside the tensor cores
+PEAK_BYTES, PEAK_FP32 = 3.35e12, 67e12
+
+# HPMC: a kernel slot against its plain version (positions are |x| <= 22,
+# an f32 ulp ~2e-6; unit quaternions); at most one flipped decision per
+# FLIP_PER trials
+MC_POS_TOL, MC_QUAT_TOL, FLIP_PER = 1e-5, 1e-6, 10000
+PHI_CUBES = 0.4
+CUBE_VERTS = [(sx / 2, sy / 2, sz / 2) for sx in (-1, 1) for sy in (-1, 1)
+              for sz in (-1, 1)]
+# translate acceptance of each job script in the JAX package, and the band
+# the port must fall in: hoomd_tpu's fused path (its default on the TPU)
+# at the script's n = 16, in interpret mode on the CPU, as
+# `PYTHONPATH=. python tests/test_torch_hpmc.py {cube|sphere}` derives
+# them (tests/test_torch_hpmc.py::test_sphere_job_acceptance_reference
+# checks the sphere value in the CPU suite)
+CUBE_TRANSLATE_ACC, SPHERE_TRANSLATE_ACC, ACC_BAND = 0.3930, 0.2889, 0.03
 
 
 def card_line():
@@ -121,6 +157,56 @@ def compare(name, outputs):
         raise RuntimeError(f"{name}: {label} differs past |kernel - plain| "
                            f"<= atol + rtol |plain|")
     return worst_abs, share
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the fp32 rate."""
+    t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
+    return (t_b, 'bytes') if t_b >= t_o else (t_o, 'operations')
+
+
+def lj_pair_counts(pos, tag, cdim, sh, rc):
+    """Candidate pairs (two live slots of the 27-cell stencil, not the
+    same particle) and pairs inside r_cut, of a cell-major fill."""
+    import torch
+    from hoomd_tpu_torch.ops import cell_pair as cp
+    adj = torch.as_tensor(cp._adjacency_np(tuple(cdim)), dtype=torch.int64,
+                          device=pos.device)
+    live = tag >= 0
+    C = pos.shape[1]
+    eye = torch.eye(C, dtype=torch.bool, device=pos.device)
+    cand = inr = 0
+    for o in range(27):
+        nb = pos[adj[:, o]] + sh[:, o, None, :]
+        d = pos[:, :, None, :] - nb[:, None, :, :]
+        ok = live[:, :, None] & live[adj[:, o]][:, None, :]
+        if o == 13:
+            ok &= ~eye
+        cand += int(ok.sum())
+        inr += int((ok & ((d * d).sum(-1) < rc * rc)).sum())
+    return cand, inr
+
+
+def lj_bounds(pos, tag, cdim, sh, N, k):
+    """Bound of each LJ kernel at this fill, counting 8 operations per
+    candidate pair (the r^2 test), 15 more per pair inside r_cut for the
+    force, 12 more for PE and virial (planar), and 30 per particle and
+    step for a megastep window's kick, drift and thermostat sums."""
+    cand, inr = lj_pair_counts(pos, tag, cdim, sh, 2.5)
+    slots = pos.shape[0] * pos.shape[1]
+    P = slots * 4                                  # one f32 per slot
+    sh_bytes = sh.numel() * 4
+    plane_ops = 8 * cand + 15 * inr
+    return {
+        'cell_pair_plane': bound(3 * P + P + sh_bytes + 3 * P, plane_ops),
+        'cell_pair_planar': bound(3 * P + P + sh_bytes + 10 * P,
+                                  plane_ops + 12 * inr),
+        # in: pos, vel, frc, ref pos (3 planes each), 1/m, m, tags;
+        # out: pos, vel, frc
+        'cell_megastep_planes': bound(15 * P + sh_bytes + 9 * P,
+                                      k * (plane_ops + 30 * N)),
+    }
 
 
 def kernel_phases(dev):
@@ -237,6 +323,10 @@ def kernel_phases(dev):
                   f"bound_share={r['bound_share']:.3f} "
                   f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f}",
                   flush=True)
+        for kname, (b_ms, b_by) in lj_bounds(pos.reshape(-1, C, 3),
+                                             tag.reshape(-1, C), cdim, sh,
+                                             N, 4).items():
+            row[kname].update(bound_ms=b_ms, bound_by=b_by)
         results[tag_name] = row
     return results['bench']
 
@@ -276,7 +366,7 @@ def bench_job(t_start):
     # smoke run nears its time budget
     last_m, stable = -1, 0
     for i in range(16):
-        if time.perf_counter() - t_start > 600:
+        if time.perf_counter() - t_start > 240:
             print(f"warmup cut after {i} of up to 16 runs of 1024 steps "
                   f"(time budget)", flush=True)
             break
@@ -291,12 +381,24 @@ def bench_job(t_start):
     return system, N
 
 
+def reset_launch_counts():
+    from hoomd_tpu_torch.hpmc import sweep as tsw
+    from hoomd_tpu_torch.ops import cell_pair as cp
+    cp.reset_launch_counts()
+    tsw.reset_launch_counts()
+
+
+def launch_counts():
+    from hoomd_tpu_torch.hpmc import sweep as tsw
+    from hoomd_tpu_torch.ops import cell_pair as cp
+    return {**cp.launch_counts(), **tsw.launch_counts()}
+
+
 def bench_script(card):
     """bench.py's job script through hoomd_tpu_torch: the warmup, one
     timed window, and the checks of its output."""
     import torch
-    from hoomd_tpu_torch.ops import cell_pair as cp
-    cp.reset_launch_counts()
+    reset_launch_counts()
     system, N = bench_job(time.perf_counter())
     steps = 3000
     torch.cuda.synchronize()
@@ -309,7 +411,7 @@ def bench_script(card):
     # window, so they leave no single steps; a run of any other length
     # does, and those steps go through cell_pair_plane (one_step)
     system.run(3, quiet=True)
-    counts = cp.launch_counts()
+    counts = launch_counts()
     print(json.dumps({
         "metric": "lj_melt_64k_nvt_particle_steps_per_sec",
         "value": pss, "unit": "particle-steps/s/chip",
@@ -323,8 +425,9 @@ def bench_script(card):
             and np.isfinite(snapf.particles.velocity).all()
             and np.isfinite(q['potential_energy'])):
         raise RuntimeError("non-finite state after the bench script")
-    for name, c in counts.items():
-        if c <= 0:
+    for name in ('cell_megastep_planes', 'cell_pair_plane',
+                 'cell_pair_planar'):
+        if counts[name] <= 0:
             raise RuntimeError(f"main path never launched {name}")
     if abs(q['temperature'] - TEMP_TARGET) > TEMP_TOL:
         raise RuntimeError(f"T = {q['temperature']:.4f} outside "
@@ -334,6 +437,292 @@ def bench_script(card):
         raise RuntimeError(f"PE/N = {pe:.4f} outside {PE_RANGE}")
     print(f"main path: T={q['temperature']:.5f} PE/N={pe:.5f} "
           f"launches={counts}", flush=True)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# HPMC
+
+
+def mc_system(kind, dims=None, n=16, spacing=None, jitter=0.0, seed=0):
+    """A fresh --mode=gpu context with the job script's integrator: 'cube'
+    (config 5: convex_polyhedron(seed=11, d=0.15, a=0.2)), 'sphere'
+    (sphere(seed=7, d=0.12), diameter 1) or 'mixture' (spheres of
+    diameters 1.0 and 0.6 with d 0.12 and 0.2).  The particles sit on an
+    sc lattice: n^3 of the job's spacing, or, with ``dims`` (a box of
+    dims[i] * spacing) and a ``jitter``, a jittered, randomly rotated
+    fill for the kernel phases."""
+    import hoomd_tpu_torch as hoomd
+    hoomd.context.initialize("--mode=gpu --notice-level=0")
+    a = ((1.0 / PHI_CUBES) ** (1.0 / 3.0) if kind == 'cube' else 1.05)
+    if dims is None:
+        hoomd.init.create_lattice(unitcell=hoomd.lattice.sc(a=a), n=n)
+    else:
+        rng = np.random.RandomState(seed)
+        L = np.asarray(dims, float)
+        nl = np.floor(L / spacing).astype(int)
+        g = [(np.arange(m) + 0.5) * (L[i] / m) - L[i] / 2
+             for i, m in enumerate(nl)]
+        pos = np.stack(np.meshgrid(*g, indexing='ij'), -1).reshape(-1, 3)
+        N = len(pos)
+        snap = hoomd.data.make_snapshot(
+            N, hoomd.data.boxdim(Lx=L[0], Ly=L[1], Lz=L[2]),
+            particle_types=['A', 'B'] if kind == 'mixture' else ['A'])
+        snap.particles.position[:] = pos + rng.uniform(-jitter, jitter,
+                                                       pos.shape)
+        if kind == 'mixture':
+            snap.particles.typeid[:] = np.arange(N) % 2
+        axis = rng.normal(size=(N, 3))
+        axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+        half = rng.uniform(-0.1, 0.1, (N, 1)) if kind == 'cube' else \
+            np.zeros((N, 1))
+        snap.particles.orientation[:] = np.concatenate(
+            [np.cos(half), np.sin(half) * axis], 1)
+        hoomd.init.read_snapshot(snap)
+    if kind == 'cube':
+        mc = hoomd.hpmc.integrate.convex_polyhedron(seed=11, d=0.15, a=0.2)
+        mc.shape_param.set('A', vertices=CUBE_VERTS)
+    else:
+        mc = hoomd.hpmc.integrate.sphere(seed=7, d=0.12)
+        mc.shape_param.set('A', diameter=1.0)
+        if kind == 'mixture':
+            mc.shape_param.set('B', diameter=0.6)
+            mc.set_params(d={'A': 0.12, 'B': 0.2})
+    system = hoomd.context.current.system
+    system._ensure_ready()
+    return system, mc
+
+
+def mc_inputs(system, mc, seed):
+    """The planes one kernel call of the system's program takes, with
+    class orders and uniforms from a seeded generator on the card."""
+    import torch
+    from hoomd_tpu_torch.hpmc import integrate as tint
+    prog = system._program
+    st = system.state
+    cd, C = prog['cell_dim'], prog['C']
+    poly = prog['shape'] == 'convex_polyhedron'
+    idx, live, planes, ovf = tint.cell_planes(
+        st.pos, st.box, cd, C, st.orientation if poly else None)
+    if bool(ovf):
+        raise RuntimeError(f"HPMC phase fill overflows C={C} on {cd}")
+    kw = dict(cell_dim=cd, C=C, R=1, box_L=prog['box_L'])
+    if poly:
+        args = planes + [live]
+        kw['tables'] = mc._fused_poly_tables(system)
+    else:
+        types = system.particle_types
+        tc = torch.cat([st.typeid.long(), st.typeid.new_zeros(1).long()]
+                       )[idx].reshape(live.shape)
+        rad = torch.as_tensor(0.5 * mc._diameters(system),
+                              dtype=torch.float32, device=live.device)
+        dmv = torch.as_tensor([mc.get_d(t) for t in types],
+                              dtype=torch.float32, device=live.device)
+        args = planes + [rad[tc] * live, dmv[tc] * live, live]
+    nx, ny, nz = cd
+    gen = torch.Generator(device=live.device).manual_seed(seed)
+    perms = torch.randperm(8, generator=torch.Generator().manual_seed(seed)
+                           ).to(torch.int32)
+    randu = torch.rand((8, 12 if poly else 6, nz, ny, nx), generator=gen,
+                       device=live.device)
+    extra = (tuple(np.float32(v) for v in (mc.get_d('A'), mc.get_a('A'),
+                                           mc.move_ratio)),) if poly else ()
+    return args, perms, randu, extra, kw, poly
+
+
+def mc_compare(name, got, want, poly, cd, C, trials):
+    """Kernel against plain: equal try counts; slots out of tolerance are
+    flipped decisions, printed with their cells, at most one per
+    FLIP_PER trials, and the accept counts differ by no more than they.
+    Returns the largest error over the other slots."""
+    import torch
+    nplanes = 7 if poly else 3
+    gc = [int(v) for v in (got[7] if poly else torch.stack(got[3:5]))]
+    wc = [int(v) for v in (want[7] if poly else torch.stack(want[3:5]))]
+    tries = (1, 3) if poly else (1,)
+    if any(gc[i] != wc[i] for i in tries):
+        raise RuntimeError(f"{name}: try counts differ, kernel {gc} plain "
+                           f"{wc}")
+    bad = torch.zeros_like(got[0], dtype=torch.bool)
+    errs = []
+    for k in range(nplanes):
+        e = (got[k] - want[k]).abs()
+        if not torch.isfinite(got[k]).all():
+            raise RuntimeError(f"{name}: kernel plane {k} not finite")
+        bad |= e > (MC_POS_TOL if k < 3 else MC_QUAT_TOL)
+        errs.append(e)
+    z, y, lane = torch.nonzero(bad, as_tuple=True)
+    cells = sorted({(int(a), int(b), int(c) // C)
+                    for a, b, c in zip(z, y, lane)})
+    for cz, cy, cx in cells:
+        print(f"  {name}: flipped decision in cell (z={cz}, y={cy}, "
+              f"x={cx})", flush=True)
+    acc = (0, 2) if poly else (0,)
+    d_acc = sum(abs(gc[i] - wc[i]) for i in acc)
+    if len(cells) > trials // FLIP_PER or d_acc > len(cells):
+        raise RuntimeError(f"{name}: {len(cells)} flipped decisions in "
+                           f"{trials} trials, accept counts {gc} vs {wc}")
+    return max(float(e[~bad].max()) for e in errs)
+
+
+def mc_bound(poly, stats, args, randu, nf):
+    """Bytes: every input plane and the uniforms read once, every output
+    plane written once.  Operations of the kernel's arithmetic for this
+    data (transcendentals as one): per trial its proposal and commit
+    (171 polyhedra, 60 spheres); per candidate pair its set-up (123:
+    minimum image, relative rotation, edge images) or distance test
+    (23); per SAT axis up to the pair's first separating one 78 (face)
+    or 141 (edge x edge)."""
+    plane = args[0].numel() * 4
+    nbytes = (len(args) + (7 if poly else 3)) * plane + randu.numel() * 4
+    if poly:
+        ops = (171 * stats['trials'] + 123 * stats['pairs']
+               + 78 * stats['face_axes'] + 141 * stats['edge_axes'])
+    else:
+        ops = 60 * stats['trials'] + 23 * stats['pairs']
+    return bound(nbytes, ops)
+
+
+def hpmc_kernel_phases():
+    """Each sweep kernel against its plain version at the job's plan, a
+    32^3-lattice fill and a ragged grid.  Returns the job-plan row of
+    each kernel."""
+    from hoomd_tpu_torch.hpmc import sweep as tsw
+    shapes = {
+        'fused_poly_sweep': [
+            ('job', dict(kind='cube')),
+            ('fill32', dict(kind='cube', n=32)),
+            ('ragged', dict(kind='cube', dims=(4 * 2.1, 6 * 2.1, 8 * 2.1),
+                            spacing=1.4, jitter=0.1, seed=1))],
+        'fused_sphere_sweep': [
+            ('job', dict(kind='sphere')),
+            ('fill32', dict(kind='sphere', n=32)),
+            ('ragged', dict(kind='mixture', dims=(4 * 1.45, 6 * 1.45,
+                                                  8 * 1.45),
+                            spacing=1.05, jitter=0.01, seed=2))],
+    }
+    out = {}
+    for kname, cases in shapes.items():
+        kern = getattr(tsw, kname)
+        plain = getattr(tsw, kname + '_plain')
+        for tag_name, spec in cases:
+            system, mc = mc_system(**spec)
+            cd, C = system._program['cell_dim'], system._program['C']
+            N = system.state.N
+            worst, trials, stats = 0.0, 0, {}
+            for seed in (1, 2, 3):
+                args, perms, randu, extra, kw, poly = mc_inputs(system, mc,
+                                                                seed)
+                got = kern(*args, perms, randu, *extra, **kw)
+                want = plain(*args, perms, randu, *extra, stats=stats, **kw)
+                trials = stats['trials']
+                worst = max(worst, mc_compare(f'{kname}[{tag_name}]', got,
+                                              want, poly, cd, C, trials))
+            iters = 50 if tag_name != 'fill32' else 10
+
+            def k_fn():
+                return kern(*args, perms, randu, *extra, **kw)
+
+            def p_fn():
+                return plain(*args, perms, randu, *extra, **kw)
+            row = dict(max_abs_err=worst, ms=cuda_ms(k_fn, iters),
+                       plain_ms=cuda_ms(p_fn, 2))
+            # the bound of one call, from the work of the three calls
+            per_call = {k: v / 3 for k, v in stats.items()}
+            row['bound_ms'], row['bound_by'] = mc_bound(
+                poly, per_call, args, randu,
+                len(kw['tables'][1]) if poly else 0)
+            print(f"phase {kname} [{tag_name} cell_dim={cd} C={C} N={N}]: "
+                  f"max_abs_err={worst:.3e} trials={trials} "
+                  f"pairs/call={per_call['pairs']:.0f} "
+                  f"kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                  f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']})",
+                  flush=True)
+            if tag_name == 'job':
+                out[kname] = row
+    return out
+
+
+def device_profile(run, what, top=8):
+    """torch.profiler over run(): wall time, summed device kernel time,
+    their ratio (the device's busy share; the profiler inflates host
+    time) and the device time of the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        # device-side events only: an aten op's row repeats its kernels'
+        t = getattr(e, 'self_device_time_total', None)
+        if t is None:
+            t = getattr(e, 'self_cuda_time_total', 0.0)
+        if e.device_type == DeviceType.CUDA and t > 0:
+            rows.append((t, e.count, e.key))
+    dev = sum(r[0] for r in rows) / 1e3
+    print(f"profile {what}: wall {wall * 1e3:.3f} ms, device kernel time "
+          f"{dev:.3f} ms, busy share {dev / (wall * 1e3):.4f}", flush=True)
+    for t, count, key in sorted(rows, reverse=True)[:top]:
+        print(f"  {t / 1e3:9.3f} ms {count:6d}x  {key[:80]}", flush=True)
+
+
+def hpmc_job(kind, card):
+    """One HPMC job script at full size on the card: 50 settle sweeps,
+    then 200 timed ones.  Prints its metric line and checks zero
+    overlaps, the translate acceptance against the JAX package's, and
+    the launches of its kernel.  Returns the launch counts."""
+    import torch
+    system, mc = mc_system(kind)
+    reset_launch_counts()
+    N = system.state.N
+    system.run(50, quiet=True)
+    c0 = mc.get_counters()
+    sweeps = 200
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    system.run(sweeps, quiet=True)
+    elapsed = time.perf_counter() - t0
+    c1 = mc.get_counters()
+    counts = launch_counts()
+    d = {k: c1[k] - c0[k] for k in ('translate_accept', 'translate_reject',
+                                    'rotate_accept', 'rotate_reject')}
+    moves = sum(d.values())
+    t_acc = d['translate_accept'] / max(1, d['translate_accept']
+                                        + d['translate_reject'])
+    r_acc = (d['rotate_accept'] / max(1, d['rotate_accept']
+                                      + d['rotate_reject']))
+    name = ('hpmc_convex_polyhedra_4k' if kind == 'cube'
+            else 'hpmc_hard_spheres_4k')
+    prog = system._program
+    print(json.dumps({
+        "metric": f"{name}_trial_moves_per_sec", "value": moves / elapsed,
+        "unit": "trial-moves/s/chip",
+        "extra": {"N": N, "sweeps": sweeps, "elapsed_s": elapsed,
+                  "trial_moves": moves, "translate_acceptance": t_acc,
+                  "rotate_acceptance": r_acc,
+                  "cell_dim": list(prog['cell_dim']), "C": prog['C'],
+                  "card": card, "package": "torch"}}), flush=True)
+    overlaps = mc.count_overlaps()
+    ref = CUBE_TRANSLATE_ACC if kind == 'cube' else SPHERE_TRANSLATE_ACC
+    kname = 'fused_poly_sweep' if kind == 'cube' else 'fused_sphere_sweep'
+    print(f"{kind} job: translate acceptance {t_acc:.4f} (JAX package "
+          f"{ref}), rotate {r_acc:.4f}, overlaps {overlaps}, "
+          f"launches={counts}", flush=True)
+    if overlaps != 0:
+        raise RuntimeError(f"{kind} job: {overlaps} overlapping pairs")
+    if abs(t_acc - ref) > ACC_BAND:
+        raise RuntimeError(f"{kind} job: translate acceptance {t_acc:.4f} "
+                           f"outside {ref} +- {ACC_BAND}")
+    if counts[kname] <= 0:
+        raise RuntimeError(f"{kind} job never launched {kname}")
+    # where a sweep's time goes, after the checked window
+    device_profile(lambda: system.run(50, quiet=True), f'50 {kind} sweeps')
     return counts
 
 
@@ -352,24 +741,41 @@ def main():
     t0 = time.perf_counter()
     lib = _build.load()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {lib.build_seconds:.2f} s) -> {lib.path.name}", flush=True)
+          f"(nvcc, all sources in parallel, {lib.build_seconds:.2f} s) -> "
+          f"{', '.join(p.name for p in lib.paths)}", flush=True)
     for line in lib.build_log.splitlines():
-        if 'registers' in line or 'spill' in line or 'error' in line:
+        if ('registers' in line or 'spill' in line or 'error' in line
+                or line.startswith('==')):
             print(f"  ptxas: {line.strip()}", flush=True)
-    bench = kernel_phases(dev)
-    counts = bench_script(card)
+    rows = kernel_phases(dev)
+    rows.update(hpmc_kernel_phases())
+    # each path's own launches, read just after it ran
+    launches = bench_script(card)
+    launches['fused_poly_sweep'] = hpmc_job('cube', card)['fused_poly_sweep']
+    launches['fused_sphere_sweep'] = hpmc_job('sphere', card)[
+        'fused_sphere_sweep']
     replaces = {
-        'cell_pair_plane': 'hoomd_tpu/ops/pallas_pair.py:1173',
-        'cell_pair_planar': 'hoomd_tpu/ops/pallas_pair.py:609',
-        'cell_megastep_planes': 'hoomd_tpu/ops/pallas_pair.py:1978',
+        'cell_megastep_planes': ('hoomd_tpu/ops/pallas_pair.py:1978',
+                                 'cell_pair.cu'),
+        'cell_pair_plane': ('hoomd_tpu/ops/pallas_pair.py:1173',
+                            'cell_pair.cu'),
+        'cell_pair_planar': ('hoomd_tpu/ops/pallas_pair.py:609',
+                             'cell_pair.cu'),
+        'fused_poly_sweep': ('hoomd_tpu/hpmc/pallas_sweep.py:293',
+                             'hpmc_sweep.cu'),
+        'fused_sphere_sweep': ('hoomd_tpu/hpmc/pallas_sweep.py:50',
+                               'hpmc_sweep.cu'),
     }
+    # no single PyTorch call computes a cell-stencil LJ step or an HPMC
+    # sweep, so library_ms is null for every kernel here
     kernels = [{"name": name, "route": "cuda",
-                "source": "hoomd_tpu_torch/csrc/cell_pair.cu",
-                "replaces": replaces[name], "launches": counts[name],
-                "max_abs_err": bench[name]['max_abs_err'],
-                "ms": bench[name]['ms'], "plain_ms": bench[name]['plain_ms']}
-               for name in ('cell_megastep_planes', 'cell_pair_plane',
-                            'cell_pair_planar')]
+                "source": f"hoomd_tpu_torch/csrc/{src}", "replaces": rep,
+                "launches": launches[name],
+                "max_abs_err": rows[name]['max_abs_err'],
+                "ms": rows[name]['ms'], "plain_ms": rows[name]['plain_ms'],
+                "bound_ms": rows[name]['bound_ms'],
+                "bound_by": rows[name]['bound_by'], "library_ms": None}
+               for name, (rep, src) in replaces.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

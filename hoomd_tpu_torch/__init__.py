@@ -16,21 +16,33 @@ hoomd``:
     md.integrate.nvt(group=hoomd.group.all(), kT=1.2, tau=0.5)
     hoomd.run(1000)
 
-The port so far runs the single-type LJ liquid on the cell-major engine
-(nve, nvt, langevin); other configurations raise NotImplementedError
-naming the gate they failed.  It imports torch and numpy, never jax.
+The port so far runs two paths.  MD: the single-type LJ liquid on the
+cell-major engine (nve, nvt, langevin).  HPMC: hard spheres and one-type
+convex polyhedra on the fused checkerboard sweep:
+
+    hoomd.context.initialize('--mode=gpu')
+    hoomd.init.create_lattice(unitcell=hoomd.lattice.sc(a=1.3572), n=16)
+    mc = hpmc.integrate.convex_polyhedron(seed=11, d=0.15, a=0.2)
+    mc.shape_param.set('A', vertices=[(sx / 2, sy / 2, sz / 2)
+                                      for sx in (-1, 1) for sy in (-1, 1)
+                                      for sz in (-1, 1)])
+    hoomd.run(250)
+    mc.get_counters(), mc.count_overlaps()
+
+Other configurations raise NotImplementedError naming the gate they
+failed.  It imports torch, numpy and (for convex hulls) scipy, never jax.
 """
 
 from __future__ import annotations
 
 from . import _config  # noqa: F401  (precision settings at import)
-from . import context, data, group, init, lattice, md, variant
+from . import context, data, group, hpmc, init, lattice, md, variant
 from .snapshot import Snapshot
 
 __version__ = "0.1.0"
 
-__all__ = ['context', 'data', 'group', 'init', 'lattice', 'md', 'variant',
-           'run', 'get_step', 'Snapshot']
+__all__ = ['context', 'data', 'group', 'hpmc', 'init', 'lattice', 'md',
+           'variant', 'run', 'get_step', 'Snapshot']
 
 
 def run(tsteps, quiet=False):

@@ -61,6 +61,23 @@ class Box:
         z = g[..., 2] * Lz
         return torch.stack([x, y, z], dim=-1)
 
+    def min_image(self, dr):
+        """Nearest periodic image of displacement vectors: z first, then
+        y, then x, subtracting whole lattice vectors."""
+        Lx, Ly, Lz = self.L[0], self.L[1], self.L[2]
+        xy, xz, yz = self.tilt[0], self.tilt[1], self.tilt[2]
+        x, y, z = dr[..., 0], dr[..., 1], dr[..., 2]
+        img = torch.where(self.periodic[2], torch.round(z / Lz), 0.0)
+        z = z - Lz * img
+        y = y - yz * Lz * img
+        x = x - xz * Lz * img
+        img = torch.where(self.periodic[1], torch.round(y / Ly), 0.0)
+        y = y - Ly * img
+        x = x - xy * Ly * img
+        img = torch.where(self.periodic[0], torch.round(x / Lx), 0.0)
+        x = x - Lx * img
+        return torch.stack([x, y, z], dim=-1)
+
     def wrap(self, pos, image):
         """Wrap positions into the box, accumulating image flags."""
         f = self.make_fraction(pos)

@@ -1,4 +1,5 @@
-"""numpy arrays from the JAX package -> the port's objects.
+"""numpy arrays from the JAX package -> the port's objects (snapshots,
+fast-engine carries, LJ parameters, hull tables, cell planes).
 
 The parity tests feed both packages identical inputs through these
 functions: the JAX side's arrays go through numpy, never as JAX arrays.
@@ -46,3 +47,18 @@ def carry_from_numpy(fields, device='cpu'):
 def lj_params_from_numpy(pv, device='cpu'):
     """Packed [rc2, e_shift, lj1, lj2, rcut] -> float32 tensor."""
     return torch.as_tensor(np.asarray(pv, np.float32), device=device)
+
+
+def poly_tables_from_numpy(tables):
+    """The JAX package's fused-sweep hull tables (V, F, E), as nested
+    tuples or arrays -> the nested tuples of floats the port's
+    fused_poly_sweep takes."""
+    return tuple(tuple(tuple(float(x) for x in row) for row in np.asarray(t))
+                 for t in tables)
+
+
+def planes_from_numpy(planes, device='cpu'):
+    """Cell planes (or any float arrays: randu, positions) -> float32
+    tensors on ``device``."""
+    return [torch.as_tensor(np.asarray(p, np.float32), device=device)
+            for p in planes]

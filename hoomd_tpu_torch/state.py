@@ -3,9 +3,10 @@
 The same structure-of-arrays layout as the JAX package, as a small
 dataclass of torch tensors on the context's device.  The timestep is a
 host int: the host drives every step, so it always knows it, and the
-Langevin noise keyed by it needs no device round-trip.  Orientation,
-angular momentum and moment of inertia stay in the snapshot template:
-the slice gates out rotational degrees of freedom.
+Langevin noise keyed by it needs no device round-trip.  Orientations
+live on the device (hard-particle MC rotates them); angular momentum and
+moment of inertia stay in the snapshot template: the MD engine gates out
+rotational degrees of freedom.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ class State:
     net_force: torch.Tensor     # (N,3) real
     net_pe: torch.Tensor        # (N,)  real
     net_virial: torch.Tensor    # (N,6) real — xx,xy,xz,yy,yz,zz
+    orientation: torch.Tensor   # (N,4) real — quaternion (w, x, y, z)
     box: Box
     timestep: int
 
@@ -67,7 +69,7 @@ def state_from_snapshot(snap: Snapshot, device='cpu') -> State:
         net_force=torch.zeros((N, 3), dtype=dt, device=device),
         net_pe=torch.zeros((N,), dtype=dt, device=device),
         net_virial=torch.zeros((N, 6), dtype=dt, device=device),
-        box=box, timestep=0)
+        orientation=T(p.orientation, dt), box=box, timestep=0)
     # wrap any out-of-box initial positions
     pos, image = box.wrap(state.pos, state.image)
     return state.replace(pos=pos, image=image)
@@ -98,7 +100,7 @@ def snapshot_from_state(state: State, snap_template: Snapshot) -> Snapshot:
     p.diameter[:] = H(state.diameter)
     p.image[:] = H(state.image)
     p.body[:] = H(state.body)
-    p.orientation[:] = tp.orientation
+    p.orientation[:] = H(state.orientation)
     p.angmom[:] = tp.angmom
     p.moment_inertia[:] = tp.moment_inertia
     for name in ('bonds', 'angles', 'dihedrals', 'impropers', 'constraints',

@@ -1,9 +1,15 @@
 """System orchestration: the run loop (counterpart of hoomd_tpu/system.py).
 
-The slice runs one engine, the cell-major LJ engine of ops/fast_lj.py.
-A configuration outside it raises NotImplementedError naming the first
-gate it failed, in the order the JAX package's fast-engine gates check
-them; there is no general engine to fall back to yet.
+The port runs two engines: the cell-major LJ engine of ops/fast_lj.py
+for MD, and the fused checkerboard sweep of hpmc/ for hard-particle MC
+(an HPMC integrator replaces the MD pipeline, as in the JAX package).  A
+configuration outside them raises NotImplementedError naming the first
+gate it failed; there is no general engine to fall back to yet.
+
+An HPMC run is one chunk: its sweeps queue on the device, and ONE
+device->host read of the cell-overflow flag ends it.  On overflow the
+capacity grows to int(1.5 C) + 4 and the chunk reruns from its start,
+at most 8 times (hoomd_tpu/system.py:1818-1847).
 
 Between runs the authoritative particle data lives in the engine's carry;
 ``state`` is materialized lazily when a host op reads it.  A chunk runs
@@ -49,6 +55,8 @@ class System:
         self._method_aux_by_obj = {}
         self._grow = {}
         self._forces_fresh = False
+        self.hpmc_integrator = None
+        self._hpmc_counters = None
 
     # -- state residency -----------------------------------------------------
     @property
@@ -91,6 +99,11 @@ class System:
         self.integrator_mode = mode
         self._dirty()
 
+    def set_hpmc_integrator(self, mc):
+        """An HPMC integrator replaces the MD pipeline entirely."""
+        self.hpmc_integrator = mc
+        self._dirty()
+
     def _dirty(self):
         self._dirty_flag = True
         self._params_dirty = True
@@ -116,9 +129,19 @@ class System:
         if self._fast_state_stale:
             self._sync_fast_state()
         self._fast_carry = None
+        if self.hpmc_integrator is not None:
+            self._program = self.hpmc_integrator._build_program(self)
+            self._program['kind'] = 'hpmc'
+            self._hpmc_counters = self._program['init_counters']()
+            self._dyn = {}
+            self._dirty_flag = False
+            self._params_dirty = False
+            self._forces_fresh = True       # no forces in pure HPMC
+            return
         forces, methods = self._active()
         fast = self._build_fast(forces, methods)
-        self._program = {'fast': fast, 'forces': forces, 'methods': methods}
+        self._program = {'kind': 'md', 'fast': fast, 'forces': forces,
+                         'methods': methods}
         for m in methods:
             if m not in self._method_aux_by_obj:
                 self._method_aux_by_obj[m] = m._init_aux(self.device)
@@ -269,7 +292,8 @@ class System:
     def _ensure_ready(self):
         if self._program is None or self._dirty_flag:
             self._rebuild_program()
-        if self._params_dirty or self._dyn is None:
+        if self._program['kind'] == 'md' and (self._params_dirty
+                                              or self._dyn is None):
             self._pack_dyn()
 
     # -- the engine's retry protocol -------------------------------------------
@@ -416,6 +440,29 @@ class System:
             carry, self._state_raw)
         self._forces_fresh = True
 
+    def _run_hpmc(self, nsweeps):
+        """Run ``nsweeps`` sweeps as one chunk with the grow-and-retry
+        protocol; the counters before the chunk survive a retry."""
+        state0 = self._state_raw
+        moves0 = self._hpmc_counters['moves']
+        for _ in range(8):
+            prog = self._program
+            state, moves = state0, moves0
+            mp = prog['pack']()
+            ovf = torch.zeros((), dtype=torch.bool, device=self.device)
+            for _s in range(nsweeps):
+                state, moves, o = prog['sweep'](state, moves, mp)
+                ovf = ovf | o
+            if not bool(ovf):
+                break
+            self._grow['hpmc_cell_cap'] = int(prog['C'] * 1.5) + 4
+            self._rebuild_program()
+        else:
+            raise RuntimeError("hpmc cell capacity still overflowing after "
+                               "growth")
+        self.state = state
+        self._hpmc_counters = {'moves': moves, 'cell_overflow': ovf}
+
     # -- run loop ---------------------------------------------------------------
     def run(self, nsteps, quiet=False):
         """Advance the simulation by nsteps."""
@@ -425,7 +472,9 @@ class System:
         t0 = time.perf_counter()
         if not quiet:
             print(f"** starting run at step {start} **")
-        if nsteps > 0:
+        if nsteps > 0 and self._program['kind'] == 'hpmc':
+            self._run_hpmc(nsteps)
+        elif nsteps > 0:
             self._run_fast_chunk(nsteps)
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
