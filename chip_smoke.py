@@ -65,7 +65,7 @@ GAMMA = 1.0                     # Langevin drag of the megastep phases
 TEMP_TARGET, TEMP_TOL = 1.2, 0.03
 PE_RANGE = (-4.80, -4.60)
 
-# the H100 SXM's published peaks (on-chip-measurement guide): HBM bytes/s
+# the H100 SXM's published peaks: HBM bytes/s
 # and fp32 operations/s outside the tensor cores
 PEAK_BYTES, PEAK_FP32 = 3.35e12, 67e12
 
