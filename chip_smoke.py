@@ -11,25 +11,37 @@ from the root of the repository.  In order it prints:
      jittered-lattice liquid-like fill) and at one ragged small shape,
      element by element, with the largest error and CUDA-event times,
      failing past tolerance;
-  4. one phase per HPMC sweep kernel (fused_poly_sweep,
+  4. one phase per rebin kernel (cell_rebin_select, cell_rebin_sweep,
+     cell_rebin_place, cell_rebin_serial): the kernel against its plain
+     torch version bit for bit, slot for slot, with equal overflow flags,
+     on lattice fills drifted up to 0.45 of a cell width at the bench
+     shape and at (5, 3, 4), C = 32, and on two overflowing fills;
+  5. one phase per HPMC sweep kernel (fused_poly_sweep,
      fused_sphere_sweep): the kernel against its plain torch version on
      the same planes, class orders and uniforms at three shapes (the job
      script's plan, a 32^3-lattice fill, a ragged grid), with equal try
      counts, every slot within 1e-5 (positions) and 1e-6 (quaternions)
      but for at most 1 flipped decision per 10^4 trials (each printed
      with its cell), and CUDA-event times;
-  5. the bench.py job script (64k LJ, Langevin melt then Nose-Hoover NVT)
-     through ``import hoomd_tpu_torch as hoomd`` on --mode=gpu, with all
-     three launch counters > 0, finite output, T = 1.2 +- 0.03 and
-     PE/N in [-4.80, -4.60];
-  6. the BASELINE.json config-5 job script (4096 hard cubes at phi = 0.4,
+  6. the bench.py job script (64k LJ, Langevin melt then Nose-Hoover NVT)
+     through ``import hoomd_tpu_torch as hoomd`` on --mode=gpu, on its
+     default rebin (xsel at this N), with all three launch counters > 0,
+     finite output, T = 1.2 +- 0.03 and PE/N in [-4.80, -4.60]; then the
+     same script to the melt plus 1000 NVT steps with HOOMD_TPU_REBIN=pallas
+     (the sweep and place kernels launched) and =off (the sort), each with
+     the same gates and its rebuild and retry counts; then the op's three
+     variants through cell_rebin_plane on the pallas job's state, and one
+     rebuild of each rebin the engine runs (sort, xsel, the migration
+     sweep + place) on that job's liquid, by CUDA events and by the
+     profiler's device time;
+  7. the BASELINE.json config-5 job script (4096 hard cubes at phi = 0.4,
      50 settle and 200 timed sweeps) and the hard-sphere job (4096
      spheres at a = 1.05), each with its metric line, zero overlaps
      after the run, translate acceptance within 0.03 of the JAX
      package's value for the script, and its kernel launched; then a
      torch.profiler trace of 50 more sweeps (device busy share, device
      time by kernel);
-  7. the kernels' JSON line (each with its bound: the larger of the bytes
+  8. the kernels' JSON line (each with its bound: the larger of the bytes
      its inputs and outputs move over 3.35 TB/s and the operations this
      run's data needs over 67 TFLOP/s fp32), the card line, and the
      final {"ok": true, "device": {...}} line.
@@ -41,6 +53,7 @@ checkout, or when any phase fails.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -113,7 +126,7 @@ def lattice_cells(dims, cell_dim, C, jitter, seed, dev):
     if bool(carry.overflow):
         raise RuntimeError(f"test fill overflows C={C} on {cell_dim}")
     L = st.box.L.cpu().numpy().astype(np.float64)
-    return carry, L, N
+    return carry, L, N, st.box
 
 
 def cuda_ms(fn, iters):
@@ -220,7 +233,7 @@ def kernel_phases(dev):
     r6 = 1.0 / 2.5 ** 6
     pv[1] = r6 * (4.0 * r6 - 4.0)                   # shift-mode e_shift
     for tag_name, dims, cdim, C in shapes:
-        carry, L, N = lattice_cells(dims, cdim, C, 0.1, 3, dev)
+        carry, L, N, _ = lattice_cells(dims, cdim, C, 0.1, 3, dev)
         _, sh = cp.build_cell_shifts(cdim, L)
         sh = torch.as_tensor(sh, dtype=torch.float32, device=dev)
         pos, tag = carry.pos, carry.tag
@@ -331,7 +344,233 @@ def kernel_phases(dev):
     return results['bench']
 
 
-def bench_job(t_start):
+# ---------------------------------------------------------------------------
+# the rebin
+
+
+def drifted(carry, amp, seed):
+    """The carry with every live position moved by a uniform random
+    amount of up to amp[a] along each axis a."""
+    import torch
+    dev = carry.pos.device
+    amp = torch.as_tensor(amp, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d = (torch.rand(carry.pos.shape, generator=gen, device=dev) * 2 - 1) * amp
+    return carry.replace(pos=torch.where((carry.tag >= 0)[..., None],
+                                         carry.pos + d, carry.pos))
+
+
+def exact(name, got, want):
+    """Kernel against plain: every tensor equal bit for bit (flags too).
+    Returns the largest absolute difference (0.0 when they agree)."""
+    import torch
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise RuntimeError(f"{name}: output {i} is {tuple(g.shape)} "
+                               f"{g.dtype}, plain {tuple(w.shape)} {w.dtype}")
+        if g.dtype == torch.float32:
+            same = torch.equal(g.view(torch.int32), w.view(torch.int32))
+            worst = max(worst, float((g - w).abs().max()))
+        else:
+            same = torch.equal(g, w)
+        if not same:
+            raise RuntimeError(f"{name}: output {i} differs from the plain "
+                               f"version (max |diff| {worst:.3e})")
+    return worst
+
+
+def rebin_bounds(cols, E):
+    """Bound of each rebin kernel: every input read once and every output
+    written once (the state's 14 columns, the z-emigrant buffers of 14*E
+    entries per cell and direction); operations, 6 per slot and axis pass
+    (origin, offset, two compares, rank) or per window candidate."""
+    S = cols[0].numel()
+    ncell = S // cols.shape[-1]
+    state = cols.numel() * 4
+    emz = 2 * ncell * 14 * E * 4
+    return {
+        'cell_rebin_select': bound(2 * state, 3 * 3 * S * 6),
+        'cell_rebin_sweep': bound(2 * state + emz, 3 * S * 6),
+        'cell_rebin_place': bound(2 * state + emz, S * 6),
+        'cell_rebin_serial': bound(2 * state, 4 * S * 6),
+    }
+
+
+def rebin_kernel_phases(dev):
+    """Each rebin kernel against its plain version on lattice fills
+    drifted by up to 0.45 of a cell width per axis at the bench shape and
+    at (5, 3, 4), C = 32, and on the overflowing fills.  At these
+    densities such a drift may overflow the E = 8 emigrant buffers or a
+    select window (the engine's drift is at most about half the skin,
+    0.1-0.15 w here): the flags are compared like every other output.
+    Returns the bench row of each kernel."""
+    from hoomd_tpu_torch.ops import cell_rebin as cr
+    E = 8
+    rows = {}
+    for tag_name, dims, cdim, C in (('bench', (40, 40, 40), (14, 14, 12), 40),
+                                    ('ragged', (14, 9, 11), (5, 3, 4), 32)):
+        carry, L, N, _ = lattice_cells(dims, cdim, C, 0.1, 3, dev)
+        c = drifted(carry, 0.45 * L / np.asarray(cdim, float), 11)
+        cols = cr.to_cols(c.pos, c.vel, c.frc, c.img, c.tag, c.mass, cdim, C)
+        par = cr.rebin_params(L, cdim)
+        swept, emz, _ = cr.cell_rebin_sweep_plain(cols, cdim, par, C=C, E=E)
+        calls = {
+            'cell_rebin_select': ((cols, cdim, par), dict(C=C)),
+            'cell_rebin_sweep': ((cols, cdim, par), dict(C=C, E=E)),
+            'cell_rebin_place': ((swept, emz, cdim, par), dict(C=C, E=E)),
+            'cell_rebin_serial': ((cols, cdim, par), dict(C=C, E=E)),
+        }
+        iters = 50 if tag_name == 'bench' else 5
+        bounds = rebin_bounds(cols, E)
+        for name, (args, kw) in calls.items():
+            kern = getattr(cr, name)
+            plain = getattr(cr, name + '_plain')
+            got, want = kern(*args, **kw), plain(*args, **kw)
+            err = exact(f'{name}[{tag_name}]', got, want)
+            row = dict(max_abs_err=err,
+                       ms=cuda_ms(lambda: kern(*args, **kw), iters),
+                       plain_ms=cuda_ms(lambda: plain(*args, **kw), 3))
+            row['bound_ms'], row['bound_by'] = bounds[name]
+            print(f"phase {name} [{tag_name} cell_dim={cdim} C={C} E={E} "
+                  f"N={N}]: bit-exact, overflow flag {bool(got[-1])} in "
+                  f"both, kernel_ms={row['ms']:.4f} "
+                  f"plain_ms={row['plain_ms']:.4f} "
+                  f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']})",
+                  flush=True)
+            if tag_name == 'bench':
+                rows[name] = row
+    rebin_overflow_phase(dev)
+    return rows
+
+
+def rebin_overflow_phase(dev):
+    """Two overflowing fills on a (3, 3, 3) grid of 9-wide cells: 12
+    particles of cell 0 past its +x face (sweep and serial flag with
+    E = 8), and 16 claimants of one cell with C = 8 (select flags); the
+    kernels drop the same particles as the plain versions."""
+    import torch
+    from hoomd_tpu_torch.ops import cell_rebin as cr
+    cdim, L = (3, 3, 3), np.array([9.0, 9.0, 9.0])
+    par = cr.rebin_params(L, cdim)
+
+    def fill(C, cells):
+        cols = torch.as_tensor(cr._FILLS, device=dev)[:, None].repeat(
+            1, 27 * C).reshape(14, 3, 3, 3, C)
+        flat = cols.reshape(14, 27, C)
+        t = 0
+        for cell, (x, n) in cells.items():
+            flat[0, cell, :n] = x - 4.5
+            flat[1, cell, :n] = flat[2, cell, :n] = 1.5 - 4.5
+            flat[12, cell, :n] = torch.arange(t, t + n, device=dev,
+                                              dtype=torch.float32)
+            t += n
+        return cols.contiguous()
+    cols = fill(32, {0: (3.1, 12)})
+    for name in ('cell_rebin_sweep', 'cell_rebin_serial'):
+        got = getattr(cr, name)(cols, cdim, par, C=32, E=8)
+        exact(f'{name}[overflow]', got,
+              getattr(cr, name + '_plain')(cols, cdim, par, C=32, E=8))
+        if not bool(got[-1]):
+            raise RuntimeError(f"{name}: 12 emigrants through one face "
+                               f"with E = 8 did not flag")
+    cols = fill(8, {0: (3.1, 8), 1: (4.5, 8)})
+    got = cr.cell_rebin_select(cols, cdim, par, C=8)
+    exact('cell_rebin_select[overflow]', got,
+          cr.cell_rebin_select_plain(cols, cdim, par, C=8))
+    if not bool(got[-1]):
+        raise RuntimeError("cell_rebin_select: 16 claimants with C = 8 did "
+                           "not flag")
+    print("phase rebin overflow: sweep, serial and select flag, bit-exact "
+          "with their plain versions", flush=True)
+
+
+# particles that two rebins may bin differently: one within a rounding of
+# a cell face, where the decisions (a global floor, or an offset from the
+# cell's own face) may round apart
+MAX_BINNED_APART = 10
+
+
+def cell_of(tag, N):
+    """(N,) cell index of every tag of a cell-major tag array, -1 where a
+    tag is missing."""
+    import torch
+    t = tag.reshape(tag.shape[0], -1)
+    cells = torch.arange(t.shape[0], device=t.device)[:, None].expand_as(t)
+    live = t >= 0
+    out = torch.full((N,), -1, dtype=torch.long, device=t.device)
+    out[t[live].long()] = cells[live]
+    return out
+
+
+def binned_apart(name, a, b):
+    """Count the particles two rebins bin apart; fail past
+    MAX_BINNED_APART or on a lost particle."""
+    if bool((a < 0).any()) or bool((b < 0).any()):
+        raise RuntimeError(f"{name}: a particle was lost")
+    n = int((a != b).sum())
+    if n > MAX_BINNED_APART:
+        raise RuntimeError(f"{name}: {n} particles binned apart")
+    return n
+
+
+def device_ms(fn, iters):
+    """Summed device kernel time per call of fn, by torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(e, 'self_device_time_total', None)
+        total += t if t is not None else getattr(e, 'self_cuda_time_total',
+                                                  0.0)
+    return total / 1e3 / iters
+
+
+def rebuild_phase(system):
+    """One rebuild of each rebin on a job's liquid: its live state
+    advanced by one rebuild cadence (fast_m windows of k steps) past its
+    last rebuild, on the job's plan.  CUDA-event time per call and device
+    kernel time per call; none may flag, and all three give the same cell
+    membership but for particles within a rounding of a face."""
+    from hoomd_tpu_torch.ops.fast_lj import build_fast_lj_chunk
+    fast = system._program['fast']
+    cdim, C, k = fast['cell_dim'], fast['C'], fast['k_rebuild']
+    m = max(int(system._grow.get('fast_m', 1)), 1)
+    c = fast['run_chunk'].wins(system._fast_carry, system._dyn['fast'], m, k)
+    st = system._state_raw
+    N, box = st.N, st.box
+    ref = None
+    for impl in ('sort', 'xsel', 'pallas'):
+        _, _, run, _ = build_fast_lj_chunk(
+            N=N, box=box, cell_dim=cdim, C=C, r_buff=0.4, rcut=2.5,
+            method_kind=fast['kind'], method_seed=0, rebin_impl=impl,
+            rebin_E=8, device=c.pos.device)
+        out = run.rebuild(c)
+        if bool(out.overflow) or bool(out.rebin_ovf) or bool(out.rebin_lost):
+            raise RuntimeError(f"rebuild[{impl}] flagged on the job's "
+                               f"liquid")
+        cells = cell_of(out.tag, N)
+        ref = cells if ref is None else ref
+        apart = binned_apart(f'rebuild[{impl}] vs sort', cells, ref)
+        ms = cuda_ms(lambda: run.rebuild(c), 20)
+        dms = device_ms(lambda: run.rebuild(c), 10)
+        print(f"rebuild[{impl}] of the job's liquid {m * k} steps after its "
+              f"last rebuild, cell_dim={cdim} C={C} N={N}: {ms:.4f} ms per "
+              f"call (CUDA events), device {dms:.4f} ms; {apart} particles "
+              f"binned apart from the sort", flush=True)
+
+
+def bench_job(t_start, nvt_steps=500, warmup=True):
     """bench.py's job script through hoomd_tpu_torch, up to the end of
     its warmup.  Returns the System and N."""
     import hoomd_tpu_torch as hoomd
@@ -358,10 +597,12 @@ def bench_job(t_start):
     lan.disable()
     mode.set_params(dt=0.005)
     md.integrate.nvt(group=hoomd.group.all(), kT=1.2, tau=0.5)
-    system.run(500, quiet=True)
+    system.run(nvt_steps, quiet=True)
     fast = system._program['fast']
     print(f"plan: cell_dim={fast['cell_dim']} C={fast['C']} "
-          f"k={fast['k_rebuild']}", flush=True)
+          f"k={fast['k_rebuild']} rebin={fast['rebin_impl']}", flush=True)
+    if not warmup:
+        return system, N
     # the same cadence-controller warmup as bench.py, cut short if this
     # smoke run nears its time budget
     last_m, stable = -1, 0
@@ -384,14 +625,110 @@ def bench_job(t_start):
 def reset_launch_counts():
     from hoomd_tpu_torch.hpmc import sweep as tsw
     from hoomd_tpu_torch.ops import cell_pair as cp
+    from hoomd_tpu_torch.ops import cell_rebin as cr
     cp.reset_launch_counts()
+    cr.reset_launch_counts()
     tsw.reset_launch_counts()
 
 
 def launch_counts():
     from hoomd_tpu_torch.hpmc import sweep as tsw
     from hoomd_tpu_torch.ops import cell_pair as cp
-    return {**cp.launch_counts(), **tsw.launch_counts()}
+    from hoomd_tpu_torch.ops import cell_rebin as cr
+    return {**cp.launch_counts(), **cr.launch_counts(),
+            **tsw.launch_counts()}
+
+
+def check_lj_output(system, N, what):
+    """Finite state, T = 1.2 +- 0.03, PE/N in PE_RANGE.  Returns the
+    thermo quantities."""
+    q = system.thermo_quantities()
+    snapf = system.take_snapshot()
+    if not (np.isfinite(snapf.particles.position).all()
+            and np.isfinite(snapf.particles.velocity).all()
+            and np.isfinite(q['potential_energy'])):
+        raise RuntimeError(f"{what}: non-finite state")
+    if abs(q['temperature'] - TEMP_TARGET) > TEMP_TOL:
+        raise RuntimeError(f"{what}: T = {q['temperature']:.4f} outside "
+                           f"{TEMP_TARGET} +- {TEMP_TOL}")
+    pe = q['potential_energy'] / N
+    if not PE_RANGE[0] <= pe <= PE_RANGE[1]:
+        raise RuntimeError(f"{what}: PE/N = {pe:.4f} outside {PE_RANGE}")
+    return q
+
+
+def rebin_job(env):
+    """bench.py's script to the melt plus 1000 NVT steps with
+    HOOMD_TPU_REBIN=env, with the output gates.  Returns (launch counts
+    of the run, System)."""
+    os.environ['HOOMD_TPU_REBIN'] = env
+    try:
+        reset_launch_counts()
+        system, N = bench_job(time.perf_counter(), nvt_steps=1000,
+                              warmup=False)
+        counts = launch_counts()
+    finally:
+        os.environ.pop('HOOMD_TPU_REBIN')
+    q = check_lj_output(system, N, f'HOOMD_TPU_REBIN={env} job')
+    fast = system._program['fast']
+    print(f"HOOMD_TPU_REBIN={env} job: rebin now {fast['rebin_impl']} "
+          f"(E={fast['rebin_E']}), T={q['temperature']:.5f} "
+          f"PE/N={q['potential_energy'] / N:.5f}, {system.fast_stats}, "
+          f"launches={counts}", flush=True)
+    check_rebin_lost(system, f'HOOMD_TPU_REBIN={env} job')
+    if env == 'pallas':
+        for name in ('cell_rebin_sweep', 'cell_rebin_place'):
+            if counts[name] <= 0:
+                raise RuntimeError(f"the pallas job never launched {name}")
+        # every rebuild of the job on the kernels: no retry widened E or
+        # fell back to the sort, so the gates above held their trajectory
+        if (fast['rebin_impl'] != 'pallas'
+                or system.fast_stats['rebin_retries']):
+            raise RuntimeError(
+                f"the pallas job left the migration rebin: now "
+                f"{fast['rebin_impl']}, {system.fast_stats}")
+    elif counts['cell_rebin_sweep'] or counts['cell_rebin_place']:
+        raise RuntimeError(f"the {env} job launched the migration kernels")
+    return counts, system
+
+
+def check_rebin_lost(system, what):
+    """An xsel rebuild that lost a particle is a fault of the rebin, not
+    a transient: fail if any did in the job."""
+    if system.fast_stats['rebin_lost']:
+        raise RuntimeError(f"{what}: an xsel rebuild lost a particle "
+                           f"({system.fast_stats})")
+
+
+def variants_path(system):
+    """cell_rebin_plane's three variants through the op's entry point on
+    a job's live state: 'grid' and the serial program agree slot for
+    slot, and 'select' puts every particle in the same cell.  Returns the
+    launch counts of this path."""
+    from hoomd_tpu_torch.ops import cell_rebin as cr
+    fast = system._program['fast']
+    c = system._fast_carry
+    L = system._state_raw.box.L
+    reset_launch_counts()
+    outs = {v: cr.cell_rebin_plane(c.pos, c.vel, c.frc, c.img, c.tag,
+                                   c.mass, fast['cell_dim'], L, C=fast['C'],
+                                   E=fast['rebin_E'], variant=v)
+            for v in ('select', 'grid', 'serial')}
+    counts = cr.launch_counts()
+    for v, out in outs.items():
+        if bool(out[-1]):
+            raise RuntimeError(f"cell_rebin_plane[{v}] flagged on the job's "
+                               f"state")
+    exact('cell_rebin_plane serial vs grid', outs['serial'][:6],
+          outs['grid'][:6])
+    N = system._state_raw.N
+    apart = binned_apart('cell_rebin_plane select vs grid',
+                         cell_of(outs['select'][4], N),
+                         cell_of(outs['grid'][4], N))
+    print(f"op variants on the job's state: serial == grid slot for slot, "
+          f"select bins {apart} particles apart from grid; "
+          f"launches={counts}", flush=True)
+    return counts
 
 
 def bench_script(card):
@@ -412,6 +749,9 @@ def bench_script(card):
     # does, and those steps go through cell_pair_plane (one_step)
     system.run(3, quiet=True)
     counts = launch_counts()
+    fast = system._program['fast']
+    print(f"bench job: rebin {fast['rebin_impl']}, {system.fast_stats}, "
+          f"grow {system._grow}", flush=True)
     print(json.dumps({
         "metric": "lj_melt_64k_nvt_particle_steps_per_sec",
         "value": pss, "unit": "particle-steps/s/chip",
@@ -420,21 +760,13 @@ def bench_script(card):
                   "pe_per_particle": q['potential_energy'] / N,
                   "fast_m": int(system._grow.get('fast_m', 1)),
                   "card": card, "package": "torch"}}), flush=True)
-    snapf = system.take_snapshot()
-    if not (np.isfinite(snapf.particles.position).all()
-            and np.isfinite(snapf.particles.velocity).all()
-            and np.isfinite(q['potential_energy'])):
-        raise RuntimeError("non-finite state after the bench script")
+    check_lj_output(system, N, 'bench job')
+    check_rebin_lost(system, 'bench job')
     for name in ('cell_megastep_planes', 'cell_pair_plane',
                  'cell_pair_planar'):
         if counts[name] <= 0:
             raise RuntimeError(f"main path never launched {name}")
-    if abs(q['temperature'] - TEMP_TARGET) > TEMP_TOL:
-        raise RuntimeError(f"T = {q['temperature']:.4f} outside "
-                           f"{TEMP_TARGET} +- {TEMP_TOL}")
     pe = q['potential_energy'] / N
-    if not PE_RANGE[0] <= pe <= PE_RANGE[1]:
-        raise RuntimeError(f"PE/N = {pe:.4f} outside {PE_RANGE}")
     print(f"main path: T={q['temperature']:.5f} PE/N={pe:.5f} "
           f"launches={counts}", flush=True)
     return counts
@@ -748,9 +1080,18 @@ def main():
                 or line.startswith('==')):
             print(f"  ptxas: {line.strip()}", flush=True)
     rows = kernel_phases(dev)
+    rows.update(rebin_kernel_phases(dev))
     rows.update(hpmc_kernel_phases())
     # each path's own launches, read just after it ran
     launches = bench_script(card)
+    counts, system = rebin_job('pallas')
+    for name in ('cell_rebin_sweep', 'cell_rebin_place'):
+        launches[name] = counts[name]
+    rebin_job('off')
+    counts = variants_path(system)
+    rebuild_phase(system)
+    for name in ('cell_rebin_select', 'cell_rebin_serial'):
+        launches[name] = counts[name]
     launches['fused_poly_sweep'] = hpmc_job('cube', card)['fused_poly_sweep']
     launches['fused_sphere_sweep'] = hpmc_job('sphere', card)[
         'fused_sphere_sweep']
@@ -765,9 +1106,17 @@ def main():
                              'hpmc_sweep.cu'),
         'fused_sphere_sweep': ('hoomd_tpu/hpmc/pallas_sweep.py:50',
                                'hpmc_sweep.cu'),
+        'cell_rebin_select': ('hoomd_tpu/ops/pallas_rebin.py:358',
+                              'cell_rebin.cu'),
+        'cell_rebin_sweep': ('hoomd_tpu/ops/pallas_rebin.py:409',
+                             'cell_rebin.cu'),
+        'cell_rebin_place': ('hoomd_tpu/ops/pallas_rebin.py:455',
+                             'cell_rebin.cu'),
+        'cell_rebin_serial': ('hoomd_tpu/ops/pallas_rebin.py:210',
+                              'cell_rebin.cu'),
     }
-    # no single PyTorch call computes a cell-stencil LJ step or an HPMC
-    # sweep, so library_ms is null for every kernel here
+    # no single PyTorch call computes a cell-stencil LJ step, an HPMC
+    # sweep or a cell rebin, so library_ms is null for every kernel here
     kernels = [{"name": name, "route": "cuda",
                 "source": f"hoomd_tpu_torch/csrc/{src}", "replaces": rep,
                 "launches": launches[name],

@@ -42,6 +42,12 @@ _SIGNATURES = {
     'hoomd_hpmc_poly_sweep': [P, P, P, P, P, P, P, P, P, P, I, P,
                               P, I, I, I, F, F, F,
                               I, I, I, I, F, F, F, P],
+    'hoomd_rebin_select': [P, P, P, P, F, F, F, F, F, F, I, I, I, I, P],
+    'hoomd_rebin_sweep': [P, P, P, P, P, P, F, F, F, F, F, F,
+                          I, I, I, I, I, P],
+    'hoomd_rebin_place': [P, P, P, P, F, F, F, F, F, F, I, I, I, I, I, P],
+    'hoomd_rebin_serial': [P, P, P, P, P, P, F, F, F, F, F, F,
+                           I, I, I, I, I, P],
 }
 
 

@@ -8,12 +8,24 @@ monitor inside every step raises a sticky ``danger`` flag when a pair
 could have been missed; the host (System._run_fast_chunk) then retries
 the segment with a shorter rebuild cadence.
 
+Rebuilds run one of the JAX engine's three rebins, chosen by the host
+(System._build_fast, with the JAX package's gates): the stable sort
+('sort'), the staged select ('xsel', plain torch, as the JAX package
+computes it outside any Pallas kernel) or the plane-local migration
+('pallas': the sweep and place kernels of ops/cell_rebin.py).  A
+failed xsel or migration rebuild raises the sticky ``rebin_ovf`` (a
+stage or buffer overflowed) or ``rebin_lost`` (xsel lost a particle);
+the host retries the segment (System._rebin_fallback).
+
 Differences from the JAX engine, by design:
-  * one rebin: the stable sort rebin at every N (the JAX package uses an
-    XLA one-hot "xsel" rebin at N >= 4096);
-  * no impl switch: on CUDA the three kernels always run;
+  * no impl switch: on CUDA the megastep, plane and planar kernels always
+    run (the JAX engine's 'plane' configuration);
   * the loops are plain Python loops around kernel launches, so the host
-    knows the timestep and every window count without a device fetch.
+    knows the timestep and every window count without a device fetch;
+  * every rebuild cycle is windows then rebuild_carry, with the xsel
+    rebin too: the JAX engine's plane-layout xsel cycle loop
+    (_plane_cycles) saves TPU layout transposes, and on the H100 it ran
+    no faster than this loop (PERF.md).
 """
 
 from __future__ import annotations
@@ -29,6 +41,7 @@ from .. import variant as variant_mod
 from . import hashrng
 from .cell_pair import (build_cell_shifts, cell_megastep_planes,
                         cell_pair_plane, cell_pair_planar)
+from .cell_rebin import cell_rebin_plane, cell_rebin_xsel
 
 
 @dataclass
@@ -50,6 +63,10 @@ class FastCarry:
     danger: torch.Tensor     # () bool sticky: skin crossed mid-window
     since: int               # steps since last rebuild
     wmax: torch.Tensor       # () largest normalised drift ratio seen
+    rebin_ovf: torch.Tensor  # () bool sticky: an xsel transient stage or a
+                             # migration buffer overflowed
+    rebin_lost: torch.Tensor  # () bool sticky: an xsel rebuild lost a
+                              # particle; either flag makes the host retry
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
@@ -130,8 +147,12 @@ def plan_fast_lj(N, box_L, rcut, r_buff, conservative=False, frac=None):
 
 
 def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
-                        method_seed, k_rebuild=4, device='cpu'):
+                        method_seed, k_rebuild=4, rebin_impl='sort',
+                        rebin_E=8, device='cpu'):
     """Returns (to_fast, refresh_forces, run, to_state).
+
+    rebin_impl: 'sort', 'xsel' or 'pallas' (the migration sweep and place
+    with rebin_E emigrant slots per cell face).
 
     dyn layout: {'pv': device tensor [rc2, e_shift, lj1, lj2, rcut],
     'dt': float, 'kT': packed variant on the device, 'tau': float,
@@ -338,8 +359,26 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
                          wmax=wmax, timestep=ts, since=c.since + nw * k)
 
     def rebuild_carry(c: FastCarry):
-        """Re-bin into fresh cell-major layout; forces ride the sort so the
-        next half-kick sees them in slot order."""
+        """Re-bin into fresh cell-major layout; forces ride along so the
+        next half-kick sees them in slot order.  typ stays on the xsel and
+        migration rebins: one type, so every slot carries type 0."""
+        if rebin_impl == 'xsel':
+            p, v, f, im, t, m, cap_o, lost = cell_rebin_xsel(
+                c.pos, c.vel, c.frc, c.img, c.tag, c.mass, cell_dim, L_np,
+                C=C)
+            # a transient-stage overflow or a lost particle makes THIS
+            # rebuild unusable; it says nothing about C
+            return c.replace(pos=p, vel=v, img=im, tag=t, mass=m, ref_pos=p,
+                             frc=f, rebin_ovf=c.rebin_ovf | cap_o,
+                             rebin_lost=c.rebin_lost | lost,
+                             n_rebuilds=c.n_rebuilds + 1, since=0)
+        if rebin_impl == 'pallas':
+            p, v, f, im, t, m, o = cell_rebin_plane(
+                c.pos, c.vel, c.frc, c.img, c.tag, c.mass, cell_dim, L_np,
+                C=C, E=rebin_E)
+            return c.replace(pos=p, vel=v, img=im, tag=t, mass=m, ref_pos=p,
+                             frc=f, rebin_ovf=c.rebin_ovf | o,
+                             n_rebuilds=c.n_rebuilds + 1, since=0)
         p, v, im, t, ty, m, f, o = _rebin(
             c.pos.reshape(M, 3), c.vel.reshape(M, 3), c.img.reshape(M, 3),
             c.tag.reshape(M), c.typ.reshape(M), c.mass.reshape(M),
@@ -416,7 +455,9 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
             ref_pos=p.reshape(shape3), timestep=state.timestep, aux=aux,
             overflow=ovf, n_rebuilds=0,
             danger=torch.zeros((), dtype=torch.bool, device=dev), since=0,
-            wmax=torch.zeros((), dtype=fdt, device=dev))
+            wmax=torch.zeros((), dtype=fdt, device=dev),
+            rebin_ovf=torch.zeros((), dtype=torch.bool, device=dev),
+            rebin_lost=torch.zeros((), dtype=torch.bool, device=dev))
 
     def refresh_forces(carry, dyn):
         frc, pe, vir = cell_pair_planar(carry.pos, cell_dim, shifts,

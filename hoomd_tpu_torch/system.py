@@ -18,13 +18,23 @@ control flags:
   * capacity overflow  -> conservative replan, then larger C; retry;
   * danger (a pair may have been missed) -> shorter rebuild cadence, or
     a smaller kernel window k; retry from the segment's start;
+  * rebin overflow (an xsel or migration rebuild failed) -> for xsel a
+    strike: the sort rebuild, and xsel again after 8 clean segments, at
+    most 3 times; for the migration rebin the emigrant buffers widen from
+    E = 8 to 16, then the sort; retry;
   * clean -> accept, and double the window count per rebuild cycle
     (fast_m) up to 64, fast-tracked by the measured drift.
+
+Left out of the JAX package's protocol: the lifetime cap on xsel
+re-enables and the memo of built programs (hoomd_tpu/system.py:1349-1355,
+747-783), both there to bound Mosaic recompiles, which the port does not
+have.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import time
 
 import numpy as np
@@ -57,6 +67,11 @@ class System:
         self._forces_fresh = False
         self.hpmc_integrator = None
         self._hpmc_counters = None
+        # host counters of the MD run loop: segments run, their retries
+        # (of which for a failed rebin, and of those the ones in which an
+        # xsel rebuild lost a particle), and the rebuilds of accepted ones
+        self.fast_stats = dict(segments=0, retries=0, rebin_retries=0,
+                               rebin_lost=0, rebuilds=0)
 
     # -- state residency -----------------------------------------------------
     @property
@@ -233,15 +248,33 @@ class System:
         if cap:
             k_rebuild = min(k_rebuild, cap)
         self._fast_k_dt = dt
+        # rebuild implementation, by the JAX package's gates
+        # (hoomd_tpu/system.py:702-726) for its 'plane' configuration, which
+        # the port's engine is: below 4096 particles the sort costs next to
+        # nothing; the int payload rides the migration and xsel rebins as
+        # float32 values, exact below 2^24; HOOMD_TPU_REBIN=off keeps the
+        # sort, =pallas takes the migration sweep and place, and anything
+        # else the staged select (xsel)
+        rebin_impl = 'sort'
+        env_rebin = os.environ.get('HOOMD_TPU_REBIN', 'on')
+        if ((1 << 12) <= N < (1 << 23) and min(cell_dim) >= 3
+                and not self._grow.get('fast_rebin_sort')
+                and env_rebin != 'off'):
+            rebin_impl = 'pallas' if env_rebin == 'pallas' else 'xsel'
+        # emigrant slots per cell face of the migration rebin: 8, widened
+        # to 16 by the rebin-overflow retry
+        rebin_E = int(self._grow.get('fast_rebin_E', 8))
         to_fast, refresh, run_chunk, to_state = build_fast_lj_chunk(
             N=N, box=box, cell_dim=tuple(cell_dim), C=C, r_buff=r_buff,
             rcut=rcut, method_kind=kind, method_seed=getattr(m, 'seed', 0),
-            k_rebuild=k_rebuild, device=self.device)
+            k_rebuild=k_rebuild, rebin_impl=rebin_impl, rebin_E=rebin_E,
+            device=self.device)
         return {'to_fast': to_fast, 'refresh': refresh,
                 'run_chunk': run_chunk, 'to_state': to_state,
                 'C': C, 'cell_dim': tuple(cell_dim), 'method': m,
                 'kind': kind, 'rcut': rcut, 'k_rebuild': k_rebuild,
-                'skin': skin, 'pair_force': f}
+                'skin': skin, 'rebin_impl': rebin_impl, 'rebin_E': rebin_E,
+                'pair_force': f}
 
     def _reset_cadence(self):
         for key in ('fast_m', 'fast_m_ceil', 'fast_m_pinned', 'fast_k_cap',
@@ -336,16 +369,27 @@ class System:
                 # ONE packed device->host fetch for all control flags
                 fl = torch.stack([carry.overflow.float(),
                                   carry.danger.float(),
+                                  carry.rebin_ovf.float(),
+                                  carry.rebin_lost.float(),
                                   carry.wmax.float()]).cpu().numpy()
                 ovf, dng = bool(fl[0] > 0.5), bool(fl[1] > 0.5)
-                if not (ovf or dng):
+                lost = bool(fl[3] > 0.5)
+                rbo = bool(fl[2] > 0.5) or lost
+                self.fast_stats['segments'] += 1
+                if not (ovf or dng or rbo):
+                    self.fast_stats['rebuilds'] += (carry.n_rebuilds
+                                                    - carry0.n_rebuilds)
                     self._fast_carry = carry
                     self._fast_state_stale = True
                     seg_cap = min(seg_cap * 2, 8192)
                     self._fast_seg_cap = seg_cap
-                    self._grow_cadence(carry, seg, m_now, float(fl[2]))
+                    self._xsel_reenable()
+                    self._grow_cadence(carry, seg, m_now, float(fl[4]))
                     seg_cap = self._fast_seg_cap
                     break
+                self.fast_stats['retries'] += 1
+                self.fast_stats['rebin_retries'] += int(rbo)
+                self.fast_stats['rebin_lost'] += int(lost)
                 # restore the segment's start, adjust, retry
                 seg_cap = 512
                 self._fast_seg_cap = seg_cap
@@ -362,11 +406,17 @@ class System:
                 if ovf:
                     self._grow_capacity()
                     need_rebuild = True
+                if rbo and not ovf:
+                    # (with a capacity overflow the rebin overflow is a
+                    # symptom of the same event: the replan covers it, and
+                    # no xsel strike is burnt)
+                    self._rebin_fallback(fast)
+                    need_rebuild = True
                 if dng:
                     if m_now > 1:
                         # back off one window when the edge was barely
                         # crossed, proportionally when far past it
-                        wm = max(float(fl[2]), 1.0)
+                        wm = max(float(fl[4]), 1.0)
                         m_tgt = (max(int(m_now * 0.8 / math.sqrt(wm)), 1)
                                  if math.isfinite(wm) else 1)
                         m_tgt = max(min(m_tgt, m_now - 1), 1)
@@ -392,6 +442,36 @@ class System:
                     "usually means the dynamics diverged (NaN "
                     "positions); check dt and the initial configuration")
             done += seg
+
+    def _rebin_fallback(self, fast):
+        """A rebuild of the xsel or migration rebin failed.  xsel: a
+        strike, the sort rebuild, and xsel again after 8 clean segments
+        for the first 3 strikes.  Migration: E 8 -> 16, then the sort."""
+        if fast['rebin_impl'] == 'xsel':
+            fails = self._grow.get('fast_xsel_fails', 0) + 1
+            self._grow['fast_xsel_fails'] = fails
+            self._grow['fast_rebin_sort'] = True
+            self._grow.pop('fast_xsel_retry', None)
+            if fails <= 3:
+                self._grow['fast_xsel_retry'] = 8
+        elif fast['rebin_E'] < 16:
+            self._grow['fast_rebin_E'] = 16
+        else:
+            self._grow['fast_rebin_sort'] = True
+
+    def _xsel_reenable(self):
+        """After a clean segment: count down an xsel strike's sort
+        fallback, and at its end rebuild the program with xsel."""
+        xr = self._grow.get('fast_xsel_retry')
+        if not xr:
+            return
+        if xr > 1:
+            self._grow['fast_xsel_retry'] = xr - 1
+            return
+        self._grow.pop('fast_xsel_retry', None)
+        self._grow.pop('fast_rebin_sort', None)
+        self._rebuild_program()
+        self._pack_dyn()
 
     def _grow_cadence(self, carry, seg, m_now, wmax):
         """After a clean segment: double fast_m (the windows per rebuild
@@ -420,8 +500,11 @@ class System:
         m_next = min(m_next, ceil_m, max(seg // (2 * k_now), 1))
         if m_next > m_now:
             self._grow['fast_m'] = m_next
-            self._fast_carry = carry.replace(wmax=torch.zeros_like(
-                carry.wmax))
+            # (a program rebuilt by the xsel re-enable starts from the
+            # state, with wmax 0, and may have planned another layout)
+            if self._fast_carry is not None:
+                self._fast_carry = carry.replace(wmax=torch.zeros_like(
+                    carry.wmax))
 
     def _prep_forces(self):
         """Forces, PE and virial at the current positions."""

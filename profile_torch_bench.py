@@ -2,7 +2,9 @@
 """Where the time goes in the 64k LJ NVT job of hoomd_tpu_torch on one
 NVIDIA GPU.
 
-    python3 profile_torch_bench.py
+    python3 profile_torch_bench.py           # the default rebin
+    python3 profile_torch_bench.py rebins    # each rebin in turn
+    python3 profile_torch_bench.py rebins on on off   # the turns given
 
 from the root of the repository.  It runs chip_smoke.py's bench job
 (bench.py's script: Langevin melt, Nose-Hoover NVT, cadence warmup) and
@@ -14,20 +16,37 @@ then prints:
      time of all kernels, their ratio (the device's busy share; the
      profiler inflates host time), and the device time per kernel;
   4. CUDA-event times at the steady state of one k-step kernel window,
-     eight windows, one rebuild (sort rebin) and one single step;
-  5. the launch counts of the three stencil kernels.
-It checks nothing; chip_smoke.py is the check.
+     eight windows, one rebuild (the program's rebin) and one single
+     step;
+  5. the launch counts of the stencil and rebin kernels.
+With ``rebins`` it does all of this once per rebin of the rebuild, in
+the turns given as HOOMD_TPU_REBIN values, by default on (xsel, the
+default at this N), off (the sort), pallas (the migration kernels),
+pallas, off, on, so that two runs of each bracket the others on one
+card; step 4 then also times one rebuild cycle (the pinned windows and
+a rebuild, as the run loop chains them).  After the warmup it re-arms the rebin (a strike
+or an overflow in the lattice melt may have fallen back to the sort) and
+pins the cadence at PIN_M windows per rebuild, so that the runs differ
+in the rebin alone; the System's retry counters and growth table are
+printed after each timed window.  It checks nothing; chip_smoke.py is
+the check.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
+import sys
 import time
 
 import torch
 
 from chip_smoke import bench_job, cuda_ms
+
+# windows per rebuild in the rebins comparison: the cadence the sort runs
+# settle at in this job (8 steps at k = 4)
+PIN_M = 2
 
 
 def card():
@@ -37,18 +56,31 @@ def card():
         check=True, timeout=60).stdout.strip()
 
 
+def rearm(system, m):
+    """The rebin the environment chooses, again, and a cadence of m
+    windows per rebuild that the controller neither grows nor probes."""
+    for key in ('fast_rebin_sort', 'fast_xsel_retry', 'fast_xsel_fails',
+                'fast_rebin_E'):
+        system._grow.pop(key, None)
+    system._grow.update(fast_m=m, fast_m_ceil=m, fast_m_pinned=True,
+                        fast_m_probe_fails=2)
+    system._rebuild_program()
+    system._pack_dyn()
+
+
 def timed_windows(system, N, steps=3000, reps=2):
     for _ in range(reps):
         torch.cuda.synchronize()
-        nr0 = system._fast_carry.n_rebuilds
+        nr0 = system.fast_stats['rebuilds']
         t0 = time.perf_counter()
         system.run(steps, quiet=True)
         el = time.perf_counter() - t0
-        nr = system._fast_carry.n_rebuilds - nr0
+        nr = system.fast_stats['rebuilds'] - nr0
         print(f"timed {steps}: {el:.4f} s = {steps * N / el:.6g} "
               f"particle-steps/s, {el / steps * 1e3:.4f} ms/step, "
-              f"rebuilds {nr}, fast_m {system._grow.get('fast_m')}",
-              flush=True)
+              f"rebuilds {nr}, fast_m {system._grow.get('fast_m')}, rebin "
+              f"{system._program['fast']['rebin_impl']}, "
+              f"{system.fast_stats}, grow {system._grow}", flush=True)
 
 
 def profile_steps(system, steps=1024, top=25):
@@ -82,29 +114,55 @@ def profile_steps(system, steps=1024, top=25):
 
 def component_times(system):
     fast = system._program['fast']
-    carry, dyn, run = system._fast_carry, system._dyn['fast'], \
-        fast['run_chunk']
+    carry = system._fast_carry
+    if carry is None:                   # a retry rebuilt the program
+        carry = system._fresh_carry()
+    dyn, run = system._dyn['fast'], fast['run_chunk']
     k = fast['k_rebuild']
     t_win = cuda_ms(lambda: run.wins(carry, dyn, 1, k), 50)
     t_win8 = cuda_ms(lambda: run.wins(carry, dyn, 8, k), 10)
     t_reb = cuda_ms(lambda: run.rebuild(carry), 50)
     t_step = cuda_ms(lambda: run.steps(carry, dyn, 1), 20)
+    m = max(int(system._grow.get('fast_m', 1)), 1)
+    t_cyc = cuda_ms(lambda: run.cycles(carry, dyn, 1, m, k), 50)
     print(f"one window (k={k}): {t_win:.4f} ms; 8 windows {t_win8:.4f} ms; "
-          f"rebuild {t_reb:.4f} ms; one step {t_step:.4f} ms", flush=True)
+          f"rebuild {t_reb:.4f} ms; one step {t_step:.4f} ms; one rebuild "
+          f"cycle of {m} windows {t_cyc:.4f} ms", flush=True)
 
 
-def main():
+def main(argv):
+    if argv[1:2] == ['rebins']:
+        turns = argv[2:] or ['on', 'off', 'pallas', 'pallas', 'off', 'on']
+        for env in turns:
+            print(f"== HOOMD_TPU_REBIN={env}", flush=True)
+            os.environ['HOOMD_TPU_REBIN'] = env
+            profile_job(pin_m=PIN_M)
+        return
+    profile_job()
+
+
+def profile_job(pin_m=None):
     from hoomd_tpu_torch.ops import cell_pair as cp
+    from hoomd_tpu_torch.ops import cell_rebin as cr
+    cp.reset_launch_counts()
+    cr.reset_launch_counts()
     print('card:', card(), flush=True)
     system, N = bench_job(time.perf_counter())
     fast = system._program['fast']
     print(f"warmup done: plan {fast['cell_dim']} C={fast['C']} "
-          f"k={fast['k_rebuild']}, grow {system._grow}", flush=True)
+          f"k={fast['k_rebuild']} rebin={fast['rebin_impl']}, grow "
+          f"{system._grow}, {system.fast_stats}", flush=True)
+    if pin_m is not None:
+        rearm(system, pin_m)
+        print(f"re-armed: rebin {system._program['fast']['rebin_impl']}, "
+              f"fast_m pinned at {pin_m}", flush=True)
     timed_windows(system, N)
     profile_steps(system)
     component_times(system)
-    print(json.dumps({'launches': cp.launch_counts()}), flush=True)
+    print(f"fast_stats {system.fast_stats}", flush=True)
+    print(json.dumps({'launches': {**cp.launch_counts(),
+                                   **cr.launch_counts()}}), flush=True)
 
 
 if __name__ == '__main__':
-    main()
+    main(sys.argv)
