@@ -23,6 +23,13 @@ from the root of the repository.  In order it prints:
      counts, every slot within 1e-5 (positions) and 1e-6 (quaternions)
      but for at most 1 flipped decision per 10^4 trials (each printed
      with its cell), and CUDA-event times;
+  4a. one phase per force kernel of the other HOOMD_TPU_FAST_IMPL paths
+     (cell_pair_lj, cell_pair_lj_pallas3d, cell_pair_lj_row,
+     cell_pair_planar_n3l): the kernel against its plain torch version at
+     the bench shape, the ragged shape and a 2x2x2 grid, as in 3; then
+     the cross-kernel phase: on the bench fill the four kernels' forces
+     and cell_pair_plane's agree, and cell_pair_lj's PE and virial
+     cell_pair_planar's;
   6. the bench.py job script (64k LJ, Langevin melt then Nose-Hoover NVT)
      through ``import hoomd_tpu_torch as hoomd`` on --mode=gpu, on its
      default rebin (xsel at this N), with all three launch counters > 0,
@@ -33,7 +40,12 @@ from the root of the repository.  In order it prints:
      variants through cell_rebin_plane on the pallas job's state, and one
      rebuild of each rebin the engine runs (sort, xsel, the migration
      sweep + place) on that job's liquid, by CUDA events and by the
-     profiler's device time;
+     profiler's device time; then the same script to the melt plus 1000
+     NVT steps with HOOMD_TPU_FAST_IMPL = planar_n3l, pallas, pallas3d and
+     row, and with plane plus HOOMD_TPU_MEGA=off, each with the same
+     gates, its kernel launched and the megastep not, the rebin of its
+     gate, the ms per step of a timed 500-step window and the device's
+     busy share over 50 profiled steps;
   7. the BASELINE.json config-5 job script (4096 hard cubes at phi = 0.4,
      50 settle and 200 timed sweeps) and the hard-sphere job (4096
      spheres at a = 1.05), each with its metric line, zero overlaps
@@ -204,21 +216,31 @@ def lj_pair_counts(pos, tag, cdim, sh, rc):
 def lj_bounds(pos, tag, cdim, sh, N, k):
     """Bound of each LJ kernel at this fill, counting 8 operations per
     candidate pair (the r^2 test), 15 more per pair inside r_cut for the
-    force, 12 more for PE and virial (planar), and 30 per particle and
-    step for a megastep window's kick, drift and thermostat sums."""
+    force, 12 more for PE and virial (planar, lj), and 30 per particle
+    and step for a megastep window's kick, drift and thermostat sums.
+    The half stencil visits half the candidate pairs and puts 3 more
+    operations (the -F on j) on each pair inside r_cut."""
     cand, inr = lj_pair_counts(pos, tag, cdim, sh, 2.5)
     slots = pos.shape[0] * pos.shape[1]
     P = slots * 4                                  # one f32 per slot
     sh_bytes = sh.numel() * 4
+    adj_bytes = sh.numel() // 3 * 4
     plane_ops = 8 * cand + 15 * inr
+    force = bound(3 * P + P + sh_bytes + 3 * P, plane_ops)
     return {
-        'cell_pair_plane': bound(3 * P + P + sh_bytes + 3 * P, plane_ops),
+        'cell_pair_plane': force,
         'cell_pair_planar': bound(3 * P + P + sh_bytes + 10 * P,
                                   plane_ops + 12 * inr),
         # in: pos, vel, frc, ref pos (3 planes each), 1/m, m, tags;
         # out: pos, vel, frc
         'cell_megastep_planes': bound(15 * P + sh_bytes + 9 * P,
                                       k * (plane_ops + 30 * N)),
+        'cell_pair_lj': bound(3 * P + P + adj_bytes + sh_bytes + 10 * P,
+                              plane_ops + 12 * inr),
+        'cell_pair_lj_pallas3d': force,
+        'cell_pair_lj_row': force,
+        'cell_pair_planar_n3l': bound(3 * P + P + sh_bytes + 3 * P,
+                                      (8 * cand + 18 * inr) / 2),
     }
 
 
@@ -228,10 +250,7 @@ def kernel_phases(dev):
     results = {}
     shapes = [('bench', (40, 40, 40), (14, 14, 12), 40),
               ('ragged', (9, 11, 14), (3, 4, 5), 37)]
-    pv = torch.tensor([2.5 ** 2, 0.0, 4.0, 4.0, 2.5], dtype=torch.float32,
-                      device=dev)
-    r6 = 1.0 / 2.5 ** 6
-    pv[1] = r6 * (4.0 * r6 - 4.0)                   # shift-mode e_shift
+    pv, _ = lj_params(dev)
     for tag_name, dims, cdim, C in shapes:
         carry, L, N, _ = lattice_cells(dims, cdim, C, 0.1, 3, dev)
         _, sh = cp.build_cell_shifts(cdim, L)
@@ -339,9 +358,110 @@ def kernel_phases(dev):
         for kname, (b_ms, b_by) in lj_bounds(pos.reshape(-1, C, 3),
                                              tag.reshape(-1, C), cdim, sh,
                                              N, 4).items():
-            row[kname].update(bound_ms=b_ms, bound_by=b_by)
+            if kname in row:
+                row[kname].update(bound_ms=b_ms, bound_by=b_by)
         results[tag_name] = row
     return results['bench']
+
+
+# the force path of each HOOMD_TPU_FAST_IMPL value this script runs, and
+# the kernel of its steps
+IMPL_KERNELS = {'planar_n3l': 'cell_pair_planar_n3l', 'pallas': 'cell_pair_lj',
+                'pallas3d': 'cell_pair_lj_pallas3d',
+                'row': 'cell_pair_lj_row'}
+
+
+def lj_params(dev):
+    """[rc2, e_shift, lj1, lj2, rcut] and [lj1, lj2, rc2, e_shift] of the
+    bench job's shifted LJ."""
+    import torch
+    r6 = 1.0 / 2.5 ** 6
+    es = r6 * (4.0 * r6 - 4.0)
+    return (torch.tensor([2.5 ** 2, es, 4.0, 4.0, 2.5], dtype=torch.float32,
+                         device=dev),
+            torch.tensor([4.0, 4.0, 2.5 ** 2, es], dtype=torch.float32,
+                         device=dev))
+
+
+def impl_kernel_phases(dev):
+    """Each force kernel of the other impls against its plain version at
+    the bench shape, the ragged shape and a 2x2x2 grid (where one
+    neighbour cell is reached under two image shifts; 'pallas' reads its
+    neighbours from the adjacency table there), element by element; then
+    the cross-kernel phase on the bench fill.  Returns the bench row of
+    each kernel."""
+    import torch
+    from hoomd_tpu_torch.ops import cell_pair as cp
+    pv, ljv = lj_params(dev)
+    out = {}
+    for tag_name, dims, cdim, C in (('bench', (40, 40, 40), (14, 14, 12), 40),
+                                    ('ragged', (9, 11, 14), (3, 4, 5), 37),
+                                    ('2x2x2', (6, 6, 6), (2, 2, 2), 40)):
+        carry, L, N, _ = lattice_cells(dims, cdim, C, 0.1, 3, dev)
+        adj, sh = cp.build_cell_shifts(cdim, L)
+        adj = torch.as_tensor(adj, dtype=torch.int32, device=dev)
+        sh = torch.as_tensor(sh, dtype=torch.float32, device=dev)
+        pos, tag = carry.pos, carry.tag
+        nc = pos.shape[0]
+        calls = {
+            'cell_pair_lj': ((pos, adj, sh, ljv), dict(ncells=nc)),
+            'cell_pair_lj_pallas3d': ((pos, cdim, sh, ljv), {}),
+            'cell_pair_lj_row': ((pos, cdim, sh, ljv), {}),
+            'cell_pair_planar_n3l': ((pos, cdim, sh, pv), {}),
+        }
+        iters = 50 if tag_name == 'bench' else 5
+        bounds = lj_bounds(pos, tag, cdim, sh, N, 4)
+        for name, (args, kw) in calls.items():
+            kern = getattr(cp, name)
+            plain = getattr(cp, name + '_plain')
+            got = kern(*args, C=C, cell_tag=tag, **kw)
+            want = plain(*args, cell_tag=tag)
+            if not isinstance(got, tuple):
+                got, want = (got,), (want,)
+            ea, er = compare(f'{name}[{tag_name}]', [
+                (lab, g, w, RTOL, ATOL)
+                for lab, g, w in zip(('F', 'pe', 'virial'), got, want)])
+            row = dict(max_abs_err=ea, bound_share=er,
+                       ms=cuda_ms(lambda: kern(*args, C=C, cell_tag=tag,
+                                               **kw), iters),
+                       plain_ms=cuda_ms(lambda: plain(*args, cell_tag=tag),
+                                        3 if tag_name == 'bench' else 1))
+            row['bound_ms'], row['bound_by'] = bounds[name]
+            print(f"phase {name} [{tag_name} cell_dim={cdim} C={C} N={N}]: "
+                  f"max_abs_err={ea:.3e} bound_share={er:.3f} "
+                  f"kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                  f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']})",
+                  flush=True)
+            if tag_name == 'bench':
+                out[name] = row
+        if tag_name == 'bench':
+            cross_kernel_phase(pos, tag, adj, cdim, sh, pv, ljv, C)
+    return out
+
+
+def cross_kernel_phase(pos, tag, adj, cdim, sh, pv, ljv, C):
+    """On one state: the forces of the four force kernels of the other
+    impls against cell_pair_plane's (exact divide), and 'pallas''s PE
+    and virial against cell_pair_planar's: one function, five kernels."""
+    from hoomd_tpu_torch.ops import cell_pair as cp
+    ref = cp.cell_pair_plane(pos, cdim, sh, pv, C=C, cell_tag=tag)
+    F4, pe4, vir4 = cp.cell_pair_lj(pos, adj, sh, ljv, ncells=pos.shape[0],
+                                    C=C, cell_tag=tag)
+    _, pe3, vir3 = cp.cell_pair_planar(pos, cdim, sh, pv, C=C, cell_tag=tag)
+    outputs = [('pallas F', F4, ref, RTOL, ATOL),
+               ('pallas pe vs planar', pe4, pe3, RTOL, ATOL),
+               ('pallas virial vs planar', vir4, vir3, RTOL, ATOL)]
+    for name in ('cell_pair_lj_pallas3d', 'cell_pair_lj_row'):
+        outputs.append((name, getattr(cp, name)(pos, cdim, sh, ljv, C=C,
+                                                cell_tag=tag), ref, RTOL,
+                        ATOL))
+    outputs.append(('planar_n3l', cp.cell_pair_planar_n3l(
+        pos, cdim, sh, pv, C=C, cell_tag=tag), ref, RTOL, ATOL))
+    compare('cross-kernel vs cell_pair_plane / cell_pair_planar', outputs)
+    print("phase cross-kernel: the forces of cell_pair_lj, "
+          "cell_pair_lj_pallas3d, cell_pair_lj_row, cell_pair_planar_n3l and "
+          "cell_pair_plane agree, and cell_pair_lj's PE and virial "
+          "cell_pair_planar's", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -600,7 +720,8 @@ def bench_job(t_start, nvt_steps=500, warmup=True):
     system.run(nvt_steps, quiet=True)
     fast = system._program['fast']
     print(f"plan: cell_dim={fast['cell_dim']} C={fast['C']} "
-          f"k={fast['k_rebuild']} rebin={fast['rebin_impl']}", flush=True)
+          f"k={fast['k_rebuild']} rebin={fast['rebin_impl']} "
+          f"impl={fast['impl']} megastep={fast['mega']}", flush=True)
     if not warmup:
         return system, N
     # the same cadence-controller warmup as bench.py, cut short if this
@@ -690,6 +811,56 @@ def rebin_job(env):
     elif counts['cell_rebin_sweep'] or counts['cell_rebin_place']:
         raise RuntimeError(f"the {env} job launched the migration kernels")
     return counts, system
+
+
+def impl_job(impl, mega=None):
+    """bench.py's script to the melt plus 1000 NVT steps with
+    HOOMD_TPU_FAST_IMPL=impl (and HOOMD_TPU_MEGA=mega), with the output
+    gates; its kernel launched, the megastep not, the rebin of its gate
+    (xsel for the planar family, else the sort); then a timed 500-step
+    window and the device's busy share over 50 profiled steps.  Returns
+    the launch counts of the run."""
+    import torch
+    t_job = time.perf_counter()
+    env = {'HOOMD_TPU_FAST_IMPL': impl}
+    if mega is not None:
+        env['HOOMD_TPU_MEGA'] = mega
+    what = ' '.join(f'{k}={v}' for k, v in env.items()) + ' job'
+    os.environ.update(env)
+    try:
+        reset_launch_counts()
+        system, N = bench_job(time.perf_counter(), nvt_steps=1000,
+                              warmup=False)
+        counts = launch_counts()
+        q = check_lj_output(system, N, what)
+        check_rebin_lost(system, what)
+        fast = system._program['fast']
+        kname = IMPL_KERNELS.get(impl, 'cell_pair_plane')
+        if counts[kname] <= 0:
+            raise RuntimeError(f"the {what} never launched {kname}")
+        if counts['cell_megastep_planes'] or fast['mega']:
+            raise RuntimeError(f"the {what} ran the megastep")
+        gate = 'xsel' if impl in ('plane', 'planar_n3l') else 'sort'
+        # an xsel strike sorts until 8 clean segments have passed
+        if not (fast['rebin_impl'] == gate
+                or (gate == 'xsel' and system._grow.get('fast_rebin_sort'))):
+            raise RuntimeError(f"the {what} rebuilt on "
+                               f"{fast['rebin_impl']}, its gate names {gate}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        system.run(500, quiet=True)
+        ms = (time.perf_counter() - t0) * 2.0
+        busy = device_profile(lambda: system.run(50, quiet=True),
+                              f'50 steps of the {what}', top=4)
+    finally:
+        for k in env:
+            os.environ.pop(k)
+    print(f"{what}: T={q['temperature']:.5f} "
+          f"PE/N={q['potential_energy'] / N:.5f}, {system.fast_stats}, "
+          f"{ms:.4f} ms/step over 500 steps, busy share {busy:.4f}, "
+          f"launches={counts}; the job took "
+          f"{time.perf_counter() - t_job:.1f} s", flush=True)
+    return counts
 
 
 def check_rebin_lost(system, what):
@@ -1002,6 +1173,7 @@ def device_profile(run, what, top=8):
           f"{dev:.3f} ms, busy share {dev / (wall * 1e3):.4f}", flush=True)
     for t, count, key in sorted(rows, reverse=True)[:top]:
         print(f"  {t / 1e3:9.3f} ms {count:6d}x  {key[:80]}", flush=True)
+    return dev / (wall * 1e3)
 
 
 def hpmc_job(kind, card):
@@ -1080,8 +1252,11 @@ def main():
                 or line.startswith('==')):
             print(f"  ptxas: {line.strip()}", flush=True)
     rows = kernel_phases(dev)
+    rows.update(impl_kernel_phases(dev))
     rows.update(rebin_kernel_phases(dev))
     rows.update(hpmc_kernel_phases())
+    print(f"kernel phases done at {time.perf_counter() - t0:.1f} s",
+          flush=True)
     # each path's own launches, read just after it ran
     launches = bench_script(card)
     counts, system = rebin_job('pallas')
@@ -1092,6 +1267,10 @@ def main():
     rebuild_phase(system)
     for name in ('cell_rebin_select', 'cell_rebin_serial'):
         launches[name] = counts[name]
+    for impl, kname in IMPL_KERNELS.items():
+        launches[kname] = impl_job(impl)[kname]
+    impl_job('plane', mega='off')
+    print(f"MD jobs done at {time.perf_counter() - t0:.1f} s", flush=True)
     launches['fused_poly_sweep'] = hpmc_job('cube', card)['fused_poly_sweep']
     launches['fused_sphere_sweep'] = hpmc_job('sphere', card)[
         'fused_sphere_sweep']
@@ -1102,6 +1281,14 @@ def main():
                             'cell_pair.cu'),
         'cell_pair_planar': ('hoomd_tpu/ops/pallas_pair.py:609',
                              'cell_pair.cu'),
+        'cell_pair_lj': ('hoomd_tpu/ops/pallas_pair.py:43',
+                         'cell_pair_impls.cu'),
+        'cell_pair_lj_pallas3d': ('hoomd_tpu/ops/pallas_pair.py:332',
+                                  'cell_pair_impls.cu'),
+        'cell_pair_lj_row': ('hoomd_tpu/ops/pallas_pair.py:464',
+                             'cell_pair_impls.cu'),
+        'cell_pair_planar_n3l': ('hoomd_tpu/ops/pallas_pair.py:937',
+                                 'cell_pair_impls.cu'),
         'fused_poly_sweep': ('hoomd_tpu/hpmc/pallas_sweep.py:293',
                              'hpmc_sweep.cu'),
         'fused_sphere_sweep': ('hoomd_tpu/hpmc/pallas_sweep.py:50',

@@ -17,7 +17,8 @@ hoomd``:
     hoomd.run(1000)
 
 The port so far runs two paths.  MD: the single-type LJ liquid on the
-cell-major engine (nve, nvt, langevin).  HPMC: hard spheres and one-type
+cell-major engine (nve, nvt, langevin), on any of the JAX package's
+force paths (HOOMD_TPU_FAST_IMPL).  HPMC: hard spheres and one-type
 convex polyhedra on the fused checkerboard sweep:
 
     hoomd.context.initialize('--mode=gpu')

@@ -78,7 +78,7 @@ __global__ void cell_pair_kernel(const Vec3 pos, const int* __restrict__ tag,
     const LJ lj{par[0], par[2], par[3], par[1]};
     float acc[10] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     const int ic = 13 * g.C + i;
-    if (sv[ic]) stencil_sum<APPROX, PV>(sx[ic], sy[ic], sz[ic], i, g.C, sx, sy, sz, sv, lj, acc);
+    if (sv[ic]) stencil_sum<APPROX, PV>(sx[ic], sy[ic], sz[ic], ic, n, sx, sy, sz, sv, lj, acc);
     const long long slot = (long long)cell * g.C + i;
     frc.at(slot, 0) = acc[0];
     frc.at(slot, 1) = acc[1];
@@ -263,7 +263,7 @@ __global__ void mega_force_kick(const float* __restrict__ p, float* __restrict__
         const LJ lj{mp[0], mp[1], mp[2], 0.0f};
         float acc[3] = {0.f, 0.f, 0.f};
         const int ic = 13 * g.C + i;
-        if (sv[ic]) stencil_sum<APPROX, false>(sx[ic], sy[ic], sz[ic], i, g.C, sx, sy, sz, sv, lj, acc);
+        if (sv[ic]) stencil_sum<APPROX, false>(sx[ic], sy[ic], sz[ic], ic, n, sx, sy, sz, sv, lj, acc);
         const long long j = (long long)cell * g.C + i;
         const float hdt = 0.5f * mp[3];
         const float wj = w[j];

@@ -1,4 +1,5 @@
-// 27-cell LJ stencil shared by the three cell kernels (cell_pair.cu).
+// 27-cell LJ stencil shared by the cell kernels (cell_pair.cu,
+// cell_pair_impls.cu).
 //
 // It computes what the TPU kernels of hoomd_tpu/ops/pallas_pair.py
 // compute (_kernel_plane, _kernel_planar, the force pass of
@@ -78,40 +79,44 @@ struct LJ {
     float rc2, lj1, lj2, e_shift;
 };
 
-// Sum over the staged candidates for slot i at (xi, yi, zi).  acc gets
-// the force (3) and, with PV, the full-pair energy (1) and virial (6,
-// order xx, xy, xz, yy, yz, zz), which the caller halves.  APPROX picks the fast
-// reciprocal that the JAX package uses under a thermostat.
+// One candidate at (dx, dy, dz) = x_i - x_j from slot i: adds the force
+// (3) and, with PV, the full-pair energy (1) and virial (6, order xx, xy,
+// xz, yy, yz, zz) to acc.  Nothing is added outside r_cut.  APPROX picks
+// the fast reciprocal that the JAX package uses under a thermostat.
+template <bool APPROX, bool PV>
+__device__ __forceinline__ void lj_pair(const float dx, const float dy, const float dz,
+                                        const LJ lj, float* acc) {
+    const float r2 = dx * dx + dy * dy + dz * dz;
+    if (!(r2 < lj.rc2)) return;
+    const float r2s = fmaxf(r2, 1e-3f);
+    const float r2i = APPROX ? __fdividef(1.0f, r2s) : 1.0f / r2s;
+    const float r6i = r2i * r2i * r2i;
+    const float fdivr = r2i * r6i * (12.0f * lj.lj1 * r6i - 6.0f * lj.lj2);
+    acc[0] += fdivr * dx;
+    acc[1] += fdivr * dy;
+    acc[2] += fdivr * dz;
+    if (PV) {
+        if (r2 > 1e-6f) acc[3] += r6i * (lj.lj1 * r6i - lj.lj2) - lj.e_shift;
+        acc[4] += fdivr * dx * dx;
+        acc[5] += fdivr * dx * dy;
+        acc[6] += fdivr * dx * dz;
+        acc[7] += fdivr * dy * dy;
+        acc[8] += fdivr * dy * dz;
+        acc[9] += fdivr * dz * dz;
+    }
+}
+
+// Sum over the n staged candidates for the slot at (xi, yi, zi), skipping
+// the invalid ones and the candidate `self` (-1: none); acc as lj_pair's,
+// energy and virial for the caller to halve.
 template <bool APPROX, bool PV>
 __device__ inline void stencil_sum(const float xi, const float yi, const float zi,
-                                   const int i, const int C, const float* sx,
+                                   const int self, const int n, const float* sx,
                                    const float* sy, const float* sz,
                                    const unsigned char* sv, const LJ lj, float* acc) {
-    const int n = 27 * C;
-    const int self = 13 * C + i;
     for (int t = 0; t < n; ++t) {
         if (!sv[t] || t == self) continue;
-        const float dx = xi - sx[t];
-        const float dy = yi - sy[t];
-        const float dz = zi - sz[t];
-        const float r2 = dx * dx + dy * dy + dz * dz;
-        if (!(r2 < lj.rc2)) continue;
-        const float r2s = fmaxf(r2, 1e-3f);
-        const float r2i = APPROX ? __fdividef(1.0f, r2s) : 1.0f / r2s;
-        const float r6i = r2i * r2i * r2i;
-        const float fdivr = r2i * r6i * (12.0f * lj.lj1 * r6i - 6.0f * lj.lj2);
-        acc[0] += fdivr * dx;
-        acc[1] += fdivr * dy;
-        acc[2] += fdivr * dz;
-        if (PV) {
-            if (r2 > 1e-6f) acc[3] += r6i * (lj.lj1 * r6i - lj.lj2) - lj.e_shift;
-            acc[4] += fdivr * dx * dx;
-            acc[5] += fdivr * dx * dy;
-            acc[6] += fdivr * dx * dz;
-            acc[7] += fdivr * dy * dy;
-            acc[8] += fdivr * dy * dz;
-            acc[9] += fdivr * dz * dz;
-        }
+        lj_pair<APPROX, PV>(xi - sx[t], yi - sy[t], zi - sz[t], lj, acc);
     }
 }
 

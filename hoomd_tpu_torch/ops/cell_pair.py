@@ -1,16 +1,26 @@
 """Cell-stencil LJ kernels: counterpart of hoomd_tpu/ops/pallas_pair.py.
 
-Three wrappers carry the main path, each beside the plain torch version
-of the same function:
+Seven wrappers, each beside the plain torch version of the same function.
+The JAX engine's default configuration ('plane') runs three:
 
   cell_pair_plane       (pallas_pair.py _kernel_plane)     forces only
   cell_pair_planar      (pallas_pair.py _kernel_planar)    forces, PE, virial
   cell_megastep_planes  (pallas_pair.py _kernel_megastep)  k fused VV steps
 
+and its other force paths (HOOMD_TPU_FAST_IMPL) one each:
+
+  cell_pair_lj          (_kernel, 'pallas')        adjacency-listed cells;
+                                                   forces, PE, virial
+  cell_pair_lj_pallas3d (_kernel3d, 'pallas3d')    forces only
+  cell_pair_lj_row      (_kernel_row, 'row')       forces only
+  cell_pair_planar_n3l  (_kernel_planar_n3l,       half stencil, forces only
+                         'planar_n3l')
+
 On a CUDA tensor a wrapper launches its hand-written kernel
-(csrc/cell_pair.cu, built by ops/_build.py) or raises; on a CPU tensor
-it runs the plain version.  Nothing falls back from one to the other.
-Each wrapper counts its launches in ``<wrapper>.launches``.
+(csrc/cell_pair.cu, csrc/cell_pair_impls.cu, built by ops/_build.py) or
+raises; on a CPU tensor it runs the plain version.  Nothing falls back
+from one to the other.  Each wrapper counts its launches in
+``<wrapper>.launches``.
 
 Validity comes from the tag (>= 0), and the self pair is excluded by
 index, in the kernels and the plain versions alike.  ``cell_pair_xla``
@@ -86,15 +96,20 @@ def _recip_flag(recip):
 # plain torch versions
 
 
-def _stencil_plain(cell_pos, cell_tag, cell_dim, cell_shift, params_vec,
+def _stencil_plain(cell_pos, cell_tag, adj, cell_shift, params_vec,
                    want_pv):
-    """Direct-dr 27-cell stencil over all cells, chunked to bound memory.
+    """Direct-dr stencil over all cells, each against the 27 cells of its
+    row of ``adj`` (nc, 27) under the image shifts ``cell_shift``, chunked
+    to bound memory.  A slot meets itself only in the entry that lists its
+    own cell under a zero shift (the centre of build_cell_shifts's table).
     Returns F (nc, C, 3) and, with want_pv, pe (nc, C), vir (nc, C, 6)."""
     nc, C, _ = cell_pos.shape
     dev = cell_pos.device
     rc2, e_shift, p = _lj_params(params_vec)
-    adj = _adjacency(cell_dim, dev)
-    ar = torch.arange(C, device=dev)
+    adj = adj.long()
+    own = ((adj == torch.arange(nc, device=dev)[:, None])
+           & (cell_shift == 0).all(-1))                   # (nc, 27)
+    eye = torch.eye(C, dtype=torch.bool, device=dev)
     valid = cell_tag >= 0
     chunk = max(1, (1 << 22) // (27 * C * C))
     F = torch.zeros((nc, C, 3), dtype=cell_pos.dtype, device=dev)
@@ -104,16 +119,19 @@ def _stencil_plain(cell_pos, cell_tag, cell_dim, cell_shift, params_vec,
         if want_pv else None
     for c0 in range(0, nc, chunk):
         c1 = min(nc, c0 + chunk)
+        n = c1 - c0
         a = adj[c0:c1]                                    # (n, 27)
         xj = (cell_pos[a] + cell_shift[c0:c1, :, None, :]).reshape(
-            c1 - c0, 27 * C, 3)
-        vj = valid[a].reshape(c1 - c0, 27 * C)
+            n, 27 * C, 3)
+        vj = valid[a].reshape(n, 27 * C)
         xi = cell_pos[c0:c1]
         dr = xi[:, :, None, :] - xj[:, None, :, :]        # (n, C, 27C, 3)
         dx, dy, dz = dr[..., 0], dr[..., 1], dr[..., 2]
         r2 = dx * dx + dy * dy + dz * dz
-        pair = valid[c0:c1, :, None] & vj[:, None, :] & (r2 < rc2)
-        pair[:, ar, 13 * C + ar] = False                  # self pair
+        self_pair = (own[c0:c1, None, :, None]
+                     & eye[None, :, None, :]).reshape(n, C, 27 * C)
+        pair = (valid[c0:c1, :, None] & vj[:, None, :] & (r2 < rc2)
+                & ~self_pair)
         f_raw, e_raw = pair_eval.lj.energy_force(torch.clamp(r2, min=1e-3),
                                                  p)
         fdivr = torch.where(pair, f_raw, 0.0)
@@ -132,15 +150,86 @@ def _stencil_plain(cell_pos, cell_tag, cell_dim, cell_shift, params_vec,
 def cell_pair_plane_plain(cell_pos, cell_dim, cell_shift, params_vec, *,
                           cell_tag):
     """Plain torch version of cell_pair_plane (exact divide)."""
-    return _stencil_plain(cell_pos, cell_tag, cell_dim, cell_shift,
+    return _stencil_plain(cell_pos, cell_tag,
+                          _adjacency(cell_dim, cell_pos.device), cell_shift,
                           params_vec, want_pv=False)[0]
 
 
 def cell_pair_planar_plain(cell_pos, cell_dim, cell_shift, params_vec, *,
                            cell_tag):
     """Plain torch version of cell_pair_planar: (F, pe, vir)."""
-    return _stencil_plain(cell_pos, cell_tag, cell_dim, cell_shift,
+    return _stencil_plain(cell_pos, cell_tag,
+                          _adjacency(cell_dim, cell_pos.device), cell_shift,
                           params_vec, want_pv=True)
+
+
+def _pv_of_lj(lj_params):
+    """The LJ-only kernels' [lj1, lj2, rc2, e_shift] -> [rc2, e_shift,
+    lj1, lj2]."""
+    return torch.stack([lj_params[2], lj_params[3], lj_params[0],
+                        lj_params[1]])
+
+
+def cell_pair_lj_plain(cell_pos, cell_adj, cell_shift, lj_params, *,
+                       cell_tag):
+    """Plain torch version of cell_pair_lj: (F, pe, vir) against the
+    cells that ``cell_adj`` lists."""
+    return _stencil_plain(cell_pos, cell_tag, cell_adj, cell_shift,
+                          _pv_of_lj(lj_params), want_pv=True)
+
+
+def cell_pair_lj_pallas3d_plain(cell_pos, cell_dim, cell_shift, lj_params,
+                                *, cell_tag):
+    """Plain torch version of cell_pair_lj_pallas3d: the forces of the
+    27-cell stencil (exact divide)."""
+    return cell_pair_plane_plain(cell_pos, cell_dim, cell_shift,
+                                 _pv_of_lj(lj_params), cell_tag=cell_tag)
+
+
+def cell_pair_lj_row_plain(cell_pos, cell_dim, cell_shift, lj_params, *,
+                           cell_tag):
+    """Plain torch version of cell_pair_lj_row: the same function as
+    cell_pair_lj_pallas3d."""
+    return cell_pair_lj_pallas3d_plain(cell_pos, cell_dim, cell_shift,
+                                       lj_params, cell_tag=cell_tag)
+
+
+# the half stencil's (dz, dy) rows, as pallas_pair.py _N3L_OFFS: with dx
+# = -1, 0, +1 each, but for the own row, which takes dx = 0 (pairs i < j
+# of the own cell) and dx = +1
+N3L_ROWS = ((0, 0), (0, 1), (1, -1), (1, 0), (1, 1))
+
+
+def cell_pair_planar_n3l_plain(cell_pos, cell_dim, cell_shift, params_vec,
+                               *, cell_tag):
+    """Plain torch version of cell_pair_planar_n3l: it walks the half
+    stencil itself.  Every pair is evaluated once, its force summed on
+    the home cell's slot and its -F put back on the neighbour cell's
+    slot."""
+    nc, C, _ = cell_pos.shape
+    dev = cell_pos.device
+    rc2, _, p = _lj_params(params_vec)
+    adj = _adjacency(cell_dim, dev)
+    valid = cell_tag >= 0
+    upper = torch.ones((C, C), dtype=torch.bool, device=dev).triu(1)
+    F = torch.zeros_like(cell_pos)
+    for dz, dy in N3L_ROWS:
+        for dx in ((0, 1) if (dz, dy) == (0, 0) else (-1, 0, 1)):
+            k = (dz + 1) * 9 + (dy + 1) * 3 + dx + 1
+            nb = adj[:, k]                  # a permutation of the cells
+            xj = cell_pos[nb] + cell_shift[:, k, None, :]
+            dr = cell_pos[:, :, None, :] - xj[:, None, :, :]  # (nc, C, C, 3)
+            r2 = (dr[..., 0] * dr[..., 0] + dr[..., 1] * dr[..., 1]
+                  + dr[..., 2] * dr[..., 2])
+            pair = valid[:, :, None] & valid[nb][:, None, :] & (r2 < rc2)
+            if k == 13:
+                pair = pair & upper
+            f_raw, _ = pair_eval.lj.energy_force(torch.clamp(r2, min=1e-3),
+                                                 p)
+            f = torch.where(pair, f_raw, 0.0)[..., None] * dr
+            F += f.sum(2)
+            F.index_add_(0, nb, -f.sum(1))
+    return F
 
 
 def _planes_to_cells(a, nc, C):
@@ -207,8 +296,8 @@ def cell_megastep_planes_plain(gp, gv, gf, gw, gm, gr, cell_dim, cell_shift,
             sd = 0.5 * (torch.sqrt(m1 * it3[a]) + torch.sqrt(m2 * it3[a]))
             md2 = torch.maximum(md2, sd * sd)
         mdmax = md2
-        F = _stencil_plain(_planes_to_cells(p, nc, C), tag_cells, cell_dim,
-                           cell_shift, params_vec, want_pv=False)[0]
+        F = cell_pair_plane_plain(_planes_to_cells(p, nc, C), cell_dim,
+                                  cell_shift, params_vec, cell_tag=tag_cells)
         F = _cells_to_planes(F, cell_dim, C)
         if method == 'langevin':
             f = F + gn[si] - gamma * v
@@ -422,7 +511,153 @@ def cell_megastep_planes(gp, gv, gf, gw, gm, gr, cell_dim, cell_shift,
 
 cell_megastep_planes.launches = 0
 
-KERNEL_WRAPPERS = (cell_pair_plane, cell_pair_planar, cell_megastep_planes)
+
+def _lj_args(cell_pos, cell_tag, cell_shift, params):
+    """The contiguous float32 / int32 operands of a stencil launch."""
+    return (cell_pos.contiguous().float(),
+            cell_tag.contiguous().to(torch.int32),
+            cell_shift.contiguous().float(), params.contiguous().float())
+
+
+def cell_pair_lj(cell_pos, cell_adj, cell_shift, lj_params, *, ncells, C,
+                 cell_tag):
+    """Forces (nc, C, 3), per-particle PE (nc, C) and virial (nc, C, 6),
+    1/2 per pair each, of every cell against the 27 cells its row of
+    ``cell_adj`` (ncells, 27; entries in [0, ncells)) lists, each under
+    its image shift.  lj_params = [lj1, lj2, rc2, e_shift].  The kernel
+    skips an id outside the grid rather than read past the positions;
+    the plain version raises on it."""
+    _check_shapes(C, cell_pos=(cell_pos, (ncells, C, 3)),
+                  cell_tag=(cell_tag, (ncells, C)),
+                  cell_adj=(cell_adj, (ncells, 27)),
+                  cell_shift=(cell_shift, (ncells, 27, 3)),
+                  lj_params=(lj_params.reshape(-1), (4,)))
+    if _device_of(cell_pos) == 'cpu':
+        return cell_pair_lj_plain(cell_pos, cell_adj, cell_shift, lj_params,
+                                  cell_tag=cell_tag)
+    _require_cuda_inputs(cell_tag, cell_adj, cell_shift, lj_params)
+    lib = _kernel_lib()
+    pos, tag, sh, par = _lj_args(cell_pos, cell_tag, cell_shift, lj_params)
+    adj = cell_adj.contiguous().to(torch.int32)
+    F = torch.empty_like(pos)
+    pe = torch.empty((ncells, C), dtype=pos.dtype, device=pos.device)
+    vir = torch.empty((ncells, C, 6), dtype=pos.dtype, device=pos.device)
+    err = lib.lib.hoomd_cell_pair_lj(
+        pos.data_ptr(), tag.data_ptr(), adj.data_ptr(), sh.data_ptr(),
+        par.data_ptr(), F.data_ptr(), pe.data_ptr(), vir.data_ptr(), ncells,
+        C, _stream(pos))
+    lib.check(err, 'cell_pair_lj')
+    cell_pair_lj.launches += 1
+    return F, pe, vir
+
+
+cell_pair_lj.launches = 0
+
+
+def _check_lj_args(cell_pos, cell_tag, cell_dim, cell_shift, lj_params, C):
+    nc = int(np.prod(cell_dim))
+    _check_shapes(C, cell_pos=(cell_pos, (nc, C, 3)),
+                  cell_tag=(cell_tag, (nc, C)),
+                  cell_shift=(cell_shift, (nc, 27, 3)),
+                  lj_params=(lj_params.reshape(-1), (4,)))
+
+
+def cell_pair_lj_pallas3d(cell_pos, cell_dim, cell_shift, lj_params, *, C,
+                          cell_tag):
+    """Forces (nc, C, 3) of the 27-cell stencil, a cell against its
+    modular-indexed neighbours one at a time.  lj_params = [lj1, lj2,
+    rc2, e_shift].  The JAX function's want_pv=True form has no caller
+    in either engine and is not ported."""
+    _check_lj_args(cell_pos, cell_tag, cell_dim, cell_shift, lj_params, C)
+    if _device_of(cell_pos) == 'cpu':
+        return cell_pair_lj_pallas3d_plain(cell_pos, cell_dim, cell_shift,
+                                           lj_params, cell_tag=cell_tag)
+    _require_cuda_inputs(cell_tag, cell_shift, lj_params)
+    lib = _kernel_lib()
+    pos, tag, sh, par = _lj_args(cell_pos, cell_tag, cell_shift, lj_params)
+    F = torch.empty_like(pos)
+    nx, ny, nz = cell_dim
+    err = lib.lib.hoomd_cell_pair_lj3d(
+        pos.data_ptr(), tag.data_ptr(), sh.data_ptr(), par.data_ptr(),
+        F.data_ptr(), nx, ny, nz, C, _stream(pos))
+    lib.check(err, 'cell_pair_lj_pallas3d')
+    cell_pair_lj_pallas3d.launches += 1
+    return F
+
+
+cell_pair_lj_pallas3d.launches = 0
+
+# threads of one block of the row kernel, at most: a tile of an x-row
+# holds at most ROW_THREADS // C cells
+ROW_THREADS = 512
+
+
+def row_tile(nx, C):
+    """Cells per tile of the row kernel: the x-row in equal tiles of at
+    most ROW_THREADS // C cells (one at MAX_C)."""
+    tiles = -(-nx // max(1, ROW_THREADS // C))
+    return -(-nx // tiles)
+
+
+def cell_pair_lj_row(cell_pos, cell_dim, cell_shift, lj_params, *, C,
+                     cell_tag):
+    """Forces (nc, C, 3) of the 27-cell stencil, by x-rows of cells: each
+    (dz, dy) stencil row is staged once and serves dx = -1, 0, +1.  The
+    same function as cell_pair_lj_pallas3d; lj_params = [lj1, lj2, rc2,
+    e_shift]; no want_pv=True form either."""
+    _check_lj_args(cell_pos, cell_tag, cell_dim, cell_shift, lj_params, C)
+    if _device_of(cell_pos) == 'cpu':
+        return cell_pair_lj_row_plain(cell_pos, cell_dim, cell_shift,
+                                      lj_params, cell_tag=cell_tag)
+    _require_cuda_inputs(cell_tag, cell_shift, lj_params)
+    lib = _kernel_lib()
+    pos, tag, sh, par = _lj_args(cell_pos, cell_tag, cell_shift, lj_params)
+    F = torch.empty_like(pos)
+    nx, ny, nz = cell_dim
+    err = lib.lib.hoomd_cell_pair_lj_row(
+        pos.data_ptr(), tag.data_ptr(), sh.data_ptr(), par.data_ptr(),
+        F.data_ptr(), nx, ny, nz, C, row_tile(nx, C), _stream(pos))
+    lib.check(err, 'cell_pair_lj_row')
+    cell_pair_lj_row.launches += 1
+    return F
+
+
+cell_pair_lj_row.launches = 0
+
+
+def cell_pair_planar_n3l(cell_pos, cell_dim, cell_shift, params_vec, *, C,
+                         cell_tag):
+    """Forces (nc, C, 3) of the single-type LJ stencil by Newton's third
+    law: the half stencil (own cell with i < j, then (0,0,+1), the (0,+1)
+    row and the three dz = +1 rows) evaluates each pair once and puts -F
+    on the other particle.  params_vec = [rc2, e_shift, lj1, lj2, ...].
+    The kernel sums without atomics, in a fixed order (csrc/
+    cell_pair_impls.cu), so equal inputs give equal bits; its order is
+    not the plain version's, and the two agree to rounding."""
+    _check_pair_args(cell_pos, cell_tag, cell_dim, cell_shift, params_vec, C)
+    if _device_of(cell_pos) == 'cpu':
+        return cell_pair_planar_n3l_plain(cell_pos, cell_dim, cell_shift,
+                                          params_vec, cell_tag=cell_tag)
+    _require_cuda_inputs(cell_tag, cell_shift, params_vec)
+    lib = _kernel_lib()
+    pos, tag, sh, par = _lj_args(cell_pos, cell_tag, cell_shift, params_vec)
+    F = torch.empty_like(pos)
+    part = torch.empty((13,) + tuple(pos.shape), dtype=pos.dtype,
+                       device=pos.device)
+    nx, ny, nz = cell_dim
+    err = lib.lib.hoomd_cell_pair_n3l(
+        pos.data_ptr(), tag.data_ptr(), sh.data_ptr(), par.data_ptr(),
+        F.data_ptr(), part.data_ptr(), nx, ny, nz, C, _stream(pos))
+    lib.check(err, 'cell_pair_planar_n3l')
+    cell_pair_planar_n3l.launches += 1
+    return F
+
+
+cell_pair_planar_n3l.launches = 0
+
+KERNEL_WRAPPERS = (cell_pair_plane, cell_pair_planar, cell_megastep_planes,
+                   cell_pair_lj, cell_pair_lj_pallas3d, cell_pair_lj_row,
+                   cell_pair_planar_n3l)
 
 
 def reset_launch_counts():

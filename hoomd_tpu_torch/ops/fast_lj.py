@@ -17,9 +17,17 @@ failed xsel or migration rebuild raises the sticky ``rebin_ovf`` (a
 stage or buffer overflowed) or ``rebin_lost`` (xsel lost a particle);
 the host retries the segment (System._rebin_fallback).
 
+Forces come from the force path ``impl`` (HOOMD_TPU_FAST_IMPL, chosen
+by the host), branch by branch as the JAX engine's ``_forces``: 'plane'
+(the default) steps on cell_pair_plane, with the k-step megastep
+(cell_megastep_planes) for whole windows unless the host turned it off
+(HOOMD_TPU_MEGA=off); every other impl runs each step as one_step, on
+its own kernel.  PE and virial, read at chunk boundaries, come from
+cell_pair_planar, but for 'pallas' (its kernel returns them) and
+'pallas3d', 'row' and 'xla' (the XLA formulation, plain torch, as the
+JAX engine computes it outside any kernel).
+
 Differences from the JAX engine, by design:
-  * no impl switch: on CUDA the megastep, plane and planar kernels always
-    run (the JAX engine's 'plane' configuration);
   * the loops are plain Python loops around kernel launches, so the host
     knows the timestep and every window count without a device fetch;
   * every rebuild cycle is windows then rebuild_carry, with the xsel
@@ -40,8 +48,14 @@ from .._config import PAD_COORD, int_dtype
 from .. import variant as variant_mod
 from . import hashrng
 from .cell_pair import (build_cell_shifts, cell_megastep_planes,
-                        cell_pair_plane, cell_pair_planar)
+                        cell_pair_lj, cell_pair_lj_pallas3d, cell_pair_lj_row,
+                        cell_pair_plane, cell_pair_planar,
+                        cell_pair_planar_n3l, cell_pair_xla)
 from .cell_rebin import cell_rebin_plane, cell_rebin_xsel
+
+# the force paths of HOOMD_TPU_FAST_IMPL (hoomd_tpu/ops/fast_lj.py _forces)
+FAST_IMPLS = ('plane', 'planar', 'planar_n3l', 'pallas', 'pallas3d', 'row',
+              'xla')
 
 
 @dataclass
@@ -148,15 +162,21 @@ def plan_fast_lj(N, box_L, rcut, r_buff, conservative=False, frac=None):
 
 def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
                         method_seed, k_rebuild=4, rebin_impl='sort',
-                        rebin_E=8, device='cpu'):
+                        rebin_E=8, impl='plane', mega=True, device='cpu'):
     """Returns (to_fast, refresh_forces, run, to_state).
 
     rebin_impl: 'sort', 'xsel' or 'pallas' (the migration sweep and place
-    with rebin_E emigrant slots per cell face).
+    with rebin_E emigrant slots per cell face).  impl: the force path, one
+    of FAST_IMPLS; mega: run whole k-step windows on the megastep kernel
+    (only with impl 'plane').
 
     dyn layout: {'pv': device tensor [rc2, e_shift, lj1, lj2, rcut],
-    'dt': float, 'kT': packed variant on the device, 'tau': float,
-    'gamma': float}."""
+    'lj': device tensor [lj1, lj2, rc2, e_shift], 'dt': float, 'kT':
+    packed variant on the device, 'tau': float, 'gamma': float}."""
+    if impl not in FAST_IMPLS:
+        raise ValueError(f"force impl (HOOMD_TPU_FAST_IMPL) {impl!r} is not "
+                         f"one of {', '.join(FAST_IMPLS)}")
+    use_mega = mega and impl == 'plane'
     idt = int_dtype()
     fdt = torch.float32
     dev = torch.device(device)
@@ -170,7 +190,8 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
     skin3_np = np.maximum(L_np / np.asarray(cell_dim, float) - rcut, r_buff)
     skin3 = torch.as_tensor(skin3_np, dtype=fdt, device=dev)
     inv_thr3 = 1.0 / (0.5 * skin3) ** 2
-    _, shift_np = build_cell_shifts(cell_dim, L_np)
+    adj_np, shift_np = build_cell_shifts(cell_dim, L_np)
+    adj = torch.as_tensor(adj_np, dtype=torch.int32, device=dev)
     shifts = torch.as_tensor(shift_np, dtype=fdt, device=dev)
     nxyz = torch.as_tensor(cell_dim, dtype=fdt, device=dev)
     nxyz_i = torch.as_tensor(cell_dim, dtype=torch.int64, device=dev)
@@ -225,9 +246,33 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
             res = res + (out[:, 12:15],)
         return res + (ovf,)
 
-    def _forces_plane(pos_cells, tag_cells, dyn):
-        return cell_pair_plane(pos_cells, cell_dim, shifts, dyn['pv'], C=C,
-                               cell_tag=tag_cells, recip=recip)
+    def _forces(pos, tag, dyn, want_pv):
+        """F, or (F, pe, vir) with want_pv, on the path of ``impl``
+        (hoomd_tpu/ops/fast_lj.py:372-467)."""
+        if impl == 'pallas':
+            out = cell_pair_lj(pos, adj, shifts, dyn['lj'], ncells=nc, C=C,
+                               cell_tag=tag)
+        elif impl in ('pallas3d', 'row'):
+            kfn = cell_pair_lj_row if impl == 'row' else cell_pair_lj_pallas3d
+            frc = kfn(pos, cell_dim, shifts, dyn['lj'], C=C, cell_tag=tag)
+            if not want_pv:
+                return frc
+            _, pe, vir = cell_pair_xla(pos, cell_dim, shifts, dyn['pv'])
+            return frc, pe, vir
+        elif impl == 'planar_n3l' and not want_pv:
+            return cell_pair_planar_n3l(pos, cell_dim, shifts, dyn['pv'], C=C,
+                                        cell_tag=tag)
+        elif impl == 'plane' and not want_pv:
+            # the fast reciprocal under a thermostat, which absorbs its
+            # ~1e-4 force error; NVE divides exactly (fast_lj.py:414-425)
+            return cell_pair_plane(pos, cell_dim, shifts, dyn['pv'], C=C,
+                                   cell_tag=tag, recip=recip)
+        elif impl == 'xla':
+            out = cell_pair_xla(pos, cell_dim, shifts, dyn['pv'])
+        else:           # 'planar', and the PE / virial of 'plane', 'n3l'
+            out = cell_pair_planar(pos, cell_dim, shifts, dyn['pv'], C=C,
+                                   cell_tag=tag)
+        return out if want_pv else out[0]
 
     def _kt(dyn, ts):
         return variant_mod.eval_packed(dyn['kT'], ts)
@@ -269,7 +314,7 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
         danger = c.danger | (md2 > 1.0)
         wmax = torch.maximum(c.wmax, md2)
 
-        frc = torch.where(valid, _forces_plane(pos, c.tag, dyn), 0.0)
+        frc = torch.where(valid, _forces(pos, c.tag, dyn, False), 0.0)
         if method_kind == 'langevin':
             kT = _kt(dyn, c.timestep)
             u = torch.stack([hashrng.uniform_pm1(method_seed, c.timestep,
@@ -390,18 +435,22 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
             mass=m.reshape(nc, C), ref_pos=p, frc=f.reshape(nc, C, 3),
             overflow=c.overflow | o, n_rebuilds=c.n_rebuilds + 1, since=0)
 
-    def run_wins(c, dyn, nwin, k):
-        return mega_windows(c, dyn, nwin, k)
-
     def run_steps(c, dyn, m):
         for _ in range(m):
             c = one_step(c, dyn)
         return c
 
+    def run_wins(c, dyn, nwin, k):
+        """nwin windows of k steps: megastep windows, or single steps on
+        the impls that do not ride it (fast_lj.py:1046-1054)."""
+        if use_mega:
+            return mega_windows(c, dyn, nwin, k)
+        return run_steps(c, dyn, nwin * k)
+
     def run_cycles(c, dyn, ncycles, nwin, k):
-        """ncycles rebuild cycles of nwin megastep windows each."""
+        """ncycles rebuild cycles of nwin windows each."""
         for _ in range(ncycles):
-            c = rebuild_carry(mega_windows(c, dyn, nwin, k))
+            c = rebuild_carry(run_wins(c, dyn, nwin, k))
         return c
 
     def run(carry, dyn, nsteps, nwin=1):
@@ -460,8 +509,7 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
             rebin_lost=torch.zeros((), dtype=torch.bool, device=dev))
 
     def refresh_forces(carry, dyn):
-        frc, pe, vir = cell_pair_planar(carry.pos, cell_dim, shifts,
-                                        dyn['pv'], C=C, cell_tag=carry.tag)
+        frc, pe, vir = _forces(carry.pos, carry.tag, dyn, True)
         valid = (carry.tag >= 0)[..., None]
         return carry.replace(frc=torch.where(valid, frc, 0.0), pe=pe,
                              vir=vir)
@@ -487,6 +535,7 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
             net_virial=scat(state.net_virial, carry.vir.reshape(M, 6)),
             timestep=carry.timestep)
 
+    run.mega = use_mega
     run.rebuild = rebuild_carry
     run.wins = run_wins
     run.steps = run_steps

@@ -248,16 +248,28 @@ class System:
         if cap:
             k_rebuild = min(k_rebuild, cap)
         self._fast_k_dt = dt
+        # the force path (hoomd_tpu/system.py:614-641): unset means 'plane',
+        # the JAX package's default on its accelerator; a value that is
+        # not a path raises in build_fast_lj_chunk rather than running the
+        # XLA formulation as the JAX package does.  Its switch to 'xla'
+        # when 3C > 128 is a limit of the TPU's lane tile and is not
+        # copied: the kernels here take C up to MAX_C (at the bench plan
+        # C = 40, 3C = 120, so no path differs).  The megastep runs only
+        # with 'plane' and HOOMD_TPU_MEGA unset or not 'off'
+        # (hoomd_tpu/ops/fast_lj.py:704-707).
+        impl = os.environ.get('HOOMD_TPU_FAST_IMPL') or 'plane'
+        mega = os.environ.get('HOOMD_TPU_MEGA', 'on') != 'off'
         # rebuild implementation, by the JAX package's gates
-        # (hoomd_tpu/system.py:702-726) for its 'plane' configuration, which
-        # the port's engine is: below 4096 particles the sort costs next to
-        # nothing; the int payload rides the migration and xsel rebins as
-        # float32 values, exact below 2^24; HOOMD_TPU_REBIN=off keeps the
+        # (hoomd_tpu/system.py:702-726): below 4096 particles the sort
+        # costs next to nothing; the int payload rides the migration and
+        # xsel rebins as float32 values, exact below 2^24; only the planar
+        # family of force paths takes them.  HOOMD_TPU_REBIN=off keeps the
         # sort, =pallas takes the migration sweep and place, and anything
         # else the staged select (xsel)
         rebin_impl = 'sort'
         env_rebin = os.environ.get('HOOMD_TPU_REBIN', 'on')
         if ((1 << 12) <= N < (1 << 23) and min(cell_dim) >= 3
+                and impl in ('plane', 'planar', 'planar_n3l')
                 and not self._grow.get('fast_rebin_sort')
                 and env_rebin != 'off'):
             rebin_impl = 'pallas' if env_rebin == 'pallas' else 'xsel'
@@ -268,12 +280,13 @@ class System:
             N=N, box=box, cell_dim=tuple(cell_dim), C=C, r_buff=r_buff,
             rcut=rcut, method_kind=kind, method_seed=getattr(m, 'seed', 0),
             k_rebuild=k_rebuild, rebin_impl=rebin_impl, rebin_E=rebin_E,
-            device=self.device)
+            impl=impl, mega=mega, device=self.device)
         return {'to_fast': to_fast, 'refresh': refresh,
                 'run_chunk': run_chunk, 'to_state': to_state,
                 'C': C, 'cell_dim': tuple(cell_dim), 'method': m,
                 'kind': kind, 'rcut': rcut, 'k_rebuild': k_rebuild,
                 'skin': skin, 'rebin_impl': rebin_impl, 'rebin_E': rebin_E,
+                'impl': impl, 'mega': run_chunk.mega,
                 'pair_force': f}
 
     def _reset_cadence(self):
@@ -311,7 +324,9 @@ class System:
         pnames = tuple(sorted(fp['tables'].keys())) + ('rcut',)
         pv = torch.stack([rc2, e_shift] + [scal[k] for k in pnames])
         mp = self._dyn['methods'][0]
-        out = {'pv': pv, 'dt': self._dyn['dt']}
+        # 'lj': the LJ-only kernels' parameter order
+        out = {'pv': pv, 'dt': self._dyn['dt'],
+               'lj': torch.stack([scal['lj1'], scal['lj2'], rc2, e_shift])}
         if fast['kind'] in ('langevin', 'nvt'):
             out['kT'] = mp['kT']
         else:
