@@ -10,7 +10,11 @@ from the root of the repository.  In order it prints:
      the 64k bench shape (cell grid (14, 14, 12), C = 40, N = 64 000 in a
      jittered-lattice liquid-like fill) and at one ragged small shape,
      element by element, with the largest error and CUDA-event times,
-     failing past tolerance;
+     failing past tolerance; the fused step (cell_step_plane_planes) NVE
+     and NVT also on a 2x2x2 grid, its drifted positions bit for bit;
+  3a. per other pair evaluator (EVAL_JOBS), at the bench fill: the plane,
+     planar and fused-step kernels and one megastep window against their
+     plain versions with the evaluator's ATOL (EVAL_ATOL);
   4. one phase per rebin kernel (cell_rebin_select, cell_rebin_sweep,
      cell_rebin_place, cell_rebin_serial): the kernel against its plain
      torch version bit for bit, slot for slot, with equal overflow flags,
@@ -45,7 +49,12 @@ from the root of the repository.  In order it prints:
      row, and with plane plus HOOMD_TPU_MEGA=off, each with the same
      gates, its kernel launched and the megastep not, the rebin of its
      gate, the ms per step of a timed 500-step window and the device's
-     busy share over 50 profiled steps;
+     busy share over 50 profiled steps; then the same with
+     HOOMD_TPU_MEGA=off HOOMD_TPU_FUSED=on (the fused step launched, the
+     megastep not) and its NVE continuation, gated on the energy drift;
+     then a 64 000-particle job per other pair evaluator on the default
+     path (T, a fluid's mean-square displacement, the megastep launched,
+     the end state's PE against the plain version's);
   7. the BASELINE.json config-5 job script (4096 hard cubes at phi = 0.4,
      50 settle and 200 timed sweeps) and the hard-sphere job (4096
      spheres at a = 1.05), each with its metric line, zero overlaps
@@ -53,10 +62,11 @@ from the root of the repository.  In order it prints:
      package's value for the script, and its kernel launched; then a
      torch.profiler trace of 50 more sweeps (device busy share, device
      time by kernel);
-  8. the kernels' JSON line (each with its bound: the larger of the bytes
-     its inputs and outputs move over 3.35 TB/s and the operations this
-     run's data needs over 67 TFLOP/s fp32), the card line, and the
-     final {"ok": true, "device": {...}} line.
+  8. the evaluators' kernel times, the kernels' JSON line (each with its
+     bound: the larger of the bytes its inputs and outputs move over
+     3.35 TB/s and the operations this run's data needs over 67 TFLOP/s
+     fp32), the card line, and the final {"ok": true, "device": {...}}
+     line.
 Every path runs with the launch counters set to 0 just before it and
 read just after.  It exits non-zero without a CUDA device, outside a
 checkout, or when any phase fails.
@@ -87,6 +97,10 @@ RTOL, ATOL = 1e-4, 1e-3
 # the force on a particle between two close neighbours by ~1e-3.
 POS_TOL = 1e-4
 GAMMA = 1.0                     # Langevin drag of the megastep phases
+# the fills of the force kernel phases: lattice dims, cell grid, capacity
+SHAPES = {'bench': ((40, 40, 40), (14, 14, 12), 40),
+          'ragged': ((9, 11, 14), (3, 4, 5), 37),
+          '2x2x2': ((6, 6, 6), (2, 2, 2), 40)}
 TEMP_TARGET, TEMP_TOL = 1.2, 0.03
 PE_RANGE = (-4.80, -4.60)
 
@@ -235,6 +249,10 @@ def lj_bounds(pos, tag, cdim, sh, N, k):
         # out: pos, vel, frc
         'cell_megastep_planes': bound(15 * P + sh_bytes + 9 * P,
                                       k * (plane_ops + 30 * N)),
+        # in: pos, vel, frc, ref pos (3 planes each), 1/m, tags; out:
+        # pos, vel, frc, and per slot the drift, kick and sums (30 ops)
+        'cell_step_plane_planes': bound(14 * P + sh_bytes + 9 * P,
+                                        plane_ops + 30 * N),
         'cell_pair_lj': bound(3 * P + P + adj_bytes + sh_bytes + 10 * P,
                               plane_ops + 12 * inr),
         'cell_pair_lj_pallas3d': force,
@@ -248,10 +266,9 @@ def kernel_phases(dev):
     import torch
     from hoomd_tpu_torch.ops import cell_pair as cp
     results = {}
-    shapes = [('bench', (40, 40, 40), (14, 14, 12), 40),
-              ('ragged', (9, 11, 14), (3, 4, 5), 37)]
     pv, _ = lj_params(dev)
-    for tag_name, dims, cdim, C in shapes:
+    for tag_name in ('bench', 'ragged'):
+        dims, cdim, C = SHAPES[tag_name]
         carry, L, N, _ = lattice_cells(dims, cdim, C, 0.1, 3, dev)
         _, sh = cp.build_cell_shifts(cdim, L)
         sh = torch.as_tensor(sh, dtype=torch.float32, device=dev)
@@ -364,6 +381,393 @@ def kernel_phases(dev):
     return results['bench']
 
 
+def plane_state(carry, cdim, C, sh, pv, eval_kw=None):
+    """Plane-layout (3, nz, ny, nx, C) state of a cell-major fill: pos,
+    vel, the plain stencil's forces, 1/m, tags, and a reference position
+    0.02 behind each live slot's (so md2 > 0)."""
+    import torch
+    from hoomd_tpu_torch.ops import cell_pair as cp
+    nx, ny, nz = cdim
+    plane4 = (nz, ny, nx, C)
+
+    def planes(a):
+        return a.reshape(nz, ny, nx, C, 3).permute(4, 0, 1, 2,
+                                                   3).contiguous()
+    frc = cp.cell_pair_plane_plain(carry.pos, cdim, sh, pv,
+                                   cell_tag=carry.tag, **(eval_kw or {}))
+    live = (carry.tag >= 0)[..., None]
+    ref = torch.where(live, carry.pos - 0.02, carry.pos)
+    return dict(gp=planes(carry.pos), gv=planes(carry.vel), gf=planes(frc),
+                gw=(1.0 / carry.mass).reshape(plane4),
+                gm=carry.mass.reshape(plane4), gr=planes(ref),
+                gt=carry.tag.reshape(plane4))
+
+
+def check_step(name, got, want, rtol, atol):
+    """A fused step against its plain version: positions bit for bit (the
+    drift rounds each operation as torch's separate ops), velocities and
+    forces element by element, ke2 and md2 to the sums' rounding."""
+    import torch
+    if not torch.equal(got[0], want[0]):
+        raise RuntimeError(f"{name}: drifted positions differ from the "
+                           f"plain version's (max "
+                           f"{float((got[0] - want[0]).abs().max()):.3e})")
+    return compare(name, [('vel', got[1], want[1], rtol, atol),
+                          ('frc', got[2], want[2], rtol, atol),
+                          ('ke2', got[3], want[3], 1e-5, 0.0),
+                          ('md2', got[4], want[4], 1e-5, 0.0)])
+
+
+def step_plane_phases(dev):
+    """cell_step_plane_planes against its plain version, NVE (exact
+    divide, s = 1) and NVT (fast reciprocal, s < 1), at the bench shape,
+    the ragged shape and a 2x2x2 grid.  Returns the bench row (times of
+    the NVT variant, the fused NVT job's)."""
+    import torch
+    from hoomd_tpu_torch.ops import cell_pair as cp
+    pv, _ = lj_params(dev)
+    out = {}
+    for tag_name, (dims, cdim, C) in SHAPES.items():
+        carry, L, N, _ = lattice_cells(dims, cdim, C, 0.1, 3, dev)
+        _, sh = cp.build_cell_shifts(cdim, L)
+        sh = torch.as_tensor(sh, dtype=torch.float32, device=dev)
+        st = plane_state(carry, cdim, C, sh, pv)
+        worst = (0.0, 0.0)
+        for method, recip, s in (('nve', 'div', 1.0),
+                                 ('nvt', 'approx', float(np.exp(-0.0025 * 0.2)))):
+            s_t = torch.tensor(s, dtype=torch.float32, device=dev)
+            args = (st['gp'], st['gv'], st['gf'], st['gw'], st['gr'], cdim,
+                    sh, pv, 0.005, s_t)
+
+            def k_step():
+                return cp.cell_step_plane_planes(*args, C=C, gt=st['gt'],
+                                                 recip=recip)
+
+            def p_step():
+                return cp.cell_step_plane_planes_plain(*args, C=C,
+                                                       gt=st['gt'])
+            ea, er = check_step(f'cell_step_plane_planes[{tag_name},{method}]',
+                                k_step(), p_step(), RTOL, ATOL)
+            worst = (max(worst[0], ea), max(worst[1], er))
+        iters = 50 if tag_name == 'bench' else 5
+        row = dict(max_abs_err=worst[0], bound_share=worst[1],
+                   ms=cuda_ms(k_step, iters),
+                   plain_ms=cuda_ms(p_step, 3 if tag_name == 'bench' else 1))
+        row['bound_ms'], row['bound_by'] = lj_bounds(
+            carry.pos, carry.tag, cdim, sh, N, 4)['cell_step_plane_planes']
+        print(f"phase cell_step_plane_planes [{tag_name} cell_dim={cdim} "
+              f"C={C} N={N}]: positions bit-exact, max_abs_err={worst[0]:.3e} "
+              f"bound_share={worst[1]:.3f} kernel_ms={row['ms']:.4f} (nvt) "
+              f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.6f} "
+              f"({row['bound_by']})", flush=True)
+        if tag_name == 'bench':
+            out['cell_step_plane_planes'] = row
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the other pair evaluators
+
+# each evaluator's job: its coefficients and r_cut.  From the JAX
+# package's tests where they have them (gauss, morse, yukawa, mie:
+# tests/test_fast_engine.py:187-192; force_shifted_lj:
+# tests/test_fast_bonded.py:184); for the others a set that holds a
+# fluid at the bench density and kT = 1.2: buckingham the exp-6 form with
+# alpha = 13 fitted to LJ's minimum (A = 6/7 e^13, rho = 2^(1/6)/13,
+# C = 13/7 2^(1/3)), its barrier before the collapse ~7000 kT high at
+# r ~ 0.28; lj1208 at eps = sigma = 1; dpd_conservative at A = 25 on its
+# usual r_cut = 1 (it plans its own grid); moliere at Z_i = Z_j = 2 in
+# units of the elementary charge and a_0 = 1.
+EVAL_JOBS = {
+    'gauss': (dict(epsilon=1.0, sigma=0.8), 2.5),
+    'yukawa': (dict(epsilon=1.5, kappa=1.0), 2.5),
+    'morse': (dict(D0=0.5, alpha=3.0, r0=1.0), 2.5),
+    'mie': (dict(epsilon=1.0, sigma=1.0, n=12.0, m=6.0), 2.5),
+    'buckingham': (dict(A=3.8e5, rho=0.0863, C=3.71), 2.5),
+    'lj1208': (dict(epsilon=1.0, sigma=1.0), 2.5),
+    'force_shifted_lj': (dict(epsilon=1.0, sigma=1.0), 2.5),
+    'dpd_conservative': (dict(A=25.0), 1.0),
+    'moliere': (dict(Z_i=2.0, Z_j=2.0), 2.5),
+}
+# each evaluator's ATOL in the kernel phases, derived as the LJ one:
+# about 3x the largest error of force, PE or virial measured on the bench
+# fill (NVIDIA H100 80GB HBM3, 700 W: gauss 1.9e-6, yukawa 1.9e-6, morse 2.9e-6, mie 2.1e-4,
+# buckingham 9.2e-5, lj1208 1.2e-4, force_shifted_lj 1.5e-4,
+# dpd_conservative 4.8e-7, moliere 3.8e-6), rounded up to 1, 2 or 5, and
+# far below the force of one pair at r_cut - 0.05 (0.035, 0.074, 0.038,
+# 0.045, 0.042, 0.0096, 0.0059, 1.25, 0.12), so a kernel that drops or
+# adds a pair near the cutoff fails.  mie at n = 12, m = 6 is LJ and
+# takes LJ's.
+EVAL_ATOL = {'gauss': 1e-5, 'yukawa': 1e-5, 'morse': 1e-5, 'mie': ATOL,
+             'buckingham': 5e-4, 'lj1208': 5e-4, 'force_shifted_lj': 5e-4,
+             'dpd_conservative': 2e-6, 'moliere': 2e-5}
+
+
+def eval_params(name, dev):
+    """[rc2, e_shift, *pnames] of the evaluator's job coefficients in
+    shift mode (float32 tables derived on the host, as the System does),
+    its pnames, and |F| of one pair at r_cut - 0.05."""
+    import torch
+    from hoomd_tpu_torch.ops import pair_eval
+    ev = pair_eval.ALL_EVALUATORS[name]
+    coeffs, rc = EVAL_JOBS[name]
+    raw = dict(ev.defaults)
+    raw.update(coeffs)
+    tab = {k: torch.tensor(np.float32(np.asarray(v)), device=dev)
+           for k, v in ev.derive({k: np.float32(v)
+                                  for k, v in raw.items()}).items()}
+    tab['rcut'] = torch.tensor(np.float32(rc), device=dev)
+    rc2 = tab['rcut'] * tab['rcut']
+    _, es = ev.energy_force(rc2, tab)
+    pn = pair_eval.kernel_pnames(name)
+    pv = torch.stack([rc2, es] + [tab[k] for k in pn]).float()
+    r = torch.tensor(np.float32(rc - 0.05), device=dev)
+    f_edge = float(ev.energy_force(r * r, tab)[0] * r)
+    return pv, pn, abs(f_edge)
+
+
+def eval_kernel_phases(dev):
+    """Per evaluator, at the bench fill: cell_pair_plane,
+    cell_pair_planar, cell_step_plane_planes (NVE) and one k = 4 NVT
+    megastep window against their plain versions, element by element
+    with the evaluator's ATOL, and each kernel's CUDA-event time."""
+    import torch
+    from hoomd_tpu_torch.ops import cell_pair as cp
+    dims, cdim, C = SHAPES['bench']
+    carry, L, N, _ = lattice_cells(dims, cdim, C, 0.1, 3, dev)
+    _, sh = cp.build_cell_shifts(cdim, L)
+    sh = torch.as_tensor(sh, dtype=torch.float32, device=dev)
+    pos, tag = carry.pos, carry.tag
+    skin = torch.as_tensor(np.maximum(L / np.asarray(cdim) - 2.5, 0.4),
+                           dtype=torch.float32, device=dev)
+    rows = {}
+    for name in EVAL_JOBS:
+        pv, pn, f_edge = eval_params(name, dev)
+        atol = EVAL_ATOL[name]
+        ek = dict(eval_name=name, pnames=pn)
+        st = plane_state(carry, cdim, C, sh, pv, ek)
+        one = torch.ones((), device=dev)
+        sargs = (st['gp'], st['gv'], st['gf'], st['gw'], st['gr'], cdim, sh,
+                 pv, 0.005, one)
+        margs = (st['gp'], st['gv'], st['gf'], st['gw'], st['gm'], st['gp'],
+                 cdim, sh, pv, 0.005, torch.full((4,), 1.2, device=dev),
+                 torch.tensor(0.1, device=dev), torch.tensor(0.0, device=dev),
+                 skin)
+        mkw = dict(C=C, k=4, method='nvt', gt=st['gt'], ndof=3.0 * N,
+                   tau_inv2=4.0, **ek)
+        calls = {
+            'cell_pair_plane': (
+                lambda: cp.cell_pair_plane(pos, cdim, sh, pv, C=C,
+                                           cell_tag=tag, **ek),
+                lambda: cp.cell_pair_plane_plain(pos, cdim, sh, pv,
+                                                 cell_tag=tag, **ek)),
+            'cell_pair_planar': (
+                lambda: cp.cell_pair_planar(pos, cdim, sh, pv, C=C,
+                                            cell_tag=tag, **ek),
+                lambda: cp.cell_pair_planar_plain(pos, cdim, sh, pv,
+                                                  cell_tag=tag, **ek)),
+            'cell_step_plane_planes': (
+                lambda: cp.cell_step_plane_planes(*sargs, C=C, gt=st['gt'],
+                                                  recip='div', **ek),
+                lambda: cp.cell_step_plane_planes_plain(*sargs, C=C,
+                                                        gt=st['gt'], **ek)),
+            'cell_megastep_planes': (
+                lambda: cp.cell_megastep_planes(*margs, recip='div', **mkw),
+                lambda: cp.cell_megastep_planes_plain(*margs, **mkw)),
+        }
+        row = {}
+        for kname, (kern, plain) in calls.items():
+            got, want = kern(), plain()
+            label = f'{kname}[{name}]'
+            if kname == 'cell_step_plane_planes':
+                ea, _ = check_step(label, got, want, RTOL, atol)
+            elif kname == 'cell_megastep_planes':
+                if bool(got[5]) != bool(want[5]):
+                    raise RuntimeError(f"{label}: danger flags differ")
+                f_own = cp.cell_pair_plane_plain(
+                    got[0].permute(1, 2, 3, 4, 0).reshape(-1, C, 3), cdim,
+                    sh, pv, cell_tag=tag, **ek)
+                ea, _ = compare(label, [
+                    ('pos', got[0], want[0], 0.0, POS_TOL),
+                    ('frc at its own positions',
+                     got[2].permute(1, 2, 3, 4, 0).reshape(-1, C, 3), f_own,
+                     RTOL, atol)] + [
+                    (lab, got[i], want[i], RTOL, atol) for i, lab in
+                    ((1, 'vel'), (3, 'xi'), (4, 'eta'), (6, 'ke2'),
+                     (7, 'mdmax'))])
+            else:
+                if not isinstance(got, tuple):
+                    got, want = (got,), (want,)
+                ea, _ = compare(label, [
+                    (lab, g, w, RTOL, atol)
+                    for lab, g, w in zip(('F', 'pe', 'virial'), got, want)])
+            row[kname] = dict(max_abs_err=ea, ms=cuda_ms(kern, 20))
+        rows[name] = row
+        print(f"phase evaluator {name} [bench cell_dim={cdim} C={C} N={N}] "
+              f"pnames={pn} ATOL={atol:g} |F| of one pair at r_cut - 0.05 "
+              f"{f_edge:.4g}: " + ', '.join(
+                  f"{k} {r['ms']:.4f} ms (max_abs_err {r['max_abs_err']:.3e})"
+                  for k, r in row.items()), flush=True)
+    return rows
+
+
+def eval_job(name):
+    """A 64 000-particle job of the evaluator on the default path: the
+    bench lattice at rho* = 0.8442, 600 Langevin steps then 600
+    Nose-Hoover steps at kT = 1.2, dt = 0.005.  Gates: finite state,
+    T = 1.2 +- 0.03, the megastep launched, a fluid (mean-square
+    displacement over the NVT steps above 0.2), and the end state's
+    planar PE equal to its plain version's to 1e-5 of it plus 0.01 (the
+    two sum 64 000 particles' ~1000 candidates in different orders).  Returns the
+    launch counts."""
+    import torch
+    import hoomd_tpu_torch as hoomd
+    from hoomd_tpu_torch import md
+    from hoomd_tpu_torch.ops import cell_pair as cp
+    t_job = time.perf_counter()
+    coeffs, rc = EVAL_JOBS[name]
+    hoomd.context.initialize("--mode=gpu --notice-level=0")
+    a = (1.0 / RHO) ** (1.0 / 3.0)
+    hoomd.init.create_lattice(unitcell=hoomd.lattice.sc(a=a), n=40)
+    system = hoomd.context.current.system
+    N = system.state.N
+    rng = np.random.RandomState(2)
+    snap = system.take_snapshot()
+    v = rng.normal(0, np.sqrt(1.2), (N, 3))
+    snap.particles.velocity[:] = v - v.mean(axis=0)
+    system.restore_snapshot(snap)
+    pair = getattr(md.pair, name)(r_cut=rc, nlist=md.nlist.cell(r_buff=0.4))
+    pair.pair_coeff.set('A', 'A', **coeffs)
+    pair.set_params(mode='shift')
+    md.integrate.mode_standard(dt=0.005)
+    reset_launch_counts()
+    lan = md.integrate.langevin(group=hoomd.group.all(), kT=1.2, seed=9)
+    system.run(600, quiet=True)
+    lan.disable()
+    md.integrate.nvt(group=hoomd.group.all(), kT=1.2, tau=0.5)
+    s0 = system.take_snapshot()
+    system.run(600, quiet=True)
+    counts = launch_counts()
+    q = system.thermo_quantities()
+    s1 = system.take_snapshot()
+    box_L = np.array([s0.box.Lx, s0.box.Ly, s0.box.Lz])
+
+    def unwrapped(sn):
+        return (sn.particles.position.astype(np.float64)
+                + sn.particles.image * box_L)
+    msd = float(((unwrapped(s1) - unwrapped(s0)) ** 2).sum(1).mean())
+    fast = system._program['fast']
+    what = f'{name} job'
+    if not (np.isfinite(s1.particles.position).all()
+            and np.isfinite(s1.particles.velocity).all()
+            and np.isfinite(q['potential_energy'])):
+        raise RuntimeError(f"{what}: non-finite state")
+    if abs(q['temperature'] - TEMP_TARGET) > TEMP_TOL:
+        raise RuntimeError(f"{what}: T = {q['temperature']:.4f} outside "
+                           f"{TEMP_TARGET} +- {TEMP_TOL}")
+    if counts['cell_megastep_planes'] <= 0 or not fast['mega']:
+        raise RuntimeError(f"{what} never ran the megastep")
+    if fast['eval_name'] != name:
+        raise RuntimeError(f"{what} ran evaluator {fast['eval_name']}")
+    if msd < 0.2:
+        raise RuntimeError(f"{what}: mean-square displacement {msd:.4f} "
+                           f"over 600 steps: not a fluid")
+    check_rebin_lost(system, what)
+    # the end state's PE: the kernel (which thermo_quantities read)
+    # against the plain version on the same carry
+    c = system._fast_carry
+    _, sh = cp.build_cell_shifts(fast['cell_dim'],
+                                 system._state_raw.box.L.cpu().numpy())
+    sh = torch.as_tensor(sh, dtype=torch.float32, device=c.pos.device)
+    pv = system._dyn['fast']['pv']
+    ek = dict(eval_name=name, pnames=fast['pnames'])
+    got = cp.cell_pair_planar(c.pos, fast['cell_dim'], sh, pv, C=fast['C'],
+                              cell_tag=c.tag, **ek)[1]
+    want = cp.cell_pair_planar_plain(c.pos, fast['cell_dim'], sh, pv,
+                                     cell_tag=c.tag, **ek)[1]
+    pe_k, pe_p = float(got.double().sum()), float(want.double().sum())
+    if abs(pe_k - pe_p) > 1e-5 * abs(pe_p) + 1e-2:
+        raise RuntimeError(f"{what}: end-state PE {pe_k} against the plain "
+                           f"version's {pe_p}")
+    print(f"{what}: coefficients {coeffs} r_cut={rc} shift; plan "
+          f"cell_dim={fast['cell_dim']} C={fast['C']} "
+          f"rebin={fast['rebin_impl']}; T={q['temperature']:.5f} "
+          f"PE/N={q['potential_energy'] / N:.5f} (plain {pe_p / N:.5f}) "
+          f"P={q['pressure']:.4f} MSD={msd:.4f}, {system.fast_stats}, "
+          f"launches={counts}; the job took "
+          f"{time.perf_counter() - t_job:.1f} s", flush=True)
+    return counts
+
+
+def fused_job():
+    """bench.py's script with HOOMD_TPU_MEGA=off HOOMD_TPU_FUSED=on: the
+    Langevin melt (one_step), 1000 Nose-Hoover steps on the fused step,
+    then a timed 500-step window and the busy share over 50 profiled
+    steps; gates as the bench job's, with the step-plane kernel launched
+    and the megastep not.  Then an NVE continuation of 1000 fused steps,
+    gated on the energy drift (< 1e-3 per particle per 1000 steps at
+    dt = 0.005).  Returns the launch counts of the NVT run."""
+    import torch
+    import hoomd_tpu_torch as hoomd
+    from hoomd_tpu_torch import md
+    t_job = time.perf_counter()
+    env = {'HOOMD_TPU_MEGA': 'off', 'HOOMD_TPU_FUSED': 'on'}
+    os.environ.update(env)
+    try:
+        reset_launch_counts()
+        system, N = bench_job(time.perf_counter(), nvt_steps=1000,
+                              warmup=False)
+        counts = launch_counts()
+        what = 'HOOMD_TPU_MEGA=off HOOMD_TPU_FUSED=on job'
+        q = check_lj_output(system, N, what)
+        check_rebin_lost(system, what)
+        fast = system._program['fast']
+        if counts['cell_step_plane_planes'] <= 0 or not fast['fused']:
+            raise RuntimeError(f"the {what} never ran the fused step")
+        if counts['cell_megastep_planes'] or fast['mega']:
+            raise RuntimeError(f"the {what} ran the megastep")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        system.run(500, quiet=True)
+        ms = (time.perf_counter() - t0) * 2.0
+        busy = device_profile(lambda: system.run(50, quiet=True),
+                              f'50 steps of the {what}', top=4)
+        print(f"{what}: T={q['temperature']:.5f} "
+              f"PE/N={q['potential_energy'] / N:.5f}, {system.fast_stats}, "
+              f"{ms:.4f} ms/step over 500 steps, busy share {busy:.4f}, "
+              f"launches={counts}", flush=True)
+        # NVE continuation
+        for m in system.methods:
+            m.disable()
+        md.integrate.nve(group=hoomd.group.all())
+        q0 = system.thermo_quantities()
+        reset_launch_counts()
+        system.run(1000, quiet=True)
+        nve_counts = launch_counts()
+        q1 = system.thermo_quantities()
+    finally:
+        for k in env:
+            os.environ.pop(k)
+    e0 = q0['kinetic_energy'] + q0['potential_energy']
+    e1 = q1['kinetic_energy'] + q1['potential_energy']
+    drift = abs(e1 - e0) / N
+    fast = system._program['fast']
+    print(f"fused NVE continuation: E/N {e0 / N:.6f} -> {e1 / N:.6f}, drift "
+          f"{drift:.3e} per particle over 1000 steps at dt = 0.005, "
+          f"T={q1['temperature']:.5f}, {system.fast_stats}, "
+          f"launches={nve_counts}; the job took "
+          f"{time.perf_counter() - t_job:.1f} s", flush=True)
+    if not np.isfinite(e1) or drift >= 1e-3:
+        raise RuntimeError(f"fused NVE: energy drift {drift:.3e} per "
+                           f"particle per 1000 steps (bound 1e-3)")
+    if nve_counts['cell_step_plane_planes'] <= 0 or not fast['fused']:
+        raise RuntimeError("the fused NVE continuation never ran the fused "
+                           "step")
+    if nve_counts['cell_megastep_planes']:
+        raise RuntimeError("the fused NVE continuation ran the megastep")
+    return counts
+
+
 # the force path of each HOOMD_TPU_FAST_IMPL value this script runs, and
 # the kernel of its steps
 IMPL_KERNELS = {'planar_n3l': 'cell_pair_planar_n3l', 'pallas': 'cell_pair_lj',
@@ -394,9 +798,7 @@ def impl_kernel_phases(dev):
     from hoomd_tpu_torch.ops import cell_pair as cp
     pv, ljv = lj_params(dev)
     out = {}
-    for tag_name, dims, cdim, C in (('bench', (40, 40, 40), (14, 14, 12), 40),
-                                    ('ragged', (9, 11, 14), (3, 4, 5), 37),
-                                    ('2x2x2', (6, 6, 6), (2, 2, 2), 40)):
+    for tag_name, (dims, cdim, C) in SHAPES.items():
         carry, L, N, _ = lattice_cells(dims, cdim, C, 0.1, 3, dev)
         adj, sh = cp.build_cell_shifts(cdim, L)
         adj = torch.as_tensor(adj, dtype=torch.int32, device=dev)
@@ -1252,6 +1654,8 @@ def main():
                 or line.startswith('==')):
             print(f"  ptxas: {line.strip()}", flush=True)
     rows = kernel_phases(dev)
+    rows.update(step_plane_phases(dev))
+    eval_rows = eval_kernel_phases(dev)
     rows.update(impl_kernel_phases(dev))
     rows.update(rebin_kernel_phases(dev))
     rows.update(hpmc_kernel_phases())
@@ -1270,6 +1674,9 @@ def main():
     for impl, kname in IMPL_KERNELS.items():
         launches[kname] = impl_job(impl)[kname]
     impl_job('plane', mega='off')
+    launches['cell_step_plane_planes'] = fused_job()['cell_step_plane_planes']
+    for name in EVAL_JOBS:
+        eval_job(name)
     print(f"MD jobs done at {time.perf_counter() - t0:.1f} s", flush=True)
     launches['fused_poly_sweep'] = hpmc_job('cube', card)['fused_poly_sweep']
     launches['fused_sphere_sweep'] = hpmc_job('sphere', card)[
@@ -1281,6 +1688,8 @@ def main():
                             'cell_pair.cu'),
         'cell_pair_planar': ('hoomd_tpu/ops/pallas_pair.py:609',
                              'cell_pair.cu'),
+        'cell_step_plane_planes': ('hoomd_tpu/ops/pallas_pair.py:1754',
+                                   'cell_step.cu'),
         'cell_pair_lj': ('hoomd_tpu/ops/pallas_pair.py:43',
                          'cell_pair_impls.cu'),
         'cell_pair_lj_pallas3d': ('hoomd_tpu/ops/pallas_pair.py:332',
@@ -1312,6 +1721,9 @@ def main():
                 "bound_ms": rows[name]['bound_ms'],
                 "bound_by": rows[name]['bound_by'], "library_ms": None}
                for name, (rep, src) in replaces.items()]
+    print(json.dumps({"evaluator_kernels_ms": {
+        name: {k: r['ms'] for k, r in row.items()}
+        for name, row in eval_rows.items()}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

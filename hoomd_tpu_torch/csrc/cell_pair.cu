@@ -4,15 +4,20 @@
 // hoomd_cell_pair_plane   replaces hoomd_tpu/ops/pallas_pair.py:_kernel_plane
 //                         (forces only, full 27-cell stencil).
 // hoomd_cell_pair_planar  replaces hoomd_tpu/ops/pallas_pair.py:_kernel_planar
-//                         (forces, half-pair energy and virial), single-type LJ.
+//                         (forces, half-pair energy and virial), single type.
 // hoomd_megastep          replaces hoomd_tpu/ops/pallas_pair.py:_kernel_megastep
 //                         (k fused velocity-Verlet steps: NVE, Nose-Hoover, Langevin).
+//
+// Each is instantiated for the ten pair evaluators of cell_stencil.cuh
+// (the JAX engine's FAST_EVALS), picked by the evaluator id the host
+// passes; its parameters are the vector [rc2, e_shift, *pnames].
 //
 // What bounds them on this card: the stencil is arithmetic on shared
 // memory.  At the 64k LJ bench shape (2352 cells, C = 40) a step visits
 // 2352 * 40 * 1080 = 102M candidate pairs, about 20 flops each, against
 // 18 MB of state traffic, so the pair loop is FP32-issue bound, not
-// memory bound.  The design keeps it simple and right: one block per
+// memory bound; the evaluators other than lj add a sqrtf and an expf or
+// powf per pair inside r_cut.  The design keeps it simple and right: one block per
 // cell, shared-memory broadcast of the staged candidates, no atomics (a
 // pair is evaluated from both sides, like the TPU's full stencil), so
 // the sums are deterministic.  Unused lanes (C rounded up to a warp)
@@ -36,33 +41,14 @@ namespace hoomd_torch {
 
 constexpr int kRedThreads = 256;
 
-__device__ inline float warp_sum(float x) {
-    for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(0xffffffffu, x, o);
-    return x;
-}
-
-// Sum of x over the block; the result is valid in thread 0.
-__device__ inline float block_sum(float x) {
-    __shared__ float red[32];
-    const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-    x = warp_sum(x);
-    if (lane == 0) red[wid] = x;
-    __syncthreads();
-    const int nw = (blockDim.x + 31) >> 5;
-    x = (threadIdx.x < nw) ? red[threadIdx.x] : 0.0f;
-    if (wid == 0) x = warp_sum(x);
-    __syncthreads();
-    return x;
-}
-
 // ---------------------------------------------------------------------------
 // cell_pair_plane / cell_pair_planar
 
-template <bool APPROX, bool PV>
+template <int EV, bool APPROX, bool PV>
 __global__ void cell_pair_kernel(const Vec3 pos, const int* __restrict__ tag,
                                  const float* __restrict__ shifts,
-                                 const float* __restrict__ par, const Geom g, Vec3 frc,
-                                 float* __restrict__ pe, float* __restrict__ vir) {
+                                 const float* __restrict__ par, const int np, const Geom g,
+                                 Vec3 frc, float* __restrict__ pe, float* __restrict__ vir) {
     extern __shared__ float smem[];
     const int n = 27 * g.C;
     float* sx = smem;
@@ -74,11 +60,11 @@ __global__ void cell_pair_kernel(const Vec3 pos, const int* __restrict__ tag,
     __syncthreads();
     const int i = threadIdx.x;
     if (i >= g.C) return;
-    // par = [rc2, e_shift, lj1, lj2, rcut]
-    const LJ lj{par[0], par[2], par[3], par[1]};
+    const PairPar P = load_pair_par(par, np);
     float acc[10] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     const int ic = 13 * g.C + i;
-    if (sv[ic]) stencil_sum<APPROX, PV>(sx[ic], sy[ic], sz[ic], ic, n, sx, sy, sz, sv, lj, acc);
+    if (sv[ic])
+        stencil_sum<EV, APPROX, PV>(sx[ic], sy[ic], sz[ic], ic, n, sx, sy, sz, sv, P, acc);
     const long long slot = (long long)cell * g.C + i;
     frc.at(slot, 0) = acc[0];
     frc.at(slot, 1) = acc[1];
@@ -89,33 +75,24 @@ __global__ void cell_pair_kernel(const Vec3 pos, const int* __restrict__ tag,
     }
 }
 
-static int threads_for(int C) { return ((C + 31) / 32) * 32; }
-
-template <typename K>
-static cudaError_t set_smem(K kernel, size_t bytes) {
-    if (bytes <= 48 * 1024) return cudaSuccess;
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)bytes);
-}
-
-template <bool APPROX, bool PV>
-static int launch_cell_pair(const float* pos, long long pss, long long pcs, const int* tag,
-                            const float* shifts, const float* par, float* frc,
-                            long long fss, long long fcs, float* pe, float* vir, int nx,
-                            int ny, int nz, int C, cudaStream_t st) {
-    const Geom g{nx, ny, nz, C};
-    const size_t smem = stencil_smem_bytes(C);
-    cudaError_t e = set_smem(cell_pair_kernel<APPROX, PV>, smem);
+template <int EV, bool APPROX, bool PV>
+static cudaError_t launch_cell_pair(const float* pos, long long pss, long long pcs,
+                                    const int* tag, const float* shifts, const float* par,
+                                    int np, float* frc, long long fss, long long fcs,
+                                    float* pe, float* vir, const Geom g, cudaStream_t st) {
+    const size_t smem = stencil_smem_bytes(g.C);
+    cudaError_t e = set_smem(cell_pair_kernel<EV, APPROX, PV>, smem);
     if (e != cudaSuccess) return e;
-    cell_pair_kernel<APPROX, PV><<<nx * ny * nz, threads_for(C), smem, st>>>(
-        Vec3{const_cast<float*>(pos), pss, pcs}, tag, shifts, par, g, Vec3{frc, fss, fcs},
+    cell_pair_kernel<EV, APPROX, PV><<<g.nx * g.ny * g.nz, threads_for(g.C), smem, st>>>(
+        Vec3{const_cast<float*>(pos), pss, pcs}, tag, shifts, par, np, g, Vec3{frc, fss, fcs},
         pe, vir);
     return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// megastep pieces.  mp = [rc2, lj1, lj2, dt, tinv2, it_x, it_y, it_z,
-// gamma, ndof]; sc = [xi, eta, ke2, mdmax].
+// megastep pieces.  mp = [dt, tinv2, it_x, it_y, it_z, gamma, ndof, rc2,
+// e_shift, *pnames]; sc = [xi, eta, ke2, mdmax].
+constexpr int MP_DT = 0, MP_TINV2 = 1, MP_IT = 2, MP_GAMMA = 5, MP_NDOF = 6, MP_PV = 7;
 
 // Top-two reduction of one axis' squared drift: the largest value, how
 // many slots hold it, and the largest value below it.  Merging two
@@ -149,7 +126,7 @@ __device__ inline void top2_block(Top2* t, Top2* sh) {
 __device__ inline float nh_xi_half(const float* mp, const float xi, const float ke2,
                                    const float kT) {
     // xi + dt/2 (KE2 / (ndof kT) - 1) / tau^2, the megastep's order
-    return xi + 0.5f * mp[3] * (ke2 / (mp[9] * kT) - 1.0f) * mp[4];
+    return xi + 0.5f * mp[MP_DT] * (ke2 / (mp[MP_NDOF] * kT) - 1.0f) * mp[MP_TINV2];
 }
 
 // Drift: v' = s v + dt/2 f/m ; x += dt v' ; per-axis top-two of
@@ -161,7 +138,7 @@ __global__ void mega_drift(float* __restrict__ p, float* __restrict__ v,
                            const float* __restrict__ kt, const int si, const int nvt,
                            Top2* __restrict__ part) {
     __shared__ Top2 sh[3 * kRedThreads];
-    const float dt = mp[3], hdt = 0.5f * dt;
+    const float dt = mp[MP_DT], hdt = 0.5f * dt;
     float s = 1.0f;
     if (nvt) s = expf(-hdt * nh_xi_half(mp, sc[0], sc[2], kt[si]));
     const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -200,14 +177,14 @@ __global__ void mega_drift_finish(const Top2* __restrict__ part, const int nb,
         const Top2 r = sh[a * kRedThreads];
         const float m1 = r.m1;
         const float m2 = (r.cnt > 1) ? m1 : fmaxf(r.m2, 0.0f);
-        const float it = mp[5 + a];
+        const float it = mp[MP_IT + a];
         const float sd = 0.5f * (sqrtf(m1 * it) + sqrtf(m2 * it));
         md2 = fmaxf(md2, sd * sd);
     }
     sc[3] = md2;
     if (nvt) {
         const float xi1 = nh_xi_half(mp, sc[0], sc[2], kt[si]);
-        sc[1] = sc[1] + mp[3] * xi1;
+        sc[1] = sc[1] + mp[MP_DT] * xi1;
         sc[0] = xi1;
     }
 }
@@ -239,12 +216,13 @@ __global__ void mega_ke_finish(const float* __restrict__ part, const int nb,
 // Forces at the drifted positions, then the kick.  METHOD 0 = NVE,
 // 1 = Nose-Hoover (post-scale, KE partial per block), 2 = Langevin
 // (precomputed noise planes of this step, drag -gamma v).
-template <bool APPROX, int METHOD>
+template <int EV, bool APPROX, int METHOD>
 __global__ void mega_force_kick(const float* __restrict__ p, float* __restrict__ v,
                                 float* __restrict__ f, const float* __restrict__ w,
                                 const float* __restrict__ m, const int* __restrict__ tag,
                                 const float* __restrict__ shifts,
-                                const float* __restrict__ mp, const float* __restrict__ sc,
+                                const float* __restrict__ mp, const int np,
+                                const float* __restrict__ sc,
                                 const float* __restrict__ noise, const Geom g,
                                 float* __restrict__ kpart) {
     extern __shared__ float smem[];
@@ -260,12 +238,14 @@ __global__ void mega_force_kick(const float* __restrict__ p, float* __restrict__
     const int i = threadIdx.x;
     float ke = 0.0f;
     if (i < g.C) {
-        const LJ lj{mp[0], mp[1], mp[2], 0.0f};
+        const PairPar P = load_pair_par(mp + MP_PV, np);
         float acc[3] = {0.f, 0.f, 0.f};
         const int ic = 13 * g.C + i;
-        if (sv[ic]) stencil_sum<APPROX, false>(sx[ic], sy[ic], sz[ic], ic, n, sx, sy, sz, sv, lj, acc);
+        if (sv[ic])
+            stencil_sum<EV, APPROX, false>(sx[ic], sy[ic], sz[ic], ic, n, sx, sy, sz, sv, P,
+                                           acc);
         const long long j = (long long)cell * g.C + i;
-        const float hdt = 0.5f * mp[3];
+        const float hdt = 0.5f * mp[MP_DT];
         const float wj = w[j];
         const float s = (METHOD == 1) ? expf(-hdt * sc[0]) : 1.0f;
         for (int a = 0; a < 3; ++a) {
@@ -273,7 +253,7 @@ __global__ void mega_force_kick(const float* __restrict__ p, float* __restrict__
             float F = acc[a];
             float vn;
             if (METHOD == 2) {
-                F = F + noise[q] - mp[8] * v[q];
+                F = F + noise[q] - mp[MP_GAMMA] * v[q];
                 vn = v[q] + hdt * F * wj;
             } else {
                 vn = v[q] + hdt * F * wj;
@@ -291,17 +271,35 @@ __global__ void mega_force_kick(const float* __restrict__ p, float* __restrict__
     }
 }
 
-template <bool APPROX, int METHOD>
+template <int EV, bool APPROX, int METHOD>
 static cudaError_t launch_force_kick(const float* p, float* v, float* f, const float* w,
                                      const float* m, const int* tag, const float* shifts,
-                                     const float* mp, const float* sc, const float* noise,
-                                     const Geom g, float* kpart, cudaStream_t st) {
+                                     const float* mp, int np, const float* sc,
+                                     const float* noise, const Geom g, float* kpart,
+                                     cudaStream_t st) {
     const size_t smem = stencil_smem_bytes(g.C);
-    cudaError_t e = set_smem(mega_force_kick<APPROX, METHOD>, smem);
+    cudaError_t e = set_smem(mega_force_kick<EV, APPROX, METHOD>, smem);
     if (e != cudaSuccess) return e;
-    mega_force_kick<APPROX, METHOD><<<g.nx * g.ny * g.nz, threads_for(g.C), smem, st>>>(
-        p, v, f, w, m, tag, shifts, mp, sc, noise, g, kpart);
+    mega_force_kick<EV, APPROX, METHOD><<<g.nx * g.ny * g.nz, threads_for(g.C), smem, st>>>(
+        p, v, f, w, m, tag, shifts, mp, np, sc, noise, g, kpart);
     return cudaGetLastError();
+}
+
+// The force + kick launch of one step, for the evaluator ev; approx only
+// with lj.
+template <int METHOD>
+static cudaError_t force_kick(int ev, int approx, const float* p, float* v, float* f,
+                              const float* w, const float* m, const int* tag,
+                              const float* shifts, const float* mp, int np, const float* sc,
+                              const float* noise, const Geom g, float* kpart,
+                              cudaStream_t st) {
+    if (approx && ev == EV_LJ)
+        return launch_force_kick<EV_LJ, true, METHOD>(p, v, f, w, m, tag, shifts, mp, np, sc,
+                                                     noise, g, kpart, st);
+    return dispatch_eval(ev, [&](auto t) {
+        return launch_force_kick<decltype(t)::value, false, METHOD>(
+            p, v, f, w, m, tag, shifts, mp, np, sc, noise, g, kpart, st);
+    });
 }
 
 }  // namespace hoomd_torch
@@ -311,33 +309,42 @@ using namespace hoomd_torch;
 extern "C" {
 
 int hoomd_cell_pair_plane(const float* pos, long long pss, long long pcs, const int* tag,
-                          const float* shifts, const float* par, float* frc, long long fss,
-                          long long fcs, int nx, int ny, int nz, int C, int approx,
-                          void* stream) {
+                          const float* shifts, const float* par, int np, float* frc,
+                          long long fss, long long fcs, int nx, int ny, int nz, int C, int ev,
+                          int approx, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (approx)
-        return launch_cell_pair<true, false>(pos, pss, pcs, tag, shifts, par, frc, fss, fcs,
-                                             nullptr, nullptr, nx, ny, nz, C, st);
-    return launch_cell_pair<false, false>(pos, pss, pcs, tag, shifts, par, frc, fss, fcs,
-                                          nullptr, nullptr, nx, ny, nz, C, st);
+    const Geom g{nx, ny, nz, C};
+    if (approx && ev == EV_LJ)
+        return launch_cell_pair<EV_LJ, true, false>(pos, pss, pcs, tag, shifts, par, np, frc,
+                                                   fss, fcs, nullptr, nullptr, g, st);
+    return dispatch_eval(ev, [&](auto t) {
+        return launch_cell_pair<decltype(t)::value, false, false>(
+            pos, pss, pcs, tag, shifts, par, np, frc, fss, fcs, nullptr, nullptr, g, st);
+    });
 }
 
 int hoomd_cell_pair_planar(const float* pos, long long pss, long long pcs, const int* tag,
-                           const float* shifts, const float* par, float* frc, float* pe,
-                           float* vir, int nx, int ny, int nz, int C, void* stream) {
-    return launch_cell_pair<false, true>(pos, pss, pcs, tag, shifts, par, frc, 3, 1, pe, vir,
-                                         nx, ny, nz, C, static_cast<cudaStream_t>(stream));
+                           const float* shifts, const float* par, int np, float* frc,
+                           float* pe, float* vir, int nx, int ny, int nz, int C, int ev,
+                           void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const Geom g{nx, ny, nz, C};
+    return dispatch_eval(ev, [&](auto t) {
+        return launch_cell_pair<decltype(t)::value, false, true>(
+            pos, pss, pcs, tag, shifts, par, np, frc, 3, 1, pe, vir, g, st);
+    });
 }
 
 // k velocity-Verlet steps on plane-layout state (3, nz, ny, nx, C),
 // updated in place.  method: 0 nve, 1 nvt, 2 langevin.  noise holds
 // k * 3 * M floats (langevin only).  dpart needs 3 * ceil(M / 256)
-// Top2 records, kpart max(nc, ceil(M / 256)) floats.
+// Top2 records, kpart max(nc, ceil(M / 256)) floats; mp carries np
+// evaluator parameters after [.., rc2, e_shift].
 int hoomd_megastep(float* p, float* v, float* f, const float* w, const float* m,
                    const float* r, const int* tag, const float* shifts, const float* mp,
-                   float* sc, const float* kt, const float* noise, void* dpart, float* kpart,
-                   int nx, int ny, int nz, int C, int k, int method, int approx,
-                   void* stream) {
+                   int np, float* sc, const float* kt, const float* noise, void* dpart,
+                   float* kpart, int nx, int ny, int nz, int C, int k, int method, int ev,
+                   int approx, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const Geom g{nx, ny, nz, C};
     const long long M = (long long)nx * ny * nz * C;
@@ -345,6 +352,7 @@ int hoomd_megastep(float* p, float* v, float* f, const float* w, const float* m,
     const int nvt = method == 1;
     Top2* part = static_cast<Top2*>(dpart);
     cudaError_t e;
+    if (ev < 0 || ev >= EV_COUNT || method < 0 || method > 2) return cudaErrorInvalidValue;
     mega_ke_partial<<<nb, kRedThreads, 0, st>>>(v, m, M, kpart);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
     mega_ke_finish<<<1, kRedThreads, 0, st>>>(kpart, nb, mp, sc, kt, 0, 0);
@@ -356,14 +364,14 @@ int hoomd_megastep(float* p, float* v, float* f, const float* w, const float* m,
         if ((e = cudaGetLastError()) != cudaSuccess) return e;
         const float* nz_s = method == 2 ? noise + (long long)si * 3 * M : nullptr;
         if (method == 0)
-            e = approx ? launch_force_kick<true, 0>(p, v, f, w, m, tag, shifts, mp, sc, nz_s, g, kpart, st)
-                       : launch_force_kick<false, 0>(p, v, f, w, m, tag, shifts, mp, sc, nz_s, g, kpart, st);
+            e = force_kick<0>(ev, approx, p, v, f, w, m, tag, shifts, mp, np, sc, nz_s, g,
+                              kpart, st);
         else if (method == 1)
-            e = approx ? launch_force_kick<true, 1>(p, v, f, w, m, tag, shifts, mp, sc, nz_s, g, kpart, st)
-                       : launch_force_kick<false, 1>(p, v, f, w, m, tag, shifts, mp, sc, nz_s, g, kpart, st);
+            e = force_kick<1>(ev, approx, p, v, f, w, m, tag, shifts, mp, np, sc, nz_s, g,
+                              kpart, st);
         else
-            e = approx ? launch_force_kick<true, 2>(p, v, f, w, m, tag, shifts, mp, sc, nz_s, g, kpart, st)
-                       : launch_force_kick<false, 2>(p, v, f, w, m, tag, shifts, mp, sc, nz_s, g, kpart, st);
+            e = force_kick<2>(ev, approx, p, v, f, w, m, tag, shifts, mp, np, sc, nz_s, g,
+                              kpart, st);
         if (e != cudaSuccess) return e;
         if (nvt) {
             mega_ke_finish<<<1, kRedThreads, 0, st>>>(kpart, nx * ny * nz, mp, sc, kt, si, 1);

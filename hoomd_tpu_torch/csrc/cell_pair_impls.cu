@@ -57,15 +57,6 @@
 
 namespace hoomd_torch {
 
-static int threads_for(int n) { return ((n + 31) / 32) * 32; }
-
-template <typename K>
-static cudaError_t set_smem(K kernel, size_t bytes) {
-    if (bytes <= 48 * 1024) return cudaSuccess;
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)bytes);
-}
-
 __device__ __forceinline__ int wrap(const int i, const int n) { return (i + n) % n; }
 
 // ---------------------------------------------------------------------------
@@ -112,11 +103,11 @@ __global__ void lj_adj_kernel(const float* __restrict__ pos, const int* __restri
     __syncthreads();
     const int i = threadIdx.x;
     if (i >= C) return;
-    const LJ lj{ljp[2], ljp[0], ljp[1], ljp[3]};
+    const PairPar lj = lj_par(ljp[2], ljp[3], ljp[0], ljp[1]);
     float acc[10] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     const long long slot = cell * C + i;
     if (tag[slot] >= 0)
-        stencil_sum<false, true>(pos[slot * 3], pos[slot * 3 + 1], pos[slot * 3 + 2],
+        stencil_sum<EV_LJ, false, true>(pos[slot * 3], pos[slot * 3 + 1], pos[slot * 3 + 2],
                                  self_k >= 0 ? self_k * C + i : -1, n, sx, sy, sz, sv, lj,
                                  acc);
     for (int a = 0; a < 3; ++a) frc[slot * 3 + a] = acc[a];
@@ -157,7 +148,7 @@ __global__ void lj_3d_kernel(const float* __restrict__ pos, const int* __restric
         yi = pos[slot * 3 + 1];
         zi = pos[slot * 3 + 2];
     }
-    const LJ lj{ljp[2], ljp[0], ljp[1], ljp[3]};
+    const PairPar lj = lj_par(ljp[2], ljp[3], ljp[0], ljp[1]);
     float acc[3] = {0.f, 0.f, 0.f};
     stage(0, 0);
     __syncthreads();
@@ -167,7 +158,7 @@ __global__ void lj_3d_kernel(const float* __restrict__ pos, const int* __restric
         if (k + 1 < 27) stage(k + 1, (k + 1) & 1);
         const int b = k & 1;
         if (vi)
-            stencil_sum<false, false>(xi, yi, zi, k == 13 ? i : -1, C, smem + b * 3 * C,
+            stencil_sum<EV_LJ, false, false>(xi, yi, zi, k == 13 ? i : -1, C, smem + b * 3 * C,
                                       smem + b * 3 * C + C, smem + b * 3 * C + 2 * C,
                                       sv0 + b * C, lj, acc);
         __syncthreads();
@@ -201,7 +192,7 @@ __global__ void lj_row_kernel(const float* __restrict__ pos, const int* __restri
         yi = pos[slot * 3 + 1];
         zi = pos[slot * 3 + 2];
     }
-    const LJ lj{ljp[2], ljp[0], ljp[1], ljp[3]};
+    const PairPar lj = lj_par(ljp[2], ljp[3], ljp[0], ljp[1]);
     float acc[3] = {0.f, 0.f, 0.f};
     for (int r = 0; r < 9; ++r) {
         const int jy = wrap(iy + r % 3 - 1, g.ny), jz = wrap(iz + r / 3 - 1, g.nz);
@@ -226,7 +217,7 @@ __global__ void lj_row_kernel(const float* __restrict__ pos, const int* __restri
         if (!vi) continue;
         for (int d = 0; d < 3; ++d) {           // dx = d - 1: staged cell lc + d
             const int base = (lc + d) * C;
-            stencil_sum<false, false>(xi, yi, zi, (r == 4 && d == 1) ? i : -1, C, sx + base,
+            stencil_sum<EV_LJ, false, false>(xi, yi, zi, (r == 4 && d == 1) ? i : -1, C, sx + base,
                                       sy + base, sz + base, sv + base, lj, acc);
         }
     }
@@ -281,7 +272,7 @@ __global__ void lj_n3l_kernel(const float* __restrict__ pos, const int* __restri
         yi = pos[slot * 3 + 1];
         zi = pos[slot * 3 + 2];
     }
-    const LJ lj{par[0], par[2], par[3], par[1]};
+    const PairPar lj = lj_par(par[0], par[1], par[2], par[3]);
     float acc[3] = {0.f, 0.f, 0.f};
     for (int e = 0; e < kN3lEntries; ++e) {
         int dz, dy, dx;
@@ -304,7 +295,7 @@ __global__ void lj_n3l_kernel(const float* __restrict__ pos, const int* __restri
                 const int j = jt + ((lane + s) & 31);
                 if (vi && j < C && sv[j] && (e != 0 || j > i)) {
                     float f[3] = {0.f, 0.f, 0.f};
-                    lj_pair<false, false>(xi - sx[j], yi - sy[j], zi - sz[j], lj, f);
+                    pair_acc<EV_LJ, false, false>(xi - sx[j], yi - sy[j], zi - sz[j], lj, f);
                     for (int a = 0; a < 3; ++a) {
                         acc[a] += f[a];
                         aj[a * C + j] -= f[a];

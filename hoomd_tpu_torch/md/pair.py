@@ -1,6 +1,10 @@
 """Pair potentials — python API (counterpart of hoomd_tpu/md/pair.py).
 
-The slice carries ``lj``.  Coefficients follow the reference's
+The ten pair potentials the cell-stencil engine runs (lj, gauss, yukawa,
+morse, mie, buckingham, lj1208, force_shifted_lj, dpd_conservative,
+moliere).  The JAX package's slj, reaction_field, ewald, zbl and dlvo
+need diameters or charges, which its stencil engine declines too; they
+are not ported.  Coefficients follow the reference's
 ``pair_coeff.set('A', 'B', epsilon=..., ...)`` protocol, with per-pair
 r_cut overrides and shift modes 'none' / 'shift' / 'xplor' (the System
 gates 'xplor' out of the slice).
@@ -110,6 +114,25 @@ class pair(Force):
                 'rcut': self._rcut_matrix(types).astype(np.float32)}
 
 
-class lj(pair):
-    """Lennard-Jones pair (md/pair.py lj)."""
-    _evaluator = pair_eval.lj
+def _make_pair_class(eval_name, doc):
+    class _P(pair):
+        __doc__ = doc
+        _evaluator = pair_eval.ALL_EVALUATORS[eval_name]
+    _P.__name__ = eval_name
+    _P.__qualname__ = eval_name
+    return _P
+
+
+lj = _make_pair_class('lj', "Lennard-Jones pair (md/pair.py lj).")
+gauss = _make_pair_class('gauss', "Gaussian pair (md/pair.py gauss).")
+yukawa = _make_pair_class('yukawa', "Yukawa pair (md/pair.py yukawa).")
+morse = _make_pair_class('morse', "Morse pair (md/pair.py morse).")
+mie = _make_pair_class('mie', "Mie pair (md/pair.py mie).")
+buckingham = _make_pair_class('buckingham',
+                              "Buckingham pair (md/pair.py buckingham).")
+lj1208 = _make_pair_class('lj1208', "LJ 12-8 pair (md/pair.py lj1208).")
+force_shifted_lj = _make_pair_class(
+    'force_shifted_lj', "Force-shifted LJ (md/pair.py force_shifted_lj).")
+dpd_conservative = _make_pair_class(
+    'dpd_conservative', "Conservative DPD (md/pair.py dpd_conservative).")
+moliere = _make_pair_class('moliere', "Moliere screening (md/pair.py).")

@@ -33,10 +33,14 @@ LL = ctypes.c_longlong
 I = ctypes.c_int
 F = ctypes.c_float
 _SIGNATURES = {
-    'hoomd_cell_pair_plane': [P, LL, LL, P, P, P, P, LL, LL, I, I, I, I, I, P],
-    'hoomd_cell_pair_planar': [P, LL, LL, P, P, P, P, P, P, I, I, I, I, P],
-    'hoomd_megastep': [P, P, P, P, P, P, P, P, P, P, P, P, P, P,
-                       I, I, I, I, I, I, I, P],
+    'hoomd_cell_pair_plane': [P, LL, LL, P, P, P, I, P, LL, LL, I, I, I, I,
+                              I, I, P],
+    'hoomd_cell_pair_planar': [P, LL, LL, P, P, P, I, P, P, P, I, I, I, I, I,
+                               P],
+    'hoomd_megastep': [P, P, P, P, P, P, P, P, P, I, P, P, P, P, P,
+                       I, I, I, I, I, I, I, I, P],
+    'hoomd_step_plane': [P, P, P, P, P, P, P, P, I, P, F, P, P, P, P, P,
+                         I, I, I, I, I, I, P],
     'hoomd_cell_pair_lj': [P, P, P, P, P, P, P, P, I, I, P],
     'hoomd_cell_pair_lj3d': [P, P, P, P, P, I, I, I, I, P],
     'hoomd_cell_pair_lj_row': [P, P, P, P, P, I, I, I, I, I, P],

@@ -1,13 +1,19 @@
-"""Cell-stencil LJ kernels: counterpart of hoomd_tpu/ops/pallas_pair.py.
+"""Cell-stencil pair kernels: counterpart of hoomd_tpu/ops/pallas_pair.py.
 
-Seven wrappers, each beside the plain torch version of the same function.
-The JAX engine's default configuration ('plane') runs three:
+Eight wrappers, each beside the plain torch version of the same function.
+The JAX engine's default configuration ('plane') runs three, and its
+fused single step (HOOMD_TPU_FUSED=on) a fourth:
 
   cell_pair_plane       (pallas_pair.py _kernel_plane)     forces only
   cell_pair_planar      (pallas_pair.py _kernel_planar)    forces, PE, virial
   cell_megastep_planes  (pallas_pair.py _kernel_megastep)  k fused VV steps
+  cell_step_plane_planes (pallas_pair.py _kernel_step_plane) one fused VV
+                                                   step, with KE and drift
 
-and its other force paths (HOOMD_TPU_FAST_IMPL) one each:
+These four take any of the ten pair evaluators of ops/pair_eval.py
+(``eval_name``, with the parameter vector [rc2, e_shift, *pnames] in the
+order of pair_eval.kernel_pnames).  The engine's other force paths
+(HOOMD_TPU_FAST_IMPL) run LJ only, one kernel each:
 
   cell_pair_lj          (_kernel, 'pallas')        adjacency-listed cells;
                                                    forces, PE, virial
@@ -17,10 +23,10 @@ and its other force paths (HOOMD_TPU_FAST_IMPL) one each:
                          'planar_n3l')
 
 On a CUDA tensor a wrapper launches its hand-written kernel
-(csrc/cell_pair.cu, csrc/cell_pair_impls.cu, built by ops/_build.py) or
-raises; on a CPU tensor it runs the plain version.  Nothing falls back
-from one to the other.  Each wrapper counts its launches in
-``<wrapper>.launches``.
+(csrc/cell_pair.cu, csrc/cell_step.cu, csrc/cell_pair_impls.cu, built by
+ops/_build.py) or raises; on a CPU tensor it runs the plain version.
+Nothing falls back from one to the other.  Each wrapper counts its
+launches in ``<wrapper>.launches``.
 
 Validity comes from the tag (>= 0), and the self pair is excluded by
 index, in the kernels and the plain versions alike.  ``cell_pair_xla``
@@ -79,10 +85,22 @@ def _adjacency(cell_dim, device):
                            device=device)
 
 
-def _lj_params(params_vec):
-    """[rc2, e_shift, lj1, lj2, ...] -> scalars of the LJ stencil."""
-    return params_vec[0], params_vec[1], {'lj1': params_vec[2],
-                                          'lj2': params_vec[3]}
+# the parameter names of the LJ stencil, the default evaluator
+LJ_PNAMES = ('lj1', 'lj2', 'rcut')
+
+
+def _evaluator(eval_name, pnames):
+    """The pair_eval evaluator of ``eval_name``, after checking that
+    ``pnames`` is the order the kernels read its parameters in."""
+    if eval_name not in pair_eval.EVAL_IDS:
+        raise NotImplementedError(
+            f"pair evaluator {eval_name!r}: the stencil kernels run "
+            f"{', '.join(pair_eval.FAST_EVALS)}")
+    want = pair_eval.kernel_pnames(eval_name)
+    if tuple(pnames) != want:
+        raise ValueError(f"pnames {tuple(pnames)} of {eval_name!r}: the "
+                         f"kernels read {want}")
+    return pair_eval.ALL_EVALUATORS[eval_name]
 
 
 def _recip_flag(recip):
@@ -97,7 +115,7 @@ def _recip_flag(recip):
 
 
 def _stencil_plain(cell_pos, cell_tag, adj, cell_shift, params_vec,
-                   want_pv):
+                   want_pv, eval_name='lj', pnames=LJ_PNAMES):
     """Direct-dr stencil over all cells, each against the 27 cells of its
     row of ``adj`` (nc, 27) under the image shifts ``cell_shift``, chunked
     to bound memory.  A slot meets itself only in the entry that lists its
@@ -105,7 +123,8 @@ def _stencil_plain(cell_pos, cell_tag, adj, cell_shift, params_vec,
     Returns F (nc, C, 3) and, with want_pv, pe (nc, C), vir (nc, C, 6)."""
     nc, C, _ = cell_pos.shape
     dev = cell_pos.device
-    rc2, e_shift, p = _lj_params(params_vec)
+    ev = _evaluator(eval_name, pnames)
+    rc2, e_shift, p = pair_eval.params_dict(params_vec, pnames)
     adj = adj.long()
     own = ((adj == torch.arange(nc, device=dev)[:, None])
            & (cell_shift == 0).all(-1))                   # (nc, 27)
@@ -132,8 +151,7 @@ def _stencil_plain(cell_pos, cell_tag, adj, cell_shift, params_vec,
                      & eye[None, :, None, :]).reshape(n, C, 27 * C)
         pair = (valid[c0:c1, :, None] & vj[:, None, :] & (r2 < rc2)
                 & ~self_pair)
-        f_raw, e_raw = pair_eval.lj.energy_force(torch.clamp(r2, min=1e-3),
-                                                 p)
+        f_raw, e_raw = ev.energy_force(torch.clamp(r2, min=1e-3), p)
         fdivr = torch.where(pair, f_raw, 0.0)
         F[c0:c1] = torch.stack([(fdivr * dx).sum(-1), (fdivr * dy).sum(-1),
                                 (fdivr * dz).sum(-1)], dim=-1)
@@ -148,26 +166,26 @@ def _stencil_plain(cell_pos, cell_tag, adj, cell_shift, params_vec,
 
 
 def cell_pair_plane_plain(cell_pos, cell_dim, cell_shift, params_vec, *,
-                          cell_tag):
+                          cell_tag, eval_name='lj', pnames=LJ_PNAMES):
     """Plain torch version of cell_pair_plane (exact divide)."""
     return _stencil_plain(cell_pos, cell_tag,
                           _adjacency(cell_dim, cell_pos.device), cell_shift,
-                          params_vec, want_pv=False)[0]
+                          params_vec, False, eval_name, pnames)[0]
 
 
 def cell_pair_planar_plain(cell_pos, cell_dim, cell_shift, params_vec, *,
-                           cell_tag):
+                           cell_tag, eval_name='lj', pnames=LJ_PNAMES):
     """Plain torch version of cell_pair_planar: (F, pe, vir)."""
     return _stencil_plain(cell_pos, cell_tag,
                           _adjacency(cell_dim, cell_pos.device), cell_shift,
-                          params_vec, want_pv=True)
+                          params_vec, True, eval_name, pnames)
 
 
 def _pv_of_lj(lj_params):
     """The LJ-only kernels' [lj1, lj2, rc2, e_shift] -> [rc2, e_shift,
-    lj1, lj2]."""
+    lj1, lj2, rcut]."""
     return torch.stack([lj_params[2], lj_params[3], lj_params[0],
-                        lj_params[1]])
+                        lj_params[1], torch.sqrt(lj_params[2])])
 
 
 def cell_pair_lj_plain(cell_pos, cell_adj, cell_shift, lj_params, *,
@@ -208,7 +226,7 @@ def cell_pair_planar_n3l_plain(cell_pos, cell_dim, cell_shift, params_vec,
     slot."""
     nc, C, _ = cell_pos.shape
     dev = cell_pos.device
-    rc2, _, p = _lj_params(params_vec)
+    rc2, _, p = pair_eval.params_dict(params_vec, LJ_PNAMES)
     adj = _adjacency(cell_dim, dev)
     valid = cell_tag >= 0
     upper = torch.ones((C, C), dtype=torch.bool, device=dev).triu(1)
@@ -255,7 +273,8 @@ def _inv_thresholds(skin, ref):
 def cell_megastep_planes_plain(gp, gv, gf, gw, gm, gr, cell_dim, cell_shift,
                                params_vec, dt, kt_table, xi, eta, skin, *, C,
                                k, method, gt, ndof=1.0, tau_inv2=0.0,
-                               gamma=0.0, gn=None):
+                               gamma=0.0, gn=None, eval_name='lj',
+                               pnames=LJ_PNAMES):
     """Plain torch version of cell_megastep_planes: the same 8-tuple,
     with exact divides."""
     nx, ny, nz = cell_dim
@@ -297,7 +316,8 @@ def cell_megastep_planes_plain(gp, gv, gf, gw, gm, gr, cell_dim, cell_shift,
             md2 = torch.maximum(md2, sd * sd)
         mdmax = md2
         F = cell_pair_plane_plain(_planes_to_cells(p, nc, C), cell_dim,
-                                  cell_shift, params_vec, cell_tag=tag_cells)
+                                  cell_shift, params_vec, cell_tag=tag_cells,
+                                  eval_name=eval_name, pnames=pnames)
         F = _cells_to_planes(F, cell_dim, C)
         if method == 'langevin':
             f = F + gn[si] - gamma * v
@@ -313,6 +333,33 @@ def cell_megastep_planes_plain(gp, gv, gf, gw, gm, gr, cell_dim, cell_shift,
         else:
             xi = xi1
     return p, v, f, xi, eta, mdmax > 1.0, ke2, mdmax
+
+
+def cell_step_plane_planes_plain(gp, gv, gf, gw, gr, cell_dim, cell_shift,
+                                 params_vec, dt, s, *, C, gt, eval_name='lj',
+                                 pnames=LJ_PNAMES):
+    """Plain torch version of cell_step_plane_planes (exact divide), in
+    the kernel's operation order: the drift as separate products and
+    sums, the stencil of cell_pair_plane_plain at the drifted positions,
+    the kick."""
+    nx, ny, nz = cell_dim
+    nc = nx * ny * nz
+    dt = _as_scalar(dt, gp)
+    hdt = 0.5 * dt
+    s = _as_scalar(s, gp)
+    w = gw[None]
+    vh = s * gv + hdt * gf * w
+    p = gp + dt * vh
+    F = cell_pair_plane_plain(_planes_to_cells(p, nc, C), cell_dim,
+                              cell_shift, params_vec,
+                              cell_tag=gt.reshape(nc, C),
+                              eval_name=eval_name, pnames=pnames)
+    F = _cells_to_planes(F, cell_dim, C)
+    v = s * (vh + hdt * F * w)
+    ke2 = (v * v / w).sum()
+    d = p - gr
+    md2 = (d[0] * d[0] + d[1] * d[1] + d[2] * d[2]).max()
+    return p, v, F.contiguous(), ke2, md2
 
 
 # ---------------------------------------------------------------------------
@@ -353,13 +400,22 @@ def _check_shapes(C, **shapes):
 
 
 def _check_pair_args(cell_pos, cell_tag, cell_dim, cell_shift, params_vec,
-                     C):
+                     C, eval_name, pnames):
+    """Shapes, and the evaluator: returns its kernel id."""
     nc = int(np.prod(cell_dim))
     _check_shapes(C, cell_pos=(cell_pos, (nc, C, 3)),
                   cell_tag=(cell_tag, (nc, C)),
                   cell_shift=(cell_shift, (nc, 27, 3)))
-    if params_vec.numel() < 4:
-        raise ValueError("params_vec needs [rc2, e_shift, lj1, lj2, ...]")
+    return _eval_id(eval_name, pnames, params_vec)
+
+
+def _eval_id(eval_name, pnames, params_vec):
+    _evaluator(eval_name, pnames)
+    if params_vec.numel() != 2 + len(pnames):
+        raise ValueError(f"params_vec needs [rc2, e_shift, "
+                         f"{', '.join(pnames)}], got {params_vec.numel()} "
+                         f"values")
+    return pair_eval.EVAL_IDS[eval_name]
 
 
 def _device_of(t):
@@ -369,15 +425,18 @@ def _device_of(t):
 
 
 def cell_pair_plane(cell_pos, cell_dim, cell_shift, params_vec, *, C,
-                    cell_tag, recip='div'):
-    """Forces (nc, C, 3) of the full 27-cell LJ stencil.  params_vec =
-    [rc2, e_shift, lj1, lj2, ...].  recip='approx' takes the fast
-    reciprocal on the card, 'div' the exact divide."""
+                    cell_tag, recip='div', eval_name='lj', pnames=LJ_PNAMES):
+    """Forces (nc, C, 3) of the full 27-cell stencil of the pair evaluator
+    ``eval_name``.  params_vec = [rc2, e_shift, *pnames].
+    recip='approx' takes the fast reciprocal on the card (lj only, as in
+    the JAX kernels), 'div' the exact divide."""
     approx = _recip_flag(recip)
-    _check_pair_args(cell_pos, cell_tag, cell_dim, cell_shift, params_vec, C)
+    ev = _check_pair_args(cell_pos, cell_tag, cell_dim, cell_shift,
+                          params_vec, C, eval_name, pnames)
     if _device_of(cell_pos) == 'cpu':
         return cell_pair_plane_plain(cell_pos, cell_dim, cell_shift,
-                                     params_vec, cell_tag=cell_tag)
+                                     params_vec, cell_tag=cell_tag,
+                                     eval_name=eval_name, pnames=pnames)
     _require_cuda_inputs(cell_tag, cell_shift, params_vec)
     lib = _kernel_lib()
     pos = cell_pos.contiguous().float()
@@ -388,7 +447,8 @@ def cell_pair_plane(cell_pos, cell_dim, cell_shift, params_vec, *, C,
     nx, ny, nz = cell_dim
     err = lib.lib.hoomd_cell_pair_plane(
         pos.data_ptr(), 3, 1, tag.data_ptr(), sh.data_ptr(), par.data_ptr(),
-        out.data_ptr(), 3, 1, nx, ny, nz, C, approx, _stream(pos))
+        len(pnames), out.data_ptr(), 3, 1, nx, ny, nz, C, ev, approx,
+        _stream(pos))
     lib.check(err, 'cell_pair_plane')
     cell_pair_plane.launches += 1
     return out
@@ -398,14 +458,16 @@ cell_pair_plane.launches = 0
 
 
 def cell_pair_planar(cell_pos, cell_dim, cell_shift, params_vec, *, C,
-                     cell_tag):
+                     cell_tag, eval_name='lj', pnames=LJ_PNAMES):
     """Forces, per-particle PE (1/2 per pair) and the 6-component virial
-    (1/2 per pair, order xx, xy, xz, yy, yz, zz) of the single-type LJ
-    stencil."""
-    _check_pair_args(cell_pos, cell_tag, cell_dim, cell_shift, params_vec, C)
+    (1/2 per pair, order xx, xy, xz, yy, yz, zz) of the single-type
+    stencil of the pair evaluator ``eval_name`` (exact divide)."""
+    ev = _check_pair_args(cell_pos, cell_tag, cell_dim, cell_shift,
+                          params_vec, C, eval_name, pnames)
     if _device_of(cell_pos) == 'cpu':
         return cell_pair_planar_plain(cell_pos, cell_dim, cell_shift,
-                                      params_vec, cell_tag=cell_tag)
+                                      params_vec, cell_tag=cell_tag,
+                                      eval_name=eval_name, pnames=pnames)
     _require_cuda_inputs(cell_tag, cell_shift, params_vec)
     lib = _kernel_lib()
     pos = cell_pos.contiguous().float()
@@ -419,8 +481,8 @@ def cell_pair_planar(cell_pos, cell_dim, cell_shift, params_vec, *, C,
     nx, ny, nz = cell_dim
     err = lib.lib.hoomd_cell_pair_planar(
         pos.data_ptr(), 3, 1, tag.data_ptr(), sh.data_ptr(), par.data_ptr(),
-        F.data_ptr(), pe.data_ptr(), vir.data_ptr(), nx, ny, nz, C,
-        _stream(pos))
+        len(pnames), F.data_ptr(), pe.data_ptr(), vir.data_ptr(), nx, ny, nz,
+        C, ev, _stream(pos))
     lib.check(err, 'cell_pair_planar')
     cell_pair_planar.launches += 1
     return F, pe, vir
@@ -434,7 +496,8 @@ _METHODS = {'nve': 0, 'nvt': 1, 'langevin': 2}
 def cell_megastep_planes(gp, gv, gf, gw, gm, gr, cell_dim, cell_shift,
                          params_vec, dt, kt_table, xi, eta, skin, *, C, k,
                          method, gt, recip='approx', ndof=1.0, tau_inv2=0.0,
-                         gamma=0.0, gn=None):
+                         gamma=0.0, gn=None, eval_name='lj',
+                         pnames=LJ_PNAMES):
     """k fused velocity-Verlet steps on plane-layout state.
 
     gp/gv/gf/gr (3, nz, ny, nx, C); gw = 1/m and gm = m (nz, ny, nx, C);
@@ -442,10 +505,12 @@ def cell_megastep_planes(gp, gv, gf, gw, gm, gr, cell_dim, cell_shift,
     kt_table (k,) per-step kT; xi/eta the Nose-Hoover scalars; skin a
     scalar or per-axis (3,) Verlet skin.  method 'langevin' takes gamma
     and gn, the (k, 3, nz, ny, nx, C) amplitude-scaled noise planes.
-    Returns (pos, vel, frc, xi, eta, danger, ke2, mdmax) as in the JAX
-    package: danger is mdmax > 1, mdmax the largest normalised drift
-    ratio ((d1 + d2) / skin_a)^2 of the window.  recip='approx' takes
-    the fast reciprocal on the card, 'div' the exact divide."""
+    Forces from the pair evaluator ``eval_name``, params_vec = [rc2,
+    e_shift, *pnames].  Returns (pos, vel, frc, xi, eta, danger, ke2,
+    mdmax) as in the JAX package: danger is mdmax > 1, mdmax the largest
+    normalised drift ratio ((d1 + d2) / skin_a)^2 of the window.
+    recip='approx' takes the fast reciprocal on the card (lj only), 'div'
+    the exact divide."""
     approx = _recip_flag(recip)
     if method not in _METHODS:
         raise NotImplementedError(f"megastep method {method!r}")
@@ -460,11 +525,13 @@ def cell_megastep_planes(gp, gv, gf, gw, gm, gr, cell_dim, cell_shift,
     if method == 'langevin':
         shapes['gn'] = (gn, (k,) + p5)
     _check_shapes(C, **shapes)
+    ev = _eval_id(eval_name, pnames, params_vec)
     if _device_of(gp) == 'cpu':
         return cell_megastep_planes_plain(
             gp, gv, gf, gw, gm, gr, cell_dim, cell_shift, params_vec, dt,
             kt_table, xi, eta, skin, C=C, k=k, method=method, gt=gt,
-            ndof=ndof, tau_inv2=tau_inv2, gamma=gamma, gn=gn)
+            ndof=ndof, tau_inv2=tau_inv2, gamma=gamma, gn=gn,
+            eval_name=eval_name, pnames=pnames)
     _require_cuda_inputs(gv, gf, gw, gm, gr, gt, cell_shift, params_vec)
     lib = _kernel_lib()
     dev = gp.device
@@ -484,9 +551,10 @@ def cell_megastep_planes(gp, gv, gf, gw, gm, gr, cell_dim, cell_shift,
             dev, non_blocking=True)
     else:
         dts, ti2, gam, nd = (_as_scalar(x, p) for x in host)
-    pv = params_vec.to(f32)
-    mp = torch.stack([pv[0], pv[2], pv[3], dts, ti2, it3[0], it3[1],
-                      it3[2], gam, nd]).contiguous()
+    # mp = [dt, tinv2, it_x, it_y, it_z, gamma, ndof, rc2, e_shift,
+    # *pnames] (csrc/cell_pair.cu)
+    mp = torch.cat([torch.stack([dts, ti2, it3[0], it3[1], it3[2], gam,
+                                 nd]), params_vec.to(f32).reshape(-1)])
     z = torch.zeros((), dtype=f32, device=dev)
     sc = torch.stack([_as_scalar(xi, p), _as_scalar(eta, p), z,
                       z]).contiguous()
@@ -500,16 +568,73 @@ def cell_megastep_planes(gp, gv, gf, gw, gm, gr, cell_dim, cell_shift,
     err = lib.lib.hoomd_megastep(
         p.data_ptr(), v.data_ptr(), f.data_ptr(), w.data_ptr(), m.data_ptr(),
         r.data_ptr(), tag.data_ptr(), sh.data_ptr(), mp.data_ptr(),
-        sc.data_ptr(), kt.data_ptr(),
+        len(pnames), sc.data_ptr(), kt.data_ptr(),
         noise.data_ptr() if noise is not None else None,
         dpart.data_ptr(), kpart.data_ptr(), nx, ny, nz, C, int(k),
-        _METHODS[method], approx, _stream(p))
+        _METHODS[method], ev, approx, _stream(p))
     lib.check(err, 'cell_megastep_planes')
     cell_megastep_planes.launches += 1
     return p, v, f, sc[0], sc[1], sc[3] > 1.0, sc[2], sc[3]
 
 
 cell_megastep_planes.launches = 0
+
+
+def cell_step_plane_planes(gp, gv, gf, gw, gr, cell_dim, cell_shift,
+                           params_vec, dt, s, *, C, gt, eval_name='lj',
+                           pnames=LJ_PNAMES, recip='approx'):
+    """One fused velocity-Verlet step on plane-layout state
+    (pallas_pair.py cell_step_plane_planes).
+
+    gp/gv/gf/gr (3, nz, ny, nx, C); gw = 1/m and gt the tag planes (nz,
+    ny, nx, C); params_vec = [rc2, e_shift, *pnames] of the pair
+    evaluator ``eval_name``; dt the timestep (a float); s the thermostat
+    scale (exp(-dt/2 xi) for NVT, 1 for NVE; a 0-d tensor stays on the
+    device).  Every slot drifts, x' = x + dt (s v + dt/2 f/m); the force
+    is the 27-cell stencil at the drifted positions; the kick is v' =
+    s (vh + dt/2 F/m).  Returns (gp', gv', gf', ke2, md2): ke2 = sum m
+    v'^2, md2 = max |x' - gr|^2, 0-d.  The outputs are new tensors: the
+    kernel reads its neighbours' pre-step state while it writes.
+    recip='approx' takes the fast reciprocal on the card (lj only)."""
+    approx = _recip_flag(recip)
+    nx, ny, nz = cell_dim
+    nc = nx * ny * nz
+    p5, p4 = (3, nz, ny, nx, C), (nz, ny, nx, C)
+    _check_shapes(C, gp=(gp, p5), gv=(gv, p5), gf=(gf, p5), gr=(gr, p5),
+                  gw=(gw, p4), gt=(gt, p4),
+                  cell_shift=(cell_shift, (nc, 27, 3)))
+    ev = _eval_id(eval_name, pnames, params_vec)
+    if _device_of(gp) == 'cpu':
+        return cell_step_plane_planes_plain(
+            gp, gv, gf, gw, gr, cell_dim, cell_shift, params_vec, dt, s, C=C,
+            gt=gt, eval_name=eval_name, pnames=pnames)
+    _require_cuda_inputs(gv, gf, gw, gr, gt, cell_shift, params_vec)
+    lib = _kernel_lib()
+    f32 = torch.float32
+    p = gp.contiguous().to(f32)
+    v = gv.contiguous().to(f32)
+    f = gf.contiguous().to(f32)
+    w = gw.contiguous().to(f32)
+    r = gr.contiguous().to(f32)
+    tag = gt.contiguous().to(torch.int32)
+    sh = cell_shift.contiguous().to(f32)
+    par = params_vec.contiguous().to(f32)
+    s_t = _as_scalar(s, p).contiguous()
+    po, vo, fo = torch.empty_like(p), torch.empty_like(p), torch.empty_like(p)
+    part = torch.empty((2 * nc,), dtype=f32, device=p.device)
+    out = torch.empty((2,), dtype=f32, device=p.device)
+    err = lib.lib.hoomd_step_plane(
+        p.data_ptr(), v.data_ptr(), f.data_ptr(), w.data_ptr(), r.data_ptr(),
+        tag.data_ptr(), sh.data_ptr(), par.data_ptr(), len(pnames),
+        s_t.data_ptr(), float(np.float32(dt)), po.data_ptr(), vo.data_ptr(),
+        fo.data_ptr(), part.data_ptr(), out.data_ptr(), nx, ny, nz, C, ev,
+        approx, _stream(p))
+    lib.check(err, 'cell_step_plane_planes')
+    cell_step_plane_planes.launches += 1
+    return po, vo, fo, out[0], out[1]
+
+
+cell_step_plane_planes.launches = 0
 
 
 def _lj_args(cell_pos, cell_tag, cell_shift, params):
@@ -634,7 +759,8 @@ def cell_pair_planar_n3l(cell_pos, cell_dim, cell_shift, params_vec, *, C,
     The kernel sums without atomics, in a fixed order (csrc/
     cell_pair_impls.cu), so equal inputs give equal bits; its order is
     not the plain version's, and the two agree to rounding."""
-    _check_pair_args(cell_pos, cell_tag, cell_dim, cell_shift, params_vec, C)
+    _check_pair_args(cell_pos, cell_tag, cell_dim, cell_shift, params_vec, C,
+                     'lj', LJ_PNAMES)
     if _device_of(cell_pos) == 'cpu':
         return cell_pair_planar_n3l_plain(cell_pos, cell_dim, cell_shift,
                                           params_vec, cell_tag=cell_tag)
@@ -656,8 +782,8 @@ def cell_pair_planar_n3l(cell_pos, cell_dim, cell_shift, params_vec, *, C,
 cell_pair_planar_n3l.launches = 0
 
 KERNEL_WRAPPERS = (cell_pair_plane, cell_pair_planar, cell_megastep_planes,
-                   cell_pair_lj, cell_pair_lj_pallas3d, cell_pair_lj_row,
-                   cell_pair_planar_n3l)
+                   cell_step_plane_planes, cell_pair_lj, cell_pair_lj_pallas3d,
+                   cell_pair_lj_row, cell_pair_planar_n3l)
 
 
 def reset_launch_counts():
@@ -673,8 +799,9 @@ def launch_counts():
 # independent reference: the JAX package's XLA formulation, in torch
 
 
-def cell_pair_xla(cell_pos, cell_dim, cell_shift, params_vec):
-    """Roll-and-matmul formulation of the LJ cell-pair computation
+def cell_pair_xla(cell_pos, cell_dim, cell_shift, params_vec, *,
+                  eval_name='lj', pnames=LJ_PNAMES):
+    """Roll-and-matmul formulation of the cell-pair computation
     (pallas_pair.py cell_pair_xla): expanded r^2, padding excluded by
     magnitude and the self pair by r^2 > 1e-3.  Returns (F, pe, vir)."""
     nc, C, _ = cell_pos.shape
@@ -689,7 +816,8 @@ def cell_pair_xla(cell_pos, cell_dim, cell_shift, params_vec):
                 blocks.append(nb.reshape(nc, C, 3) + cell_shift[:, k, None, :])
                 k += 1
     xj = torch.cat(blocks, dim=1)                          # (nc, 27C, 3)
-    rc2, e_shift, p = _lj_params(params_vec)
+    ev = _evaluator(eval_name, pnames)
+    rc2, e_shift, p = pair_eval.params_dict(params_vec, pnames)
     xi = cell_pos
     xi2 = (xi * xi).sum(-1)
     xj2 = (xj * xj).sum(-1)
@@ -698,7 +826,7 @@ def cell_pair_xla(cell_pos, cell_dim, cell_shift, params_vec):
     finite = (xi2[:, :, None] < 1e16) & (xj2[:, None, :] < 1e16)
     valid = (r2 > 1e-3) & (r2 < rc2) & finite
     r2s = torch.where(valid, r2, 1.0)
-    f_raw, e_raw = pair_eval.lj.energy_force(r2s, p)
+    f_raw, e_raw = ev.energy_force(r2s, p)
     fdivr = torch.where(valid, f_raw, 0.0)
     e = torch.where(valid, e_raw - e_shift, 0.0)
     w = fdivr.sum(2)

@@ -1,4 +1,4 @@
-"""Cell-major single-type LJ engine (counterpart of hoomd_tpu/ops/fast_lj.py).
+"""Cell-major single-type pair engine (counterpart of hoomd_tpu/ops/fast_lj.py).
 
 The state lives in cell-major layout (ncells, C, ...): drift, kick and
 thermostat are elementwise on padded slots, forces come from the cell
@@ -21,11 +21,16 @@ Forces come from the force path ``impl`` (HOOMD_TPU_FAST_IMPL, chosen
 by the host), branch by branch as the JAX engine's ``_forces``: 'plane'
 (the default) steps on cell_pair_plane, with the k-step megastep
 (cell_megastep_planes) for whole windows unless the host turned it off
-(HOOMD_TPU_MEGA=off); every other impl runs each step as one_step, on
-its own kernel.  PE and virial, read at chunk boundaries, come from
-cell_pair_planar, but for 'pallas' (its kernel returns them) and
-'pallas3d', 'row' and 'xla' (the XLA formulation, plain torch, as the
-JAX engine computes it outside any kernel).
+(HOOMD_TPU_MEGA=off); with HOOMD_TPU_FUSED=on and NVE or NVT, its single
+steps are fused steps (cell_step_plane_planes, one kernel call each, the
+Nose-Hoover algebra between them on device scalars); every other impl
+runs each step as one_step, on its own kernel.  The pair evaluator
+(``eval_name``, one of pair_eval.FAST_EVALS) rides the kernels of
+'plane', 'planar' and 'xla'; the other impls are LJ only.  PE and
+virial, read at chunk boundaries, come from cell_pair_planar, but for
+'pallas' (its kernel returns them) and 'pallas3d', 'row' and 'xla' (the
+XLA formulation, plain torch, as the JAX engine computes it outside any
+kernel).
 
 Differences from the JAX engine, by design:
   * the loops are plain Python loops around kernel launches, so the host
@@ -47,10 +52,11 @@ import torch
 from .._config import PAD_COORD, int_dtype
 from .. import variant as variant_mod
 from . import hashrng
-from .cell_pair import (build_cell_shifts, cell_megastep_planes,
+from .cell_pair import (LJ_PNAMES, build_cell_shifts, cell_megastep_planes,
                         cell_pair_lj, cell_pair_lj_pallas3d, cell_pair_lj_row,
                         cell_pair_plane, cell_pair_planar,
-                        cell_pair_planar_n3l, cell_pair_xla)
+                        cell_pair_planar_n3l, cell_pair_xla,
+                        cell_step_plane_planes)
 from .cell_rebin import cell_rebin_plane, cell_rebin_xsel
 
 # the force paths of HOOMD_TPU_FAST_IMPL (hoomd_tpu/ops/fast_lj.py _forces)
@@ -80,7 +86,8 @@ class FastCarry:
     rebin_ovf: torch.Tensor  # () bool sticky: an xsel transient stage or a
                              # migration buffer overflowed
     rebin_lost: torch.Tensor  # () bool sticky: an xsel rebuild lost a
-                              # particle; either flag makes the host retry
+                              # particle with no stage overflowing; either
+                              # flag makes the host retry
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
@@ -162,21 +169,30 @@ def plan_fast_lj(N, box_L, rcut, r_buff, conservative=False, frac=None):
 
 def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
                         method_seed, k_rebuild=4, rebin_impl='sort',
-                        rebin_E=8, impl='plane', mega=True, device='cpu'):
+                        rebin_E=8, impl='plane', mega=True, fused=False,
+                        eval_name='lj', pnames=LJ_PNAMES, device='cpu'):
     """Returns (to_fast, refresh_forces, run, to_state).
 
     rebin_impl: 'sort', 'xsel' or 'pallas' (the migration sweep and place
     with rebin_E emigrant slots per cell face).  impl: the force path, one
     of FAST_IMPLS; mega: run whole k-step windows on the megastep kernel
-    (only with impl 'plane').
+    (only with impl 'plane'); fused: run single steps as fused steps
+    (only with impl 'plane' and nve or nvt; the megastep, where it runs,
+    still takes the windows, as in the JAX engine).  eval_name / pnames:
+    the pair evaluator and its parameter order (pair_eval.kernel_pnames).
 
-    dyn layout: {'pv': device tensor [rc2, e_shift, lj1, lj2, rcut],
-    'lj': device tensor [lj1, lj2, rc2, e_shift], 'dt': float, 'kT':
+    dyn layout: {'pv': device tensor [rc2, e_shift, *pnames], 'lj' (lj
+    only): device tensor [lj1, lj2, rc2, e_shift], 'dt': float, 'kT':
     packed variant on the device, 'tau': float, 'gamma': float}."""
     if impl not in FAST_IMPLS:
         raise ValueError(f"force impl (HOOMD_TPU_FAST_IMPL) {impl!r} is not "
                          f"one of {', '.join(FAST_IMPLS)}")
     use_mega = mega and impl == 'plane'
+    # hoomd_tpu/ops/fast_lj.py:692-695: the fused single step serves the
+    # windows only with the megastep off, and the head and tail single
+    # steps whenever it holds
+    use_fused = fused and impl == 'plane' and method_kind in ('nve', 'nvt')
+    ev_kw = dict(eval_name=eval_name, pnames=pnames)
     idt = int_dtype()
     fdt = torch.float32
     dev = torch.device(device)
@@ -189,6 +205,9 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
     # earns its own danger budget (the real slack of the cell width)
     skin3_np = np.maximum(L_np / np.asarray(cell_dim, float) - rcut, r_buff)
     skin3 = torch.as_tensor(skin3_np, dtype=fdt, device=dev)
+    # the fused step's scalar skin (hoomd_tpu/ops/fast_lj.py:274-275): its
+    # danger check is max |x - ref|^2 > (skin / 2)^2, not the per-axis one
+    skin = max(float(min(L_np / np.asarray(cell_dim, float)) - rcut), r_buff)
     inv_thr3 = 1.0 / (0.5 * skin3) ** 2
     adj_np, shift_np = build_cell_shifts(cell_dim, L_np)
     adj = torch.as_tensor(adj_np, dtype=torch.int32, device=dev)
@@ -257,7 +276,8 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
             frc = kfn(pos, cell_dim, shifts, dyn['lj'], C=C, cell_tag=tag)
             if not want_pv:
                 return frc
-            _, pe, vir = cell_pair_xla(pos, cell_dim, shifts, dyn['pv'])
+            _, pe, vir = cell_pair_xla(pos, cell_dim, shifts, dyn['pv'],
+                                       **ev_kw)
             return frc, pe, vir
         elif impl == 'planar_n3l' and not want_pv:
             return cell_pair_planar_n3l(pos, cell_dim, shifts, dyn['pv'], C=C,
@@ -266,12 +286,12 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
             # the fast reciprocal under a thermostat, which absorbs its
             # ~1e-4 force error; NVE divides exactly (fast_lj.py:414-425)
             return cell_pair_plane(pos, cell_dim, shifts, dyn['pv'], C=C,
-                                   cell_tag=tag, recip=recip)
+                                   cell_tag=tag, recip=recip, **ev_kw)
         elif impl == 'xla':
-            out = cell_pair_xla(pos, cell_dim, shifts, dyn['pv'])
+            out = cell_pair_xla(pos, cell_dim, shifts, dyn['pv'], **ev_kw)
         else:           # 'planar', and the PE / virial of 'plane', 'n3l'
             out = cell_pair_planar(pos, cell_dim, shifts, dyn['pv'], C=C,
-                                   cell_tag=tag)
+                                   cell_tag=tag, **ev_kw)
         return out if want_pv else out[0]
 
     def _kt(dyn, ts):
@@ -392,7 +412,7 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
                 gp, gv, gf, gw, gm, gr, cell_dim, shifts, dyn['pv'],
                 dyn['dt'], kt, xi, eta, skin3, C=C, k=k, method=method_kind,
                 gt=gt, recip=recip, ndof=ndof, tau_inv2=ti2,
-                gamma=dyn['gamma'], gn=gn)
+                gamma=dyn['gamma'], gn=gn, **ev_kw)
             danger = danger | d
             wmax = torch.maximum(wmax, mdmax)
             ts += k
@@ -403,6 +423,52 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
                          frc=_from_planes(gf), aux=aux, danger=danger,
                          wmax=wmax, timestep=ts, since=c.since + nw * k)
 
+    def fused_steps(c: FastCarry, dyn, m):
+        """m fused velocity-Verlet steps (hoomd_tpu/ops/fast_lj.py:809-858):
+        each one cell_step_plane_planes call on the plane-layout state,
+        the Nose-Hoover algebra between calls on 0-d device tensors.  The
+        danger check is the scalar one, md2 > (skin/2)^2; wmax is not
+        updated."""
+        dt = dyn['dt']
+        gp, gv, gf = _to_planes(c.pos), _to_planes(c.vel), _to_planes(c.frc)
+        gr = _to_planes(c.ref_pos).contiguous()
+        gw = (1.0 / c.mass).reshape(plane4)
+        gt = c.tag.reshape(plane4)
+        ke2 = (c.mass[..., None] * c.vel * c.vel).sum()
+        aux = dict(c.aux)
+        z = torch.zeros((), dtype=fdt, device=dev)
+        xi, eta = aux.get('xi', z), aux.get('eta', z)
+        thr = (0.5 * skin) ** 2
+        nvt = method_kind == 'nvt'
+        if nvt:
+            tau2 = dyn['tau'] ** 2
+            kts = _kt(dyn, torch.arange(c.timestep, c.timestep + m,
+                                        device=dev))
+        s = torch.ones((), dtype=fdt, device=dev)
+        danger = c.danger
+        for i in range(m):
+            if nvt:
+                kT0 = kts[i]
+                xi1 = xi + 0.5 * dt * (ke2 / ndof / kT0 - 1.0) / tau2
+                s = torch.exp(-0.5 * dt * xi1)
+                eta = eta + dt * xi1
+            else:
+                xi1 = xi
+            gp, gv, gf, ke2, md2 = cell_step_plane_planes(
+                gp, gv, gf, gw, gr, cell_dim, shifts, dyn['pv'], dt, s, C=C,
+                gt=gt, recip=recip, **ev_kw)
+            if nvt:
+                xi = xi1 + 0.5 * dt * (ke2 / ndof / kT0 - 1.0) / tau2
+            else:
+                xi = xi1
+            danger = danger | (md2 > thr)
+        if nvt:
+            aux['xi'] = xi
+            aux['eta'] = eta
+        return c.replace(pos=_from_planes(gp), vel=_from_planes(gv),
+                         frc=_from_planes(gf), aux=aux, danger=danger,
+                         timestep=c.timestep + m, since=c.since + m)
+
     def rebuild_carry(c: FastCarry):
         """Re-bin into fresh cell-major layout; forces ride along so the
         next half-kick sees them in slot order.  typ stays on the xsel and
@@ -412,10 +478,12 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
                 c.pos, c.vel, c.frc, c.img, c.tag, c.mass, cell_dim, L_np,
                 C=C)
             # a transient-stage overflow or a lost particle makes THIS
-            # rebuild unusable; it says nothing about C
+            # rebuild unusable; it says nothing about C.  An overflowing
+            # stage drops particles too: a loss counts as the rebin's own
+            # fault (a particle out-ran the window) only without one
             return c.replace(pos=p, vel=v, img=im, tag=t, mass=m, ref_pos=p,
                              frc=f, rebin_ovf=c.rebin_ovf | cap_o,
-                             rebin_lost=c.rebin_lost | lost,
+                             rebin_lost=c.rebin_lost | (lost & ~cap_o),
                              n_rebuilds=c.n_rebuilds + 1, since=0)
         if rebin_impl == 'pallas':
             p, v, f, im, t, m, o = cell_rebin_plane(
@@ -436,13 +504,17 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
             overflow=c.overflow | o, n_rebuilds=c.n_rebuilds + 1, since=0)
 
     def run_steps(c, dyn, m):
+        """m single steps: fused steps where the gate holds, else one_step
+        (fast_lj.py:1056-1060)."""
+        if use_fused:
+            return fused_steps(c, dyn, m)
         for _ in range(m):
             c = one_step(c, dyn)
         return c
 
     def run_wins(c, dyn, nwin, k):
         """nwin windows of k steps: megastep windows, or single steps on
-        the impls that do not ride it (fast_lj.py:1046-1054)."""
+        the paths that do not ride it (fast_lj.py:1046-1054)."""
         if use_mega:
             return mega_windows(c, dyn, nwin, k)
         return run_steps(c, dyn, nwin * k)
@@ -536,6 +608,7 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
             timestep=carry.timestep)
 
     run.mega = use_mega
+    run.fused = use_fused
     run.rebuild = rebuild_carry
     run.wins = run_wins
     run.steps = run_steps

@@ -1,7 +1,8 @@
 """System orchestration: the run loop (counterpart of hoomd_tpu/system.py).
 
-The port runs two engines: the cell-major LJ engine of ops/fast_lj.py
-for MD, and the fused checkerboard sweep of hpmc/ for hard-particle MC
+The port runs two engines: the cell-major pair engine of ops/fast_lj.py
+for MD (one type, one of the ten stencil evaluators of ops/pair_eval.py),
+and the fused checkerboard sweep of hpmc/ for hard-particle MC
 (an HPMC integrator replaces the MD pipeline, as in the JAX package).  A
 configuration outside them raises NotImplementedError naming the first
 gate it failed; there is no general engine to fall back to yet.
@@ -164,7 +165,8 @@ class System:
         self._params_dirty = True
 
     def _build_fast(self, forces, methods):
-        """Gates + construction of the cell-major LJ engine."""
+        """Gates + construction of the cell-major pair engine."""
+        from .ops import pair_eval
         from .ops.cell_pair import MAX_C
         from .ops.fast_lj import build_fast_lj_chunk, plan_fast_lj
 
@@ -190,9 +192,12 @@ class System:
         if np.any(np.asarray(snap.particles.charge) != 0):
             _decline('particle charges')
         f = forces[0]
+        # any single-type, charge/diameter-free evaluator rides the stencil
+        # kernels (hoomd_tpu/system.py FAST_EVALS)
         eval_name = getattr(getattr(f, '_evaluator', None), '__name__', None)
-        if eval_name != 'lj':
-            _decline(f'pair evaluator {eval_name!r} (need lj)')
+        if eval_name not in pair_eval.FAST_EVALS:
+            _decline(f'pair evaluator {eval_name!r} not stencil-eligible '
+                     f'(need one of {", ".join(pair_eval.FAST_EVALS)})')
         if f.mode not in ('none', 'shift'):
             _decline(f'pair shift mode {f.mode!r} (need none/shift)')
         nl = f._nlist
@@ -256,9 +261,20 @@ class System:
         # copied: the kernels here take C up to MAX_C (at the bench plan
         # C = 40, 3C = 120, so no path differs).  The megastep runs only
         # with 'plane' and HOOMD_TPU_MEGA unset or not 'off'
-        # (hoomd_tpu/ops/fast_lj.py:704-707).
+        # (hoomd_tpu/ops/fast_lj.py:704-707).  HOOMD_TPU_FUSED=on runs
+        # single steps as fused steps on 'plane' with nve or nvt
+        # (fast_lj.py:692-695); with the megastep on, only the head and
+        # tail steps of a run.
         impl = os.environ.get('HOOMD_TPU_FAST_IMPL') or 'plane'
         mega = os.environ.get('HOOMD_TPU_MEGA', 'on') != 'off'
+        fused = os.environ.get('HOOMD_TPU_FUSED') == 'on'
+        # the LJ-only kernels host no other evaluator; the JAX package
+        # leaves its fast engine there (hoomd_tpu/system.py:614-617), and
+        # its half stencil's evaluator variant is not ported yet
+        if eval_name != 'lj' and impl in ('pallas', 'pallas3d', 'row',
+                                          'planar_n3l'):
+            _decline(f'HOOMD_TPU_FAST_IMPL={impl} runs the lj evaluator only '
+                     f'(pair evaluator {eval_name!r})')
         # rebuild implementation, by the JAX package's gates
         # (hoomd_tpu/system.py:702-726): below 4096 particles the sort
         # costs next to nothing; the int payload rides the migration and
@@ -276,18 +292,23 @@ class System:
         # emigrant slots per cell face of the migration rebin: 8, widened
         # to 16 by the rebin-overflow retry
         rebin_E = int(self._grow.get('fast_rebin_E', 8))
+        # the kernels' parameter order: the derived tables sorted, then
+        # rcut, as _fast_dyn packs them
+        pnames = pair_eval.kernel_pnames(eval_name)
         to_fast, refresh, run_chunk, to_state = build_fast_lj_chunk(
             N=N, box=box, cell_dim=tuple(cell_dim), C=C, r_buff=r_buff,
             rcut=rcut, method_kind=kind, method_seed=getattr(m, 'seed', 0),
             k_rebuild=k_rebuild, rebin_impl=rebin_impl, rebin_E=rebin_E,
-            impl=impl, mega=mega, device=self.device)
+            impl=impl, mega=mega, fused=fused, eval_name=eval_name,
+            pnames=pnames, device=self.device)
         return {'to_fast': to_fast, 'refresh': refresh,
                 'run_chunk': run_chunk, 'to_state': to_state,
                 'C': C, 'cell_dim': tuple(cell_dim), 'method': m,
                 'kind': kind, 'rcut': rcut, 'k_rebuild': k_rebuild,
                 'skin': skin, 'rebin_impl': rebin_impl, 'rebin_E': rebin_E,
                 'impl': impl, 'mega': run_chunk.mega,
-                'pair_force': f}
+                'fused': run_chunk.fused, 'eval_name': eval_name,
+                'pnames': pnames, 'pair_force': f}
 
     def _reset_cadence(self):
         for key in ('fast_m', 'fast_m_ceil', 'fast_m_pinned', 'fast_k_cap',
@@ -321,12 +342,12 @@ class System:
             _, e_shift = f._evaluator.energy_force(rc2, scal)
         else:
             e_shift = torch.zeros((), dtype=torch.float32, device=dev)
-        pnames = tuple(sorted(fp['tables'].keys())) + ('rcut',)
-        pv = torch.stack([rc2, e_shift] + [scal[k] for k in pnames])
+        pv = torch.stack([rc2, e_shift] + [scal[k] for k in fast['pnames']])
         mp = self._dyn['methods'][0]
-        # 'lj': the LJ-only kernels' parameter order
-        out = {'pv': pv, 'dt': self._dyn['dt'],
-               'lj': torch.stack([scal['lj1'], scal['lj2'], rc2, e_shift])}
+        out = {'pv': pv, 'dt': self._dyn['dt']}
+        if fast['eval_name'] == 'lj':
+            # the LJ-only kernels' parameter order
+            out['lj'] = torch.stack([scal['lj1'], scal['lj2'], rc2, e_shift])
         if fast['kind'] in ('langevin', 'nvt'):
             out['kT'] = mp['kT']
         else:

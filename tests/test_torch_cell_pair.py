@@ -231,22 +231,26 @@ def test_plain_megastep_danger_matches_jax():
     np.testing.assert_allclose(t[7], j[7], rtol=1e-4)
 
 
-def test_wrappers_reject_other_evaluators_and_oversized_cells():
-    """The kernels evaluate LJ only: the System, where the configuration
-    is decided, declines any other pair evaluator before a wrapper is
-    reached.  The wrappers decline a cell capacity above MAX_C and a
-    reciprocal mode other than 'div'/'approx'."""
+@pytest.mark.parametrize('other_name', ['zbl', 'slj', 'ewald'])
+def test_wrappers_reject_other_evaluators_and_oversized_cells(other_name):
+    """The kernels evaluate the ten stencil evaluators only: the System,
+    where the configuration is decided, declines any other pair
+    evaluator (those of the JAX package that need diameters or charges)
+    before a wrapper is reached.  The wrappers decline a cell capacity
+    above MAX_C and a reciprocal mode other than 'div'/'approx'."""
     import types
     import hoomd_tpu_torch as th
     th.context.initialize('--mode=cpu --notice-level=0')
     try:
         th.init.read_snapshot(th.data.make_snapshot(8, th.data.boxdim(L=8.0)))
-        other = type('gauss', (th.md.pair.lj,),
-                     {'_evaluator': types.SimpleNamespace(__name__='gauss')})
+        other = type(other_name, (th.md.pair.lj,), {
+            '_evaluator': types.SimpleNamespace(__name__=other_name)})
         other(r_cut=2.5, nlist=th.md.nlist.cell())
         th.md.integrate.mode_standard(dt=0.005)
         th.md.integrate.nve(group=th.group.all())
-        with pytest.raises(NotImplementedError, match="evaluator 'gauss'"):
+        with pytest.raises(NotImplementedError,
+                           match=f"evaluator '{other_name}' not "
+                                 f"stencil-eligible"):
             th.run(1, quiet=True)
     finally:
         th.context.current = None

@@ -189,7 +189,7 @@ def test_port_imports_no_jax():
 
 
 def _lj_script(types=('A',), charge=0.0, mode='shift', tilt=0.0,
-               group='all'):
+               group='all', pair='lj'):
     snap = th.data.make_snapshot(64, th.data.boxdim(Lx=8.0, Ly=8.0, Lz=8.0,
                                                     xy=tilt),
                                  particle_types=list(types))
@@ -200,7 +200,7 @@ def _lj_script(types=('A',), charge=0.0, mode='shift', tilt=0.0,
     snap.particles.charge[:] = charge
     th.init.read_snapshot(snap)
     nl = th.md.nlist.cell(r_buff=0.4)
-    lj = th.md.pair.lj(r_cut=2.5, nlist=nl)
+    lj = getattr(th.md.pair, pair)(r_cut=2.5, nlist=nl)
     lj.pair_coeff.set(list(types), list(types), epsilon=1.0, sigma=1.0)
     lj.set_params(mode=mode)
     th.md.integrate.mode_standard(dt=0.005)
@@ -214,8 +214,14 @@ def _lj_script(types=('A',), charge=0.0, mode='shift', tilt=0.0,
     (dict(mode='xplor'), "shift mode 'xplor'"),
     (dict(tilt=0.1), 'non-orthorhombic'),
     (dict(group='tags'), 'group.all()'),
-])
-def test_configs_outside_the_slice_raise(torch_ctx, kw, gate):
+] + [(dict(pair='gauss', impl=impl),
+      f"HOOMD_TPU_FAST_IMPL={impl} runs the lj evaluator only")
+     for impl in ('row', 'pallas', 'pallas3d', 'planar_n3l')])
+def test_configs_outside_the_slice_raise(torch_ctx, monkeypatch, kw, gate):
+    kw = dict(kw)
+    impl = kw.pop('impl', None)
+    if impl is not None:
+        monkeypatch.setenv('HOOMD_TPU_FAST_IMPL', impl)
     _lj_script(**kw)
     with pytest.raises(NotImplementedError, match=gate.replace('(', r'\(')
                        .replace(')', r'\)')):
