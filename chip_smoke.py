@@ -13,8 +13,21 @@ from the root of the repository.  In order it prints:
      failing past tolerance; the fused step (cell_step_plane_planes) NVE
      and NVT also on a 2x2x2 grid, its drifted positions bit for bit;
   3a. per other pair evaluator (EVAL_JOBS), at the bench fill: the plane,
-     planar and fused-step kernels and one megastep window against their
-     plain versions with the evaluator's ATOL (EVAL_ATOL);
+     planar and fused-step kernels against their plain versions with the
+     evaluator's ATOL (EVAL_ATOL);
+  3b. the megastep (megastep_phases) at the bench, ragged and 2x2x2
+     shapes: its candidate set (counts, lists) against the plain
+     builder bit for bit, with its build time; for LJ and each other
+     evaluator, nve, nvt and langevin, k = 1 and 4, one window against
+     the plain megastep; for LJ also a window at the edge of the drift
+     guard (every pair inside r_cut a candidate) and one past it (equal
+     danger flags); two runs of every LJ window at the bench shape equal
+     bit for bit, and equal to a window whose lists overflow.  Where a copy of the parent's cell_pair.cu lies under
+     scratch/parent_megastep (an ignored directory; a checkout has none),
+     parent_megastep_phase builds it under another name and holds the
+     parent's megastep against the new one bit for bit and in turns by
+     time.  Then the torch calls the engine issues per window
+     (window_torch_calls);
   4. one phase per rebin kernel (cell_rebin_select, cell_rebin_sweep,
      cell_rebin_place, cell_rebin_serial): the kernel against its plain
      torch version bit for bit, slot for slot, with equal overflow flags,
@@ -36,8 +49,10 @@ from the root of the repository.  In order it prints:
      cell_pair_planar's;
   6. the bench.py job script (64k LJ, Langevin melt then Nose-Hoover NVT)
      through ``import hoomd_tpu_torch as hoomd`` on --mode=gpu, on its
-     default rebin (xsel at this N), with all three launch counters > 0,
-     finite output, T = 1.2 +- 0.03 and PE/N in [-4.80, -4.60]; then the
+     default rebin (xsel at this N), with all three launch counters > 0
+     and a candidate set built, finite output, T = 1.2 +- 0.03 and PE/N
+     in [-4.80, -4.60], its busy share over 1024 profiled steps and the
+     device time of its megastep windows and rebuild cycle; then the
      same script to the melt plus 1000 NVT steps with HOOMD_TPU_REBIN=pallas
      (the sweep and place kernels launched) and =off (the sort), each with
      the same gates and its rebuild and retry counts; then the op's three
@@ -273,7 +288,6 @@ def kernel_phases(dev):
         _, sh = cp.build_cell_shifts(cdim, L)
         sh = torch.as_tensor(sh, dtype=torch.float32, device=dev)
         pos, tag = carry.pos, carry.tag
-        nx, ny, nz = cdim
         iters = 50 if tag_name == 'bench' else 5
         piters = 3 if tag_name == 'bench' else 1
         row = {}
@@ -303,69 +317,6 @@ def kernel_phases(dev):
         row['cell_pair_planar'] = dict(max_abs_err=ea, bound_share=er,
                                        ms=cuda_ms(k_planar, iters),
                                        plain_ms=cuda_ms(p_planar, piters))
-        # ---- cell_megastep_planes: NVT and Langevin windows of one
-        # step and of k = 4 steps, the main path's window
-        plane4 = (nz, ny, nx, C)
-
-        def planes(a):
-            return a.reshape(nz, ny, nx, C, 3).permute(4, 0, 1, 2,
-                                                       3).contiguous()
-
-        def plain_force_planes(gpos):
-            cells = gpos.permute(1, 2, 3, 4, 0).reshape(-1, C, 3)
-            return planes(cp.cell_pair_plane_plain(cells, cdim, sh, pv,
-                                                   cell_tag=tag))
-        frc = cp.cell_pair_plane_plain(pos, cdim, sh, pv, cell_tag=tag)
-        gp, gv, gf = planes(pos), planes(carry.vel), planes(frc)
-        gm = carry.mass.reshape(plane4)
-        gw = 1.0 / gm
-        gt = tag.reshape(plane4)
-        skin = torch.as_tensor(np.maximum(L / np.asarray(cdim) - 2.5, 0.4),
-                               dtype=torch.float32, device=dev)
-        gen = torch.Generator(device=dev).manual_seed(5)
-        gn = (torch.rand((4, 3) + plane4, generator=gen, device=dev) * 2
-              - 1) * 8.0 * (gt >= 0)
-        xi0 = torch.tensor(0.1, device=dev)
-        eta0 = torch.tensor(0.0, device=dev)
-        worst = (0.0, 0.0)
-        for k in (1, 4):
-            args = (gp, gv, gf, gw, gm, gp, cdim, sh, pv, 0.005,
-                    torch.full((k,), 1.2, device=dev), xi0, eta0, skin)
-            for method in ('nvt', 'langevin'):
-                kw = dict(C=C, k=k, method=method, gt=gt, ndof=3.0 * N,
-                          tau_inv2=4.0, gamma=GAMMA,
-                          gn=gn[:k] if method == 'langevin' else None)
-
-                def k_mega():
-                    return cp.cell_megastep_planes(*args, recip='approx',
-                                                   **kw)
-
-                def p_mega():
-                    return cp.cell_megastep_planes_plain(*args, **kw)
-                got, want = k_mega(), p_mega()
-                name = f'cell_megastep_planes[{tag_name},{method},k={k}]'
-                if bool(got[5]) != bool(want[5]):
-                    raise RuntimeError(f"{name}: danger flags differ")
-                # the stencil part of the last step's force: Langevin
-                # adds the noise and the drag on the half-kicked velocity
-                f_stencil = got[2]
-                if method == 'langevin':
-                    v_half = got[1] - 0.5 * 0.005 * got[2] * gw
-                    f_stencil = got[2] - gn[k - 1] + GAMMA * v_half
-                ea, er = compare(name, [
-                    ('pos', got[0], want[0], 0.0, POS_TOL),
-                    ('frc at its own positions', f_stencil,
-                     plain_force_planes(got[0]), RTOL, ATOL)] + [
-                    (lab, got[i], want[i], RTOL, ATOL) for i, lab in
-                    ((1, 'vel'), (3, 'xi'), (4, 'eta'), (6, 'ke2'),
-                     (7, 'mdmax'))])
-                worst = (max(worst[0], ea), max(worst[1], er))
-                if method == 'nvt' and k == 4:
-                    t_k = cuda_ms(k_mega, max(iters // 5, 2))
-                    t_p = cuda_ms(p_mega, 1)
-        row['cell_megastep_planes'] = dict(max_abs_err=worst[0],
-                                           bound_share=worst[1], ms=t_k,
-                                           plain_ms=t_p)
         for kname, r in row.items():
             print(f"phase {kname} [{tag_name} cell_dim={cdim} C={C} N={N}]: "
                   f"max_abs_err={r['max_abs_err']:.3e} "
@@ -528,9 +479,9 @@ def eval_params(name, dev):
 
 def eval_kernel_phases(dev):
     """Per evaluator, at the bench fill: cell_pair_plane,
-    cell_pair_planar, cell_step_plane_planes (NVE) and one k = 4 NVT
-    megastep window against their plain versions, element by element
-    with the evaluator's ATOL, and each kernel's CUDA-event time."""
+    cell_pair_planar and cell_step_plane_planes (NVE) against their plain
+    versions, element by element with the evaluator's ATOL, and each
+    kernel's CUDA-event time (the megastep's: megastep_phases)."""
     import torch
     from hoomd_tpu_torch.ops import cell_pair as cp
     dims, cdim, C = SHAPES['bench']
@@ -538,8 +489,6 @@ def eval_kernel_phases(dev):
     _, sh = cp.build_cell_shifts(cdim, L)
     sh = torch.as_tensor(sh, dtype=torch.float32, device=dev)
     pos, tag = carry.pos, carry.tag
-    skin = torch.as_tensor(np.maximum(L / np.asarray(cdim) - 2.5, 0.4),
-                           dtype=torch.float32, device=dev)
     rows = {}
     for name in EVAL_JOBS:
         pv, pn, f_edge = eval_params(name, dev)
@@ -549,12 +498,6 @@ def eval_kernel_phases(dev):
         one = torch.ones((), device=dev)
         sargs = (st['gp'], st['gv'], st['gf'], st['gw'], st['gr'], cdim, sh,
                  pv, 0.005, one)
-        margs = (st['gp'], st['gv'], st['gf'], st['gw'], st['gm'], st['gp'],
-                 cdim, sh, pv, 0.005, torch.full((4,), 1.2, device=dev),
-                 torch.tensor(0.1, device=dev), torch.tensor(0.0, device=dev),
-                 skin)
-        mkw = dict(C=C, k=4, method='nvt', gt=st['gt'], ndof=3.0 * N,
-                   tau_inv2=4.0, **ek)
         calls = {
             'cell_pair_plane': (
                 lambda: cp.cell_pair_plane(pos, cdim, sh, pv, C=C,
@@ -571,9 +514,6 @@ def eval_kernel_phases(dev):
                                                   recip='div', **ek),
                 lambda: cp.cell_step_plane_planes_plain(*sargs, C=C,
                                                         gt=st['gt'], **ek)),
-            'cell_megastep_planes': (
-                lambda: cp.cell_megastep_planes(*margs, recip='div', **mkw),
-                lambda: cp.cell_megastep_planes_plain(*margs, **mkw)),
         }
         row = {}
         for kname, (kern, plain) in calls.items():
@@ -581,20 +521,6 @@ def eval_kernel_phases(dev):
             label = f'{kname}[{name}]'
             if kname == 'cell_step_plane_planes':
                 ea, _ = check_step(label, got, want, RTOL, atol)
-            elif kname == 'cell_megastep_planes':
-                if bool(got[5]) != bool(want[5]):
-                    raise RuntimeError(f"{label}: danger flags differ")
-                f_own = cp.cell_pair_plane_plain(
-                    got[0].permute(1, 2, 3, 4, 0).reshape(-1, C, 3), cdim,
-                    sh, pv, cell_tag=tag, **ek)
-                ea, _ = compare(label, [
-                    ('pos', got[0], want[0], 0.0, POS_TOL),
-                    ('frc at its own positions',
-                     got[2].permute(1, 2, 3, 4, 0).reshape(-1, C, 3), f_own,
-                     RTOL, atol)] + [
-                    (lab, got[i], want[i], RTOL, atol) for i, lab in
-                    ((1, 'vel'), (3, 'xi'), (4, 'eta'), (6, 'ke2'),
-                     (7, 'mdmax'))])
             else:
                 if not isinstance(got, tuple):
                     got, want = (got,), (want,)
@@ -609,6 +535,611 @@ def eval_kernel_phases(dev):
                   f"{k} {r['ms']:.4f} ms (max_abs_err {r['max_abs_err']:.3e})"
                   for k, r in row.items()), flush=True)
     return rows
+
+
+# ---------------------------------------------------------------------------
+# the megastep and its candidate set
+
+# A window's velocities (and xi, eta, ke2, mdmax) against the plain
+# window's: the two sides' positions part by an ulp (the kernel's drift
+# contracts to FMA, the plain version's separate ops do not), and a pair
+# within an ulp of r_cut is then in on one side and out on the other: it
+# moves a velocity by dt/2 |F(r_cut)|, 3e-4 for moliere at dt = 0.005
+# (its |F| at r_cut ~0.1), far above its force ATOL (2e-5), which holds
+# forces compared at the same positions.  So the window's outputs take
+# ATOL (1e-3) for every evaluator, and the forces, compared at the
+# positions the kernel reached, keep the evaluator's ATOL.  The window PR
+# 5 checked (NVT, k = 4, at the bench fill) keeps the evaluator's ATOL
+# throughout.  Measured: moliere's float32 stencil at the bench fill
+# differs from float64 by 0.095 on one force (a pair at r_cut), the
+# parent kernel and the new one by no bit.
+MEGA_OUT_ATOL = ATOL
+GUARD_FRAC = 0.999       # the guard-edge window's drift, of each axis' skin
+GUARD_PAIRS = 400        # pairs it moves at most, 4 per cell
+GUARD_DT = 1e-4          # its step: a particle 0.8 from another moves less
+                         # than 1e-5 in 4 steps, within the guard's slack
+WIDE_SKIN = 4.0          # skins whose candidates overflow the lists
+
+
+def guard_edge_state(st, cdim, C, sh, skin, rc, seed):
+    """The plane state of ``st`` with its positions drifted from the
+    reference planes gr to the edge of the megastep's guard: disjoint
+    pairs outside r_cut at the reference, whose bound lets them come
+    inside (0.8 - 0.98 r_cut^2), each moved toward the other by
+    GUARD_FRAC / 2 of each axis' skin, so the two largest drifts of an
+    axis sum to GUARD_FRAC of its skin; a move that would bring either
+    particle within 0.8 of another is not made.  The moved particles are
+    at rest.  Returns the new state and the number of pairs moved."""
+    import torch
+    from hoomd_tpu_torch.ops import cell_pair as cp
+    nx, ny, nz = cdim
+    nc = nx * ny * nz
+    gr = st['gr'].permute(1, 2, 3, 4, 0).reshape(nc, C, 3).cpu().numpy()
+    pos = gr.copy()
+    live = (st['gt'].reshape(nc, C) >= 0).cpu().numpy()
+    adj = cp._adjacency_np(tuple(cdim))
+    shn = sh.cpu().numpy()
+    step = (np.float32(0.5 * GUARD_FRAC)
+            * np.asarray(skin.cpu(), np.float32).reshape(3))
+    rng = np.random.RandomState(seed)
+    moved = np.zeros((nc, C), bool)
+    rc2 = rc * rc
+
+    def crowded(c, i):
+        nb = (pos[adj[c]] + shn[c][:, None, :]).reshape(-1, 3)
+        dd = nb[live[adj[c]].reshape(-1)] - pos[c, i]
+        r2 = np.sort((dd * dd).sum(-1))
+        return r2[1] < 0.64                 # r2[0]: the particle itself
+
+    npairs = 0
+    for c in rng.permutation(nc):
+        if npairs >= GUARD_PAIRS:
+            break
+        dr = pos[c][:, None, None, :] - (pos[adj[c]]
+                                         + shn[c][:, None, :])[None]
+        m = np.maximum(np.abs(dr) - 2 * step, 0)
+        lb = (m * m).sum(-1)
+        ok = (((dr * dr).sum(-1) >= rc2) & (lb >= 0.8 * rc2)
+              & (lb < 0.98 * rc2) & live[c][:, None, None]
+              & live[adj[c]][None])
+        in_cell = 0
+        for i, k, j in np.argwhere(ok)[rng.permutation(int(ok.sum()))]:
+            if in_cell == 4 or npairs >= GUARD_PAIRS:
+                break
+            cj = adj[c, k]
+            if moved[c, i] or moved[cj, j] or (cj == c and j == i):
+                continue
+            sgn = np.sign(dr[i, k, j])
+            old = pos[c, i].copy(), pos[cj, j].copy()
+            pos[c, i] -= step * sgn
+            pos[cj, j] += step * sgn
+            if crowded(c, i) or crowded(cj, j):
+                pos[c, i], pos[cj, j] = old
+                continue
+            moved[c, i] = moved[cj, j] = True
+            npairs += 1
+            in_cell += 1
+    dev = st['gp'].device
+    gp = torch.as_tensor(pos, device=dev).reshape(nz, ny, nx, C, 3).permute(
+        4, 0, 1, 2, 3).contiguous()
+    still = torch.as_tensor(moved, device=dev).reshape(nz, ny, nx, C)
+    gv = torch.where(still[None], 0.0, st['gv']).contiguous()
+    return dict(st, gp=gp, gv=gv), npairs
+
+
+def missing_pairs(gp, gr, gt, cdim, sh, pads, rc2, C):
+    """The pairs inside r_cut at gp (the candidate test with no skin: r^2
+    < rc2, rounded as the kernels round it) that the candidate test at
+    the reference gr with pads leaves out."""
+    from hoomd_tpu_torch.ops import cell_pair as cp
+    inside = cp.candidate_keep(gp.contiguous(), gt, cdim, sh,
+                               np.zeros(3, np.float32), rc2, C=C)
+    inside &= ~cp.candidate_keep(gr, gt, cdim, sh, pads, rc2, C=C)
+    return int(inside.sum())
+
+
+def same_candidates(name, cand, plain):
+    """The kernel's candidate set against the plain version's (count,
+    listed): the counts equal, and each slot's list equal as far as it is
+    written."""
+    import torch
+    count, listed = plain
+    if not torch.equal(cand.count, count):
+        raise RuntimeError(f"{name}: the kernel's counts differ from the "
+                           f"plain version's")
+    n = torch.clamp(count, max=cand.cap).long()
+    used = torch.arange(cand.cap, device=n.device)[None, :] < n[:, None]
+    if not torch.equal(torch.where(used, cand.listed, 0), listed):
+        raise RuntimeError(f"{name}: the kernel's candidate lists differ from "
+                           f"the plain version's")
+
+
+def candidates_bound(cand, n_live, sh, C):
+    """Bound of one candidate build: 12 operations per pair it tests
+    (each live slot against its 27 C staged entries: three differences,
+    magnitudes, skins subtracted, clamps, squares and sums, one compare)
+    against the bytes of the reference planes, tags and shifts in and of
+    the written list entries and the counts out."""
+    M = cand.count.numel()
+    written = int(cand.count.clamp(max=cand.cap).sum())
+    nbytes = (3 * M + M) * 4 + sh.numel() * 4 + written * 2 + M * 4
+    return bound(nbytes, 12 * n_live * 27 * C)
+
+
+def visited_bound(cand, pos, tag, cdim, sh, N, k):
+    """A second bound of an LJ megastep window, beside lj_bounds' (which
+    counts every staged pair, as the parent kernel walked them): the
+    candidates the window visits, 8 operations each per step (the r^2
+    test), 15 more per pair inside r_cut and 30 per particle and step,
+    against lj_bounds' bytes plus the candidate lists and counts read."""
+    _, inr = lj_pair_counts(pos, tag, cdim, sh, 2.5)
+    slots = pos.shape[0] * pos.shape[1]
+    P = slots * 4
+    M = cand.count.numel()
+    lists = int(cand.count.clamp(max=cand.cap).sum()) * 2 + M * 4
+    ops = k * (8 * int(cand.count.sum()) + 15 * inr + 30 * N)
+    return bound(15 * P + sh.numel() * 4 + 9 * P + lists, ops)
+
+
+def megastep_phases(dev):
+    """The megastep at the bench, ragged and 2x2x2 shapes.  Per shape:
+    the candidate set of the kernel against its plain version, bit for
+    bit; per pair evaluator, method (nve, nvt, langevin) and k in (1, 4),
+    one window from the plain state (reference 0.02 behind) against the
+    plain megastep, element by element (positions to POS_TOL, forces
+    against the plain stencil at the positions the kernel reached, the
+    rest to RTOL and the evaluator's ATOL), the guard held on both sides;
+    for LJ also the guard-edge window (guard_edge_state), which holds the
+    guard with every pair inside r_cut at its start and end in the
+    candidate set, and a window whose skin of 0.03 trips the guard on
+    both sides (past the trip the kernel walks every staged slot); at the
+    bench shape two runs of every LJ window give equal bits, and so does
+    the window with skins of WIDE_SKIN, whose lists overflow (every slot
+    then walks every staged slot).  Returns the bench row of
+    cell_megastep_planes (ms: one wrapper call of an NVT k = 4 window by
+    CUDA events, the set built beforehand, as the engine builds it once
+    per rebuild; beside it the engine's call, the device time and the
+    bound of the candidates visited) and each evaluator's wrapper ms of
+    that window."""
+    import torch
+    from hoomd_tpu_torch.ops import cell_pair as cp
+    row, eval_ms = None, {}
+    for tag_name, (dims, cdim, C) in SHAPES.items():
+        carry, L, N, _ = lattice_cells(dims, cdim, C, 0.1, 3, dev)
+        _, sh = cp.build_cell_shifts(cdim, L)
+        sh = torch.as_tensor(sh, dtype=torch.float32, device=dev)
+        skin = torch.as_tensor(np.maximum(L / np.asarray(cdim) - 2.5, 0.4),
+                               dtype=torch.float32, device=dev)
+        pads = cp.candidate_pads(skin.cpu().numpy(), L)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        worst = (0.0, 0.0)
+        bench = tag_name == 'bench'
+        for name in ('lj',) + tuple(EVAL_JOBS):
+            if name == 'lj':
+                pv, atol, ek = lj_params(dev)[0], ATOL, {}
+            else:
+                pv, pn, _ = eval_params(name, dev)
+                atol, ek = EVAL_ATOL[name], dict(eval_name=name, pnames=pn)
+            rc2 = float(pv[0])
+            st = plane_state(carry, cdim, C, sh, pv, ek)
+            gt = st['gt'].to(torch.int32).contiguous()
+            plane4 = tuple(gt.shape)
+            gn = ((torch.rand((4, 3) + plane4, generator=gen, device=dev) * 2
+                   - 1) * 8.0 * (gt >= 0))
+            states = [('plain state', st, skin)]
+            if name == 'lj':
+                edge, npairs = guard_edge_state(st, cdim, C, sh, skin, 2.5,
+                                                seed=7)
+                states.append(('guard edge', edge, skin))
+                # a skin far below the drift: the guard trips in the
+                # first step, and the kernel walks every staged slot
+                states.append(('danger', st, torch.full_like(skin, 0.03)))
+            for label, s, s_skin in states:
+                gr = s['gr'].contiguous()
+                s_pads = cp.candidate_pads(s_skin.cpu().numpy(), L)
+                t0 = time.perf_counter()
+                cand = cp.mega_candidates(gr, gt, cdim, sh, s_pads, rc2, C=C)
+                torch.cuda.synchronize()
+                if name == 'lj':
+                    same_candidates(f'mega_candidates[{tag_name},{label}]',
+                                    cand, cp.mega_candidates_plain(
+                                        gr, gt, cdim, sh, s_pads, rc2, C=C))
+                if name == 'lj' and label == 'plain state':
+                    n_live = int((gt >= 0).sum())
+                    per = int(cand.count.sum()) / n_live
+                    ms = cuda_ms(lambda: cp.mega_candidates(
+                        gr, gt, cdim, sh, pads, rc2, C=C), 20 if bench else 3)
+                    print(f"phase mega_candidates [{tag_name} cell_dim={cdim} "
+                          f"C={C} N={N}]: equal to the plain version bit for "
+                          f"bit, lists too; {per:.1f} candidates per live "
+                          f"slot (at most {int(cand.count.max())}) of "
+                          f"{27 * C} staged; {ms:.4f} ms per build (CUDA "
+                          f"events; first call {1e3 * (time.perf_counter() - t0):.1f} "
+                          f"ms)", flush=True)
+                    if bench:
+                        cand_ms = dict(ms=ms, device_ms=device_ms(
+                            lambda: cp.mega_candidates(gr, gt, cdim, sh, pads,
+                                                       rc2, C=C), 10),
+                            per_slot=per)
+                        cand_ms['bound_ms'], cand_ms['bound_by'] = \
+                            candidates_bound(cand, n_live, sh, C)
+                dt = GUARD_DT if label == 'guard edge' else 0.005
+                if label == 'guard edge':
+                    missing = missing_pairs(s['gp'], gr, gt, cdim, sh,
+                                            s_pads, rc2, C)
+                    if missing:
+                        raise RuntimeError(f"guard edge [{tag_name}]: {missing} "
+                                           f"pairs inside r_cut are not "
+                                           f"candidates")
+                for method in ('nve', 'nvt', 'langevin'):
+                    recip = 'div' if method == 'nve' else 'approx'
+                    for k in (1, 4):
+                        args = (s['gp'], s['gv'], s['gf'], s['gw'], s['gm'],
+                                gr, cdim, sh, pv, dt,
+                                torch.full((k,), 1.2, device=dev),
+                                torch.tensor(0.1, device=dev),
+                                torch.tensor(0.0, device=dev), s_skin)
+                        kw = dict(C=C, k=k, method=method, gt=gt,
+                                  ndof=3.0 * N, tau_inv2=4.0, gamma=GAMMA,
+                                  gn=gn[:k] if method == 'langevin' else None,
+                                  **ek)
+
+                        def k_mega():
+                            return cp.cell_megastep_planes(
+                                *args, recip=recip, cand=cand, **kw)
+
+                        def p_mega():
+                            return cp.cell_megastep_planes_plain(*args, **kw)
+                        got, want = k_mega(), p_mega()
+                        lab = (f'cell_megastep_planes[{tag_name},{name},'
+                               f'{label},{method},k={k}]')
+                        if (bool(got[5]) != bool(want[5])
+                                or bool(got[5]) != (label == 'danger')):
+                            raise RuntimeError(f"{lab}: danger flags "
+                                               f"{bool(got[5])} (kernel), "
+                                               f"{bool(want[5])} (plain)")
+                        if name == 'lj' and bench:
+                            again = k_mega()
+                            if not all(torch.equal(a, b)
+                                       for a, b in zip(got, again)):
+                                raise RuntimeError(f"{lab}: two runs differ")
+                        if name == 'lj' and bench and label != 'danger':
+                            # lists that overflow: every slot walks every
+                            # staged slot, to the listed walk's bits (but
+                            # the drift ratio, which the skin scales)
+                            wide = cp.mega_candidates(
+                                gr, gt, cdim, sh, cp.candidate_pads(
+                                    WIDE_SKIN, L), rc2, C=C)
+                            n_over = int((wide.count > wide.cap).sum())
+                            if n_over == 0:
+                                raise RuntimeError(f"{lab}: no list "
+                                                   f"overflowed at skins "
+                                                   f"{WIDE_SKIN}")
+                            full = cp.cell_megastep_planes(
+                                *args[:-1], torch.full_like(s_skin, WIDE_SKIN),
+                                recip=recip, cand=wide, **kw)
+                            if not all(torch.equal(got[i], full[i])
+                                       for i in (0, 1, 2, 3, 4, 6)):
+                                raise RuntimeError(f"{lab}: the walk of every "
+                                                   f"staged slot differs from "
+                                                   f"the listed walk")
+                        if label == 'guard edge':
+                            missing = missing_pairs(got[0], gr, gt, cdim, sh,
+                                                    s_pads, rc2, C)
+                            if missing:
+                                raise RuntimeError(
+                                    f"{lab}: {missing} pairs inside r_cut "
+                                    f"are not candidates")
+                        # the stencil part of the last step's force:
+                        # Langevin adds the noise and the drag on the
+                        # half-kicked velocity
+                        f_st = got[2]
+                        if method == 'langevin':
+                            v_half = got[1] - 0.5 * dt * got[2] * s['gw']
+                            f_st = got[2] - gn[k - 1] + GAMMA * v_half
+                        f_own = cp.cell_pair_plane_plain(
+                            got[0].permute(1, 2, 3, 4, 0).reshape(-1, C, 3),
+                            cdim, sh, pv, cell_tag=carry.tag, **ek)
+                        # the window's other outputs: PR 5's window (NVT,
+                        # k = 4, the bench fill) to the evaluator's ATOL,
+                        # the others to MEGA_OUT_ATOL
+                        pr5 = (bench and method == 'nvt' and k == 4
+                               and label == 'plain state')
+                        out_atol = atol if pr5 else max(atol, MEGA_OUT_ATOL)
+                        ea, er = compare(lab, [
+                            ('pos', got[0], want[0], 0.0, POS_TOL),
+                            ('frc at its own positions',
+                             f_st.permute(1, 2, 3, 4, 0).reshape(-1, C, 3),
+                             f_own, RTOL, atol)] + [
+                            (lb, got[i], want[i], RTOL, out_atol)
+                            for i, lb in
+                            ((1, 'vel'), (3, 'xi'), (4, 'eta'), (6, 'ke2'),
+                             (7, 'mdmax'))])
+                        if name == 'lj':
+                            worst = (max(worst[0], ea), max(worst[1], er))
+                        if (bench and method == 'nvt' and k == 4
+                                and label == 'plain state'):
+                            eval_ms[name] = cuda_ms(k_mega, 20)
+                            if name == 'lj':
+                                t_p = cuda_ms(p_mega, 1)
+                                eng = engine_window_ms(
+                                    s, gt, cand, cp.MegaWorkspace(
+                                        cdim, C, k, method, sh, pv, dt,
+                                        s_skin, ndof=3.0 * N, tau_inv2=4.0,
+                                        gamma=GAMMA, recip=recip), k)
+                                eng['bound_visited_ms'], _ = visited_bound(
+                                    cand, carry.pos, carry.tag, cdim, sh, N,
+                                    k)
+                                eng['wrapper_torch_calls'] = torch_calls(
+                                    k_mega)
+                if label == 'guard edge':
+                    print(f"guard edge [{tag_name}]: {npairs} pairs moved to "
+                          f"{GUARD_FRAC} of the guard; every window held it, "
+                          f"and every pair inside r_cut at its start and end "
+                          f"is a candidate", flush=True)
+        print(f"phase cell_megastep_planes [{tag_name} cell_dim={cdim} C={C} "
+              f"N={N}]: every evaluator, method and k in (1, 4) within "
+              f"tolerance; LJ max_abs_err={worst[0]:.3e} bound_share="
+              f"{worst[1]:.3f}" + (f"; two runs bit-identical, and the "
+                                   f"walk of every staged slot ({n_over} "
+                                   f"lists overflowed); NVT k = 4 "
+                                   f"window {eval_ms['lj']:.4f} ms per "
+                                   f"wrapper call (CUDA events), plain "
+                                   f"{t_p:.4f} ms" if bench else ''),
+              flush=True)
+        if bench:
+            row = dict(max_abs_err=worst[0], bound_share=worst[1],
+                       ms=eval_ms['lj'], plain_ms=t_p)
+            row['bound_ms'], row['bound_by'] = lj_bounds(
+                carry.pos, carry.tag, cdim, sh, N, 4)['cell_megastep_planes']
+            print("megastep window [bench, lj, nvt, k=4]: " + json.dumps(dict(
+                wrapper_ms=row['ms'], bound_ms=row['bound_ms'], **eng)),
+                flush=True)
+            print(f"mega_candidates at the bench fill: {cand_ms['ms']:.4f} ms "
+                  f"per build (CUDA events), device {cand_ms['device_ms']:.4f} "
+                  f"ms, bound {cand_ms['bound_ms']:.6f} ms "
+                  f"({cand_ms['bound_by']}), {cand_ms['per_slot']:.1f} "
+                  f"candidates per live slot", flush=True)
+    return row, eval_ms
+
+
+def engine_window_ms(s, gt, cand, ws, k):
+    """The main path's call of one megastep window (megastep_window on
+    the engine's prepared planes, workspace and candidate set) from the
+    plane state s, after restoring the start state: CUDA-event ms of
+    restore + window and of the restore alone, and the profiler's device
+    ms of the window kernel."""
+    import torch
+    from hoomd_tpu_torch.ops import cell_pair as cp
+    dev = s['gp'].device
+    bufs = [s[key].clone() for key in ('gp', 'gv', 'gf')]
+    sc0 = torch.tensor([0.1, 0.0, 0.0, 0.0], device=dev)
+    sc = sc0.clone()
+    gw, gm = s['gw'].contiguous(), s['gm'].contiguous()
+    kt = torch.full((k,), 1.2, device=dev)
+
+    def restore():
+        for b, key in zip(bufs, ('gp', 'gv', 'gf')):
+            b.copy_(s[key])
+        sc.copy_(sc0)
+
+    def window():
+        restore()
+        cp.megastep_window(*bufs, gw, gm, gt, cand, ws, sc, kt)
+    return dict(engine_ms=cuda_ms(window, 50), restore_ms=cuda_ms(restore, 50),
+                device_ms=device_ms(window, 10, only='mega_window'))
+
+
+def _engine_at_bench(dev, method):
+    """A megastep program at the bench shape, its carry of the bench fill
+    and its dyn (bench job's LJ, kT = 1.2, tau = 0.5, gamma = 1)."""
+    import torch
+    from hoomd_tpu_torch import lattice
+    from hoomd_tpu_torch.ops.fast_lj import build_fast_lj_chunk
+    from hoomd_tpu_torch.state import state_from_snapshot
+    dims, cdim, C = SHAPES['bench']
+    a = (1.0 / RHO) ** (1.0 / 3.0)
+    snap = lattice.sc(a=a).get_snapshot().replicate(*dims)
+    rng = np.random.RandomState(3)
+    snap.particles.position[:] += rng.uniform(-0.1, 0.1, (snap.particles.N,
+                                                         3)) * a
+    v = rng.normal(0, np.sqrt(1.2), (snap.particles.N, 3))
+    snap.particles.velocity[:] = v - v.mean(0)
+    st = state_from_snapshot(snap, dev)
+    to_fast, refresh, run, _ = build_fast_lj_chunk(
+        N=st.N, box=st.box, cell_dim=cdim, C=C, r_buff=0.4, rcut=2.5,
+        method_kind=method, method_seed=7, device=dev)
+    pv, ljv = lj_params(dev)
+    dyn = {'pv': pv, 'lj': ljv, 'dt': 0.005, 'tau': 0.5, 'gamma': 1.0,
+           'kT': (torch.zeros(1, device=dev), torch.full((1,), 1.2,
+                                                         device=dev))}
+    z = torch.zeros((), device=dev)
+    carry = refresh(to_fast(st, {'xi': z, 'eta': z} if method == 'nvt'
+                            else {}), dyn)
+    return run, carry, dyn
+
+
+def torch_calls(fn):
+    """The torch operations (aten calls, counted by a dispatch mode) one
+    call of fn issues."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+    with Count() as c:
+        fn()
+    return c.n
+
+
+def window_torch_calls(dev, nw=8):
+    """The torch operations the engine's megastep issues per window,
+    beside its kernel launches, at the bench shape: for one window and per
+    window of nw chained ones (one run_chunk rebuild cycle), NVT and
+    Langevin.  Runs against any version of the package on the path."""
+    out = {}
+    for method in ('nvt', 'langevin'):
+        run, carry, dyn = _engine_at_bench(dev, method)
+        run.wins(carry, dyn, 1, 4)
+        for n in (1, nw):
+            out[f'{method} nw={n}'] = torch_calls(
+                lambda: run.wins(carry, dyn, n, 4)) / n
+    print(f"torch calls per megastep window at the bench shape (k = 4): "
+          + ', '.join(f"{k} {v:.1f}" for k, v in out.items()), flush=True)
+    return out
+
+
+def parent_megastep_phase(dev, src='scratch/parent_megastep'):
+    """Where a copy of the parent's cell_pair.cu and cell_stencil.cuh lies
+    in ``src`` (an ignored directory; the checkout has none): build it
+    under another library name and hold the parent's megastep (one launch
+    per step phase) against the new one at the bench fill, from the same
+    prepared buffers: their bits for every pair evaluator, method and k in
+    (1, 4) on windows within the guard, and the time of an LJ NVT k = 4
+    window (restore the start state, launch) in turns, parent, new, new,
+    parent.  One more LJ window trips the guard in its first step: past
+    the trip the new kernel walks every staged slot, as the parent did,
+    so it gives the parent's bits there too."""
+    import ctypes
+    import torch
+    from pathlib import Path
+    from hoomd_tpu_torch.ops import _build, pair_eval
+    from hoomd_tpu_torch.ops import cell_pair as cp
+    d = Path(src)
+    if not (d / 'cell_pair.cu').exists():
+        print(f"parent megastep: no copy of the parent's cell_pair.cu under "
+              f"{src}; skipped", flush=True)
+        return None
+    lib_path = d / 'libparent_cell_pair.so'
+    t0 = time.perf_counter()
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, '-o', str(lib_path),
+                    str(d / 'cell_pair.cu')], check=True, capture_output=True,
+                   timeout=600)
+    lib = ctypes.CDLL(str(lib_path))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.hoomd_megastep.argtypes = [P] * 9 + [I] + [P] * 5 + [I] * 8 + [P]
+    lib.hoomd_megastep.restype = I
+    print(f"parent megastep built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    dims, cdim, C = SHAPES['bench']
+    nx, ny, nz = cdim
+    carry, L, N, _ = lattice_cells(dims, cdim, C, 0.1, 3, dev)
+    _, sh = cp.build_cell_shifts(cdim, L)
+    sh = torch.as_tensor(sh, dtype=torch.float32, device=dev)
+    skin = torch.as_tensor(np.maximum(L / np.asarray(cdim) - 2.5, 0.4),
+                           dtype=torch.float32, device=dev)
+    M = carry.tag.numel()
+    nb = -(-M // 256)
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device=dev).manual_seed(5)
+    dpart = torch.empty((nb * 9,), device=dev)
+    kpart = torch.empty((max(nb, nx * ny * nz),), device=dev)
+    sc0 = torch.tensor([0.1, 0.0, 0.0, 0.0], device=dev)
+    result, same, differ = {}, 0, []
+    for name in ('lj',) + tuple(EVAL_JOBS):
+        if name == 'lj':
+            pv, ek = lj_params(dev)[0], {}
+        else:
+            pv, pn, _ = eval_params(name, dev)
+            ek = dict(eval_name=name, pnames=pn)
+        npn = len(ek.get('pnames', cp.LJ_PNAMES))
+        ev = pair_eval.EVAL_IDS[name]
+        st = plane_state(carry, cdim, C, sh, pv, ek)
+        gt = st['gt'].to(torch.int32).contiguous()
+        gw, gm = st['gw'].contiguous(), st['gm'].contiguous()
+        gr = st['gr'].contiguous()
+        cand = cp.mega_candidates(gr, gt, cdim, sh, cp.candidate_pads(
+            skin.cpu().numpy(), L), float(pv[0]), C=C)
+        gn = ((torch.rand((4, 3) + tuple(gt.shape), generator=gen,
+                          device=dev) * 2 - 1) * 8.0 * (gt >= 0)).contiguous()
+        cases = [(m, k, skin) for m in ('nve', 'nvt', 'langevin')
+                 for k in (1, 4)]
+        if name == 'lj':
+            # past the guard: a skin of 0.03 trips it in the first step
+            cases.append(('nvt', 4, torch.full_like(skin, 0.03)))
+        for method, k, w_skin in cases:
+            recip = 'div' if method == 'nve' else 'approx'
+            if w_skin is not skin:
+                cand = cp.mega_candidates(gr, gt, cdim, sh, cp.candidate_pads(
+                    w_skin.cpu().numpy(), L), float(pv[0]), C=C)
+            ws = cp.MegaWorkspace(cdim, C, k, method, sh, pv, 0.005,
+                                  w_skin, ndof=3.0 * N, tau_inv2=4.0,
+                                  gamma=GAMMA, recip=recip, **ek)
+            kt = torch.full((k,), 1.2, device=dev)
+            noise = gn[:k] if method == 'langevin' else None
+            bufs = {who: [st[key].clone() for key in ('gp', 'gv', 'gf')]
+                    + [sc0.clone()] for who in ('parent', 'new')}
+
+            def restore(who):
+                p, v, f, sc = bufs[who]
+                p.copy_(st['gp'])
+                v.copy_(st['gv'])
+                f.copy_(st['gf'])
+                sc.copy_(sc0)
+
+            def parent():
+                restore('parent')
+                p, v, f, sc = bufs['parent']
+                err = lib.hoomd_megastep(
+                    p.data_ptr(), v.data_ptr(), f.data_ptr(),
+                    gw.data_ptr(), gm.data_ptr(), gr.data_ptr(),
+                    gt.data_ptr(), ws.shift.data_ptr(), ws.mp.data_ptr(),
+                    npn, sc.data_ptr(), kt.data_ptr(),
+                    noise.data_ptr() if noise is not None else None,
+                    dpart.data_ptr(), kpart.data_ptr(), nx, ny, nz, C, k,
+                    cp._METHODS[method], ev, ws.approx, stream)
+                if err:
+                    raise RuntimeError(f"parent hoomd_megastep: CUDA "
+                                       f"error {err}")
+
+            def new():
+                restore('new')
+                p, v, f, sc = bufs['new']
+                cp.megastep_window(p, v, f, gw, gm, gt, cand, ws, sc, kt,
+                                   noise)
+            parent()
+            new()
+            torch.cuda.synchronize()
+            if (float(bufs['new'][3][3]) > 1.0) != (w_skin is not skin):
+                raise RuntimeError(f"parent vs new [{name}, {method}, "
+                                   f"k={k}]: the guard was "
+                                   f"{'' if w_skin is skin else 'not '}"
+                                   f"left")
+            if all(torch.equal(a, b) for a, b in zip(bufs['parent'],
+                                                     bufs['new'])):
+                same += 1
+            else:
+                differ.append(f"{name}/{method}/k={k}/skin "
+                              f"{float(w_skin[0]):.2f} (largest "
+                              f"difference " + ', '.join(
+                                  f"{lab} {float((a - b).abs().max()):.3e}"
+                                  for lab, a, b in zip(
+                                      ('pos', 'vel', 'frc', 'sc'),
+                                      bufs['parent'], bufs['new']))
+                              + ")")
+            if (name == 'lj' and method == 'nvt' and k == 4
+                    and w_skin is skin):
+                t = [cuda_ms(fn, 50) for fn in (parent, new, new, parent)]
+                restore_ms = cuda_ms(lambda: restore('new'), 50)
+                result = dict(parent_ms=(t[0] + t[3]) / 2,
+                              new_ms=(t[1] + t[2]) / 2, turns=t,
+                              restore_ms=restore_ms)
+                print(f"parent vs new megastep [bench, lj, nvt, k=4]: "
+                      f"window ms (restore + launch, CUDA events) in "
+                      f"turns parent {t[0]:.4f}, new {t[1]:.4f}, new "
+                      f"{t[2]:.4f}, parent {t[3]:.4f}; the restore alone "
+                      f"{restore_ms:.4f}", flush=True)
+    print(f"parent vs new megastep at the bench fill: "
+          f"bit-identical on {same} of {same + len(differ)} windows (10 "
+          f"evaluators x nve, nvt, langevin x k = 1, 4, and an LJ NVT k = 4 "
+          f"window past the guard)" + (
+              "; differing: " + '; '.join(differ) if differ else ''),
+          flush=True)
+    result.update(same=same, windows=same + len(differ))
+    return result
 
 
 def eval_job(name):
@@ -1036,8 +1567,9 @@ def binned_apart(name, a, b):
     return n
 
 
-def device_ms(fn, iters):
-    """Summed device kernel time per call of fn, by torch.profiler."""
+def device_ms(fn, iters, only=None):
+    """Summed device kernel time per call of fn, by torch.profiler; with
+    ``only``, of the kernels whose name holds it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1050,7 +1582,7 @@ def device_ms(fn, iters):
         torch.cuda.synchronize()
     total = 0.0
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        if e.device_type != DeviceType.CUDA or (only and only not in e.key):
             continue
         t = getattr(e, 'self_device_time_total', None)
         total += t if t is not None else getattr(e, 'self_cuda_time_total',
@@ -1063,7 +1595,12 @@ def rebuild_phase(system):
     advanced by one rebuild cadence (fast_m windows of k steps) past its
     last rebuild, on the job's plan.  CUDA-event time per call and device
     kernel time per call; none may flag, and all three give the same cell
-    membership but for particles within a rounding of a face."""
+    membership but for particles within a rounding of a face.  Then the
+    megastep's candidate build of the job's live reference, timed the
+    same way."""
+    import torch
+    from hoomd_tpu_torch.ops import cell_pair as cp
+    from hoomd_tpu_torch.ops.cell_pair import build_cell_shifts
     from hoomd_tpu_torch.ops.fast_lj import build_fast_lj_chunk
     fast = system._program['fast']
     cdim, C, k = fast['cell_dim'], fast['C'], fast['k_rebuild']
@@ -1076,7 +1613,7 @@ def rebuild_phase(system):
         _, _, run, _ = build_fast_lj_chunk(
             N=N, box=box, cell_dim=cdim, C=C, r_buff=0.4, rcut=2.5,
             method_kind=fast['kind'], method_seed=0, rebin_impl=impl,
-            rebin_E=8, device=c.pos.device)
+            rebin_E=8, mega=False, device=c.pos.device)
         out = run.rebuild(c)
         if bool(out.overflow) or bool(out.rebin_ovf) or bool(out.rebin_lost):
             raise RuntimeError(f"rebuild[{impl}] flagged on the job's "
@@ -1090,6 +1627,19 @@ def rebuild_phase(system):
               f"last rebuild, cell_dim={cdim} C={C} N={N}: {ms:.4f} ms per "
               f"call (CUDA events), device {dms:.4f} ms; {apart} particles "
               f"binned apart from the sort", flush=True)
+    # and the megastep's candidate set of the new reference, which the
+    # engine builds after each rebuild
+    cyc = system._fast_carry.cycle
+    cand = cyc.cand
+    args = (cand.gr, cyc.gt, cdim, torch.as_tensor(
+        build_cell_shifts(cdim, box.L.cpu().numpy())[1], dtype=torch.float32,
+        device=c.pos.device), cand.pads, cand.rc2)
+    ms = cuda_ms(lambda: cp.mega_candidates(*args, C=C), 20)
+    dms = device_ms(lambda: cp.mega_candidates(*args, C=C), 10)
+    per = int(cand.count.sum()) / int((cyc.gt >= 0).sum())
+    print(f"mega_candidates of the job's liquid, cell_dim={cdim} C={C}: "
+          f"{ms:.4f} ms per build (CUDA events), device {dms:.4f} ms; "
+          f"{per:.1f} candidates per live slot of {27 * C} staged", flush=True)
 
 
 def bench_job(t_start, nvt_steps=500, warmup=True):
@@ -1142,6 +1692,9 @@ def bench_job(t_start, nvt_steps=500, warmup=True):
                 break
         else:
             stable, last_m = 0, m_now
+    print(f"after the warmup: fast_m {int(system._grow.get('fast_m', 1))}, "
+          f"k {system._program['fast']['k_rebuild']}, {system.fast_stats}, "
+          f"grow {system._grow}", flush=True)
     return system, N
 
 
@@ -1342,6 +1895,48 @@ def bench_script(card):
     pe = q['potential_energy'] / N
     print(f"main path: T={q['temperature']:.5f} PE/N={pe:.5f} "
           f"launches={counts}", flush=True)
+    if counts['mega_candidates'] <= 0:
+        raise RuntimeError("main path never built a megastep candidate set")
+    # where a step's time goes: the busy share of 1024 NVT steps, and one
+    # megastep window of the live state by the profiler's device time
+    device_profile(lambda: system.run(1024, quiet=True),
+                   f"1024 NVT steps of the bench job (fast_m "
+                   f"{int(system._grow.get('fast_m', 1))})")
+    # the engine's windows from a fresh rebuild of the live state, as many
+    # as its cadence chains (fast_m), and one rebuild cycle
+    fast = system._program['fast']
+    run, dyn = fast['run_chunk'], system._dyn['fast']
+    c = run.rebuild(system._fast_carry)
+    k, m = fast['k_rebuild'], int(system._grow.get('fast_m', 1))
+    held = not bool(run.wins(c, dyn, m, k).danger)
+    print(f"megastep windows of the bench job's state after a rebuild (k = "
+          f"{k}, fast_m = {m}, the guard held: {held}): device "
+          f"{device_ms(lambda: run.wins(c, dyn, 1, k), 20):.4f} ms for one "
+          f"window, {device_ms(lambda: run.wins(c, dyn, m, k), 10) / m:.4f} "
+          f"ms per window of {m} chained, "
+          f"{cuda_ms(lambda: run.wins(c, dyn, m, k), 10) / m:.4f} ms per "
+          f"window of {m} by CUDA events; one rebuild cycle ({m} windows, "
+          f"the rebuild and its candidate set) "
+          f"{cuda_ms(lambda: run.cycles(c, dyn, 1, m, k), 10):.4f} ms by CUDA "
+          f"events, device "
+          f"{device_ms(lambda: run.cycles(c, dyn, 1, m, k), 5):.4f} ms",
+          flush=True)
+    # bench.py's warmup stops before 16 clean segments: run on until the
+    # probe amnesty has fired (at most 16 runs of 1024 steps, a segment
+    # each), then time the same window again
+    runs = 0
+    while 'fast_m_probe_fails' in system._grow and runs < 16:
+        system.run(1024, quiet=True)
+        runs += 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    system.run(steps, quiet=True)
+    elapsed = time.perf_counter() - t0
+    print(f"bench job after {runs} more runs of 1024 steps (the amnesty "
+          f"{'fired' if 'fast_m_probe_fails' not in system._grow else 'not reached'}"
+          f"): {steps / elapsed * N:.6g} particle-steps/s over {steps} steps, "
+          f"fast_m {int(system._grow.get('fast_m', 1))}, {system.fast_stats}, "
+          f"grow {system._grow}", flush=True)
     return counts
 
 
@@ -1654,8 +2249,14 @@ def main():
                 or line.startswith('==')):
             print(f"  ptxas: {line.strip()}", flush=True)
     rows = kernel_phases(dev)
+    rows['cell_megastep_planes'], mega_eval_ms = megastep_phases(dev)
+    parent_megastep_phase(dev)
+    window_torch_calls(dev)
     rows.update(step_plane_phases(dev))
     eval_rows = eval_kernel_phases(dev)
+    for name, ms in mega_eval_ms.items():
+        if name in eval_rows:
+            eval_rows[name]['cell_megastep_planes'] = dict(ms=ms)
     rows.update(impl_kernel_phases(dev))
     rows.update(rebin_kernel_phases(dev))
     rows.update(hpmc_kernel_phases())

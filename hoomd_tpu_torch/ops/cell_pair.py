@@ -7,8 +7,13 @@ fused single step (HOOMD_TPU_FUSED=on) a fourth:
   cell_pair_plane       (pallas_pair.py _kernel_plane)     forces only
   cell_pair_planar      (pallas_pair.py _kernel_planar)    forces, PE, virial
   cell_megastep_planes  (pallas_pair.py _kernel_megastep)  k fused VV steps
+                        (megastep_window: the engine's in-place form)
   cell_step_plane_planes (pallas_pair.py _kernel_step_plane) one fused VV
                                                    step, with KE and drift
+
+The megastep walks each slot's candidate set (mega_candidates, a kernel
+with no TPU counterpart: the JAX megastep walks every stencil slot),
+built once per rebuild from the reference positions.
 
 These four take any of the ten pair evaluators of ops/pair_eval.py
 (``eval_name``, with the parameter vector [rc2, e_shift, *pnames] in the
@@ -335,6 +340,134 @@ def cell_megastep_planes_plain(gp, gv, gf, gw, gm, gr, cell_dim, cell_shift,
     return p, v, f, xi, eta, mdmax > 1.0, ke2, mdmax
 
 
+# the rounding margin of the candidate test, added to each axis' skin:
+# 1e-3, or 2^-16 of the longest box edge where that is larger, many ulps
+# of any coordinate in the box (an ulp of 64 is 8e-6)
+CAND_MARGIN = 1e-3
+
+
+def candidate_pads(skin, box_L):
+    """The per-axis skins of the candidate test: skin (scalar or (3,))
+    plus the rounding margin, as float32 on the host."""
+    skin3 = np.broadcast_to(np.asarray(skin, np.float64).reshape(-1), (3,))
+    margin = max(CAND_MARGIN, float(np.max(box_L)) * 2.0 ** -16)
+    return (skin3 + margin).astype(np.float32)
+
+
+class MegaCandidates:
+    """The megastep's candidate set of one reference (mega_candidates).
+
+    Slot j's candidates are the entries t of its cell's staged stencil (27
+    C entries, build_cell_shifts order) that hold a live slot other than j
+    which can come inside r_cut while the megastep's drift guard holds,
+    measured from ``gr``, the reference planes the set was built from
+    (candidate_keep).  ``count`` (M,) int32: their number per slot;
+    ``listed`` (M, cap) int16: each slot's candidates in ascending order as
+    indices into the kernel's staged union of a run of cells (mega_run),
+    the first min(count, cap) of a row (the kernel leaves the rest
+    unwritten; a slot with more candidates walks every staged slot).  A
+    window takes the set only with those same planes, unmodified."""
+
+    def __init__(self, count, listed, gr, pads, rc2):
+        self.count, self.listed = count, listed
+        self.cap = listed.shape[1]
+        self.gr, self.version = gr, gr._version
+        self.pads, self.rc2 = pads, rc2
+
+    def check(self, gr):
+        if gr is not self.gr or gr._version != self.version:
+            raise ValueError("the candidate set was built from other reference "
+                             "positions than the window's; build it anew "
+                             "(mega_candidates) after every rebuild")
+
+
+# the elements of one chunk of cells in candidate_keep and
+# mega_candidates_plain
+CAND_CHUNK = 1 << 22
+
+
+def _candidate_cap(C):
+    """The slots of a candidate list: 256, or the whole stencil when
+    smaller, a multiple of 8 (the kernel reads 8 at a time)."""
+    return min(256, -(-27 * C // 8) * 8)
+
+
+# the megastep kernel's runs along x (csrc/cell_pair.cu mega_run): up to
+# 4 cells, at most 512 slots
+def mega_run(nx, C):
+    return max(1, min(4, nx, 512 // C))
+
+
+def _union_index(cell_dim, C):
+    """(nc, 27 C) int64: the kernel's staged union index of each stencil
+    entry of each cell, in its run of mega_run(nx, C) cells along x."""
+    nx = cell_dim[0]
+    nc = int(np.prod(cell_dim))
+    R = mega_run(nx, C)
+    ix = np.arange(nc) % nx
+    r = ix % R
+    uw = np.minimum(R, nx - (ix - r)) + 2
+    k = np.arange(27)
+    kz, ky, kx = k // 9, (k // 3) % 3, k % 3
+    u = ((kz * 3 + ky)[None, :] * uw[:, None] + r[:, None] + kx[None, :])
+    return (u[:, :, None] * C + np.arange(C)[None, None, :]).reshape(nc, -1)
+
+
+def candidate_keep(gr, gt, cell_dim, cell_shift, pads, rc2, *, C):
+    """The candidate test, plain torch: (nc, C, 27 C) bool, entry t of
+    slot i of cell c kept when both slots are live, t is not i itself, and
+    sum_a max(|dr_a| - pads_a, 0)^2 < rc2, dr = x_i - (x_t + shift) from
+    the planes gr, every operation rounded in float32 as the kernel rounds
+    it.  With pads 0 it keeps the pairs inside r_cut at gr."""
+    nx, ny, nz = cell_dim
+    nc = nx * ny * nz
+    n27 = 27 * C
+    dev = gr.device
+    pos = _planes_to_cells(gr.float(), nc, C)
+    valid = gt.reshape(nc, C) >= 0
+    adj = _adjacency(cell_dim, dev)
+    sh = cell_shift.float()
+    pads = torch.as_tensor(pads, dtype=torch.float32, device=dev)
+    rc2 = torch.tensor(rc2, dtype=torch.float32, device=dev)
+    own = torch.zeros((C, n27), dtype=torch.bool, device=dev)
+    own[torch.arange(C), 13 * C + torch.arange(C)] = True
+    keep = torch.empty((nc, C, n27), dtype=torch.bool, device=dev)
+    chunk = max(1, CAND_CHUNK // (C * n27 * 3))
+    for c0 in range(0, nc, chunk):
+        c1 = min(nc, c0 + chunk)
+        a = adj[c0:c1]
+        xj = (pos[a] + sh[c0:c1, :, None, :]).reshape(c1 - c0, n27, 3)
+        d = pos[c0:c1, :, None, :] - xj[:, None, :, :]
+        m = torch.clamp(d.abs() - pads, min=0.0)
+        lb = (m[..., 0] * m[..., 0] + m[..., 1] * m[..., 1]) \
+            + m[..., 2] * m[..., 2]
+        keep[c0:c1] = (valid[c0:c1, :, None]
+                       & valid[a].reshape(c1 - c0, 1, n27)
+                       & (lb < rc2) & ~own)
+    return keep
+
+
+def mega_candidates_plain(gr, gt, cell_dim, cell_shift, pads, rc2, *, C):
+    """Plain torch version of mega_candidates: (count, listed) as
+    MegaCandidates holds them (unwritten entries zero), from
+    candidate_keep."""
+    nc = int(np.prod(cell_dim))
+    dev = gr.device
+    keep = candidate_keep(gr, gt, cell_dim, cell_shift, pads, rc2, C=C)
+    cap = _candidate_cap(C)
+    listed = torch.zeros((nc, C, cap), dtype=torch.int16, device=dev)
+    union = torch.as_tensor(_union_index(cell_dim, C), device=dev)
+    chunk = max(1, CAND_CHUNK // (C * 27 * C))
+    for c0 in range(0, nc, chunk):
+        kc = keep[c0:c0 + chunk]
+        rank = torch.cumsum(kc, -1) - 1
+        ci, si, ti = torch.nonzero(kc & (rank < cap), as_tuple=True)
+        listed[c0 + ci, si, rank[ci, si, ti]] = union[c0 + ci, ti].to(
+            torch.int16)
+    count = keep.sum(-1, dtype=torch.int32)
+    return count.reshape(-1), listed.reshape(nc * C, cap)
+
+
 def cell_step_plane_planes_plain(gp, gv, gf, gw, gr, cell_dim, cell_shift,
                                  params_vec, dt, s, *, C, gt, eval_name='lj',
                                  pnames=LJ_PNAMES):
@@ -493,11 +626,134 @@ cell_pair_planar.launches = 0
 _METHODS = {'nve': 0, 'nvt': 1, 'langevin': 2}
 
 
+def mega_candidates(gr, gt, cell_dim, cell_shift, pads, rc2, *, C):
+    """The megastep's candidate set of the reference planes gr (3, nz, ny,
+    nx, C) float32, contiguous, with the tag planes gt (nz, ny, nx, C):
+    a MegaCandidates.  pads: the per-axis skins of the drift guard plus
+    the rounding margin (candidate_pads); rc2: r_cut^2, a float.  A slot
+    keeps a staged entry when the pair can come inside r_cut while every
+    particle stays within the guard (mega_candidates_plain)."""
+    nx, ny, nz = cell_dim
+    _check_shapes(C, gr=(gr, (3, nz, ny, nx, C)), gt=(gt, (nz, ny, nx, C)),
+                  cell_shift=(cell_shift, (nx * ny * nz, 27, 3)))
+    if gr.dtype != torch.float32 or not gr.is_contiguous():
+        raise ValueError("gr: the reference planes must be contiguous float32")
+    pads = np.asarray(pads, np.float32).reshape(3)
+    rc2 = float(np.float32(rc2))
+    if _device_of(gr) == 'cpu':
+        out = mega_candidates_plain(gr, gt, cell_dim, cell_shift, pads, rc2,
+                                    C=C)
+        return MegaCandidates(*out, gr, pads, rc2)
+    _require_cuda_inputs(gt, cell_shift)
+    lib = _kernel_lib()
+    tag = gt.contiguous().to(torch.int32)
+    sh = cell_shift.contiguous().float()
+    M = gr[0].numel()
+    count = torch.empty((M,), dtype=torch.int32, device=gr.device)
+    listed = torch.empty((M, _candidate_cap(C)), dtype=torch.int16,
+                         device=gr.device)
+    err = lib.lib.hoomd_mega_candidates(
+        gr.data_ptr(), tag.data_ptr(), sh.data_ptr(), float(pads[0]),
+        float(pads[1]), float(pads[2]), rc2, listed.data_ptr(), count.data_ptr(), listed.shape[1], nx, ny, nz, C,
+        _stream(gr))
+    lib.check(err, 'mega_candidates')
+    mega_candidates.launches += 1
+    return MegaCandidates(count, listed, gr, pads, rc2)
+
+
+mega_candidates.launches = 0
+
+
+class MegaWorkspace:
+    """What every megastep window of one program and parameter set
+    reuses: the parameter vector mp = [dt, 1/tau^2, it_x, it_y, it_z,
+    gamma, ndof, rc2, e_shift, *pnames] on the device, the kernel's
+    scratch, and the launch's static arguments."""
+
+    def __init__(self, cell_dim, C, k, method, cell_shift, params_vec, dt,
+                 skin, *, ndof=1.0, tau_inv2=0.0, gamma=0.0, recip='approx',
+                 eval_name='lj', pnames=LJ_PNAMES):
+        if method not in _METHODS:
+            raise NotImplementedError(f"megastep method {method!r}")
+        self.approx = _recip_flag(recip)
+        self.ev = _eval_id(eval_name, pnames, params_vec)
+        self.cell_dim, self.C, self.k, self.method = tuple(cell_dim), C, k, \
+            method
+        self.eval_name, self.pnames = eval_name, tuple(pnames)
+        self.shift = cell_shift.contiguous().float()
+        self.params_vec = params_vec
+        self.dt, self.skin, self.ndof = dt, skin, ndof
+        self.tau_inv2, self.gamma = tau_inv2, gamma
+        dev = cell_shift.device
+        f32 = torch.float32
+        it3 = _inv_thresholds(skin, self.shift)
+        host = [dt, tau_inv2, gamma, ndof]
+        if all(isinstance(x, (int, float)) for x in host):
+            dts, ti2, gam, nd = torch.tensor(host, dtype=f32).to(dev)
+        else:
+            dts, ti2, gam, nd = (_as_scalar(x, self.shift) for x in host)
+        self.mp = torch.cat([torch.stack([dts, ti2, it3[0], it3[1], it3[2],
+                                          gam, nd]),
+                             params_vec.to(f32).reshape(-1)]).contiguous()
+        nx, ny, nz = cell_dim
+        M = nx * ny * nz * C
+        nb = -(-M // 256)
+        # Top2 records of 12 bytes per axis and chunk; per-cell KE
+        self.dpart = torch.empty((nb * 3 * 3,), dtype=f32, device=dev)
+        self.kpart = torch.empty((max(nb, nx * ny * nz),), dtype=f32,
+                                 device=dev)
+        # the kT table of an NVE window, which the kernel does not read
+        self.unit_kt = torch.ones((k,), dtype=f32, device=dev)
+
+
+def megastep_window(gp, gv, gf, gw, gm, gt, cand, ws, sc, kt, gn=None):
+    """One window of ws.k fused velocity-Verlet steps, in place: gp, gv,
+    gf (3, nz, ny, nx, C) float32 contiguous are advanced, and sc (4,)
+    float32 = [xi, eta, ke2, mdmax] is read and written (mdmax the
+    running maximum of the drift ratio, so windows chained on one sc
+    carry it).  gw = 1/m, gm = m float32 and gt int32 (nz, ny, nx, C),
+    contiguous; cand the MegaCandidates of the window's reference
+    planes; ws its MegaWorkspace; kt (k,) float32 per-step kT; gn the (k,
+    3, nz, ny, nx, C) Langevin noise planes.  On the CPU the plain
+    version computes the window and its results are copied in."""
+    nx, ny, nz = ws.cell_dim
+    C, k = ws.C, ws.k
+    if _device_of(gp) == 'cpu':
+        out = cell_megastep_planes_plain(
+            gp, gv, gf, gw, gm, cand.gr, ws.cell_dim, ws.shift,
+            ws.params_vec, ws.dt, kt, sc[0], sc[1], ws.skin, C=C, k=k,
+            method=ws.method, gt=gt, ndof=ws.ndof, tau_inv2=ws.tau_inv2,
+            gamma=ws.gamma, gn=gn, eval_name=ws.eval_name, pnames=ws.pnames)
+        gp.copy_(out[0])
+        gv.copy_(out[1])
+        gf.copy_(out[2])
+        sc.copy_(torch.stack([out[3], out[4], out[6],
+                              torch.maximum(sc[3], out[7])]))
+        return
+    for t in (gp, gv, gf, sc, kt, gw, gm):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError("megastep_window takes contiguous float32 "
+                             "state, scalars and kT")
+    if gt.dtype != torch.int32:
+        raise ValueError("megastep_window takes int32 tag planes")
+    lib = _kernel_lib()
+    err = lib.lib.hoomd_megastep(
+        gp.data_ptr(), gv.data_ptr(), gf.data_ptr(), gw.data_ptr(),
+        gm.data_ptr(), cand.gr.data_ptr(), gt.data_ptr(), ws.shift.data_ptr(),
+        ws.mp.data_ptr(), len(ws.pnames), sc.data_ptr(), kt.data_ptr(),
+        gn.data_ptr() if gn is not None else None, cand.listed.data_ptr(),
+        cand.count.data_ptr(),
+        cand.cap, ws.dpart.data_ptr(), ws.kpart.data_ptr(), nx, ny, nz, C, k,
+        _METHODS[ws.method], ws.ev, ws.approx, _stream(gp))
+    lib.check(err, 'cell_megastep_planes')
+    cell_megastep_planes.launches += 1
+
+
 def cell_megastep_planes(gp, gv, gf, gw, gm, gr, cell_dim, cell_shift,
                          params_vec, dt, kt_table, xi, eta, skin, *, C, k,
                          method, gt, recip='approx', ndof=1.0, tau_inv2=0.0,
                          gamma=0.0, gn=None, eval_name='lj',
-                         pnames=LJ_PNAMES):
+                         pnames=LJ_PNAMES, cand=None):
     """k fused velocity-Verlet steps on plane-layout state.
 
     gp/gv/gf/gr (3, nz, ny, nx, C); gw = 1/m and gm = m (nz, ny, nx, C);
@@ -510,8 +766,10 @@ def cell_megastep_planes(gp, gv, gf, gw, gm, gr, cell_dim, cell_shift,
     mdmax) as in the JAX package: danger is mdmax > 1, mdmax the largest
     normalised drift ratio ((d1 + d2) / skin_a)^2 of the window.
     recip='approx' takes the fast reciprocal on the card (lj only), 'div'
-    the exact divide."""
-    approx = _recip_flag(recip)
+    the exact divide.  cand: the MegaCandidates of gr (mega_candidates
+    with candidate_pads of skin), required on the card.  The outputs are
+    new tensors (megastep_window is the in-place form)."""
+    _recip_flag(recip)
     if method not in _METHODS:
         raise NotImplementedError(f"megastep method {method!r}")
     if method == 'langevin' and gn is None:
@@ -525,7 +783,9 @@ def cell_megastep_planes(gp, gv, gf, gw, gm, gr, cell_dim, cell_shift,
     if method == 'langevin':
         shapes['gn'] = (gn, (k,) + p5)
     _check_shapes(C, **shapes)
-    ev = _eval_id(eval_name, pnames, params_vec)
+    _eval_id(eval_name, pnames, params_vec)
+    if cand is not None:
+        cand.check(gr)
     if _device_of(gp) == 'cpu':
         return cell_megastep_planes_plain(
             gp, gv, gf, gw, gm, gr, cell_dim, cell_shift, params_vec, dt,
@@ -533,47 +793,26 @@ def cell_megastep_planes(gp, gv, gf, gw, gm, gr, cell_dim, cell_shift,
             ndof=ndof, tau_inv2=tau_inv2, gamma=gamma, gn=gn,
             eval_name=eval_name, pnames=pnames)
     _require_cuda_inputs(gv, gf, gw, gm, gr, gt, cell_shift, params_vec)
-    lib = _kernel_lib()
-    dev = gp.device
+    if cand is None:
+        raise ValueError("cell_megastep_planes on the card takes the "
+                         "candidate set of gr (cand=mega_candidates(...))")
     f32 = torch.float32
+    dev = gp.device
+    ws = MegaWorkspace(cell_dim, C, k, method, cell_shift, params_vec, dt,
+                       skin, ndof=ndof, tau_inv2=tau_inv2, gamma=gamma,
+                       recip=recip, eval_name=eval_name, pnames=pnames)
+    tag = gt.contiguous().to(torch.int32)
     p = gp.contiguous().to(f32).clone()
     v = gv.contiguous().to(f32).clone()
     f = gf.contiguous().to(f32).clone()
-    w = gw.contiguous().to(f32)
-    m = gm.contiguous().to(f32)
-    r = gr.contiguous().to(f32)
-    tag = gt.contiguous().to(torch.int32)
-    sh = cell_shift.contiguous().to(f32)
-    it3 = _inv_thresholds(skin, p)
-    host = [dt, tau_inv2, gamma, ndof]
-    if all(isinstance(x, (int, float)) for x in host):
-        dts, ti2, gam, nd = torch.tensor(host, dtype=f32).to(
-            dev, non_blocking=True)
-    else:
-        dts, ti2, gam, nd = (_as_scalar(x, p) for x in host)
-    # mp = [dt, tinv2, it_x, it_y, it_z, gamma, ndof, rc2, e_shift,
-    # *pnames] (csrc/cell_pair.cu)
-    mp = torch.cat([torch.stack([dts, ti2, it3[0], it3[1], it3[2], gam,
-                                 nd]), params_vec.to(f32).reshape(-1)])
     z = torch.zeros((), dtype=f32, device=dev)
     sc = torch.stack([_as_scalar(xi, p), _as_scalar(eta, p), z,
                       z]).contiguous()
     kt = torch.as_tensor(kt_table, dtype=f32, device=dev).reshape(
         -1).contiguous()
-    M = p[0].numel()
-    nb = -(-M // 256)
-    dpart = torch.empty((nb * 3 * 3,), dtype=f32, device=dev)
-    kpart = torch.empty((max(nb, nx * ny * nz),), dtype=f32, device=dev)
     noise = gn.contiguous().to(f32) if method == 'langevin' else None
-    err = lib.lib.hoomd_megastep(
-        p.data_ptr(), v.data_ptr(), f.data_ptr(), w.data_ptr(), m.data_ptr(),
-        r.data_ptr(), tag.data_ptr(), sh.data_ptr(), mp.data_ptr(),
-        len(pnames), sc.data_ptr(), kt.data_ptr(),
-        noise.data_ptr() if noise is not None else None,
-        dpart.data_ptr(), kpart.data_ptr(), nx, ny, nz, C, int(k),
-        _METHODS[method], ev, approx, _stream(p))
-    lib.check(err, 'cell_megastep_planes')
-    cell_megastep_planes.launches += 1
+    megastep_window(p, v, f, gw.contiguous().to(f32),
+                    gm.contiguous().to(f32), tag, cand, ws, sc, kt, noise)
     return p, v, f, sc[0], sc[1], sc[3] > 1.0, sc[2], sc[3]
 
 
@@ -782,8 +1021,9 @@ def cell_pair_planar_n3l(cell_pos, cell_dim, cell_shift, params_vec, *, C,
 cell_pair_planar_n3l.launches = 0
 
 KERNEL_WRAPPERS = (cell_pair_plane, cell_pair_planar, cell_megastep_planes,
-                   cell_step_plane_planes, cell_pair_lj, cell_pair_lj_pallas3d,
-                   cell_pair_lj_row, cell_pair_planar_n3l)
+                   mega_candidates, cell_step_plane_planes, cell_pair_lj,
+                   cell_pair_lj_pallas3d, cell_pair_lj_row,
+                   cell_pair_planar_n3l)
 
 
 def reset_launch_counts():

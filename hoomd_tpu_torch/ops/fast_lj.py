@@ -32,6 +32,13 @@ virial, read at chunk boundaries, come from cell_pair_planar, but for
 XLA formulation, plain torch, as the JAX engine computes it outside any
 kernel).
 
+A megastep program keeps, beside each reference (ref_pos), its
+MegaCycle: the candidate set of that reference (cell_pair.mega_candidates,
+built by rebuild_carry and to_fast, once per rebuild) and the mass and
+tag planes; its windows write fresh plane copies of the state in place
+(cell_pair.megastep_window), so the carry a retry restarts from is never
+written.
+
 Differences from the JAX engine, by design:
   * the loops are plain Python loops around kernel launches, so the host
     knows the timestep and every window count without a device fetch;
@@ -52,11 +59,12 @@ import torch
 from .._config import PAD_COORD, int_dtype
 from .. import variant as variant_mod
 from . import hashrng
-from .cell_pair import (LJ_PNAMES, build_cell_shifts, cell_megastep_planes,
-                        cell_pair_lj, cell_pair_lj_pallas3d, cell_pair_lj_row,
-                        cell_pair_plane, cell_pair_planar,
+from .cell_pair import (LJ_PNAMES, MegaWorkspace, build_cell_shifts,
+                        candidate_pads, cell_pair_lj, cell_pair_lj_pallas3d,
+                        cell_pair_lj_row, cell_pair_plane, cell_pair_planar,
                         cell_pair_planar_n3l, cell_pair_xla,
-                        cell_step_plane_planes)
+                        cell_step_plane_planes, mega_candidates,
+                        megastep_window)
 from .cell_rebin import cell_rebin_plane, cell_rebin_xsel
 
 # the force paths of HOOMD_TPU_FAST_IMPL (hoomd_tpu/ops/fast_lj.py _forces)
@@ -88,9 +96,22 @@ class FastCarry:
     rebin_lost: torch.Tensor  # () bool sticky: an xsel rebuild lost a
                               # particle with no stage overflowing; either
                               # flag makes the host retry
+    cycle: object = None     # MegaCycle of ref_pos (megastep programs)
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class MegaCycle:
+    """What every megastep window of one rebuild cycle takes: the
+    candidate set of its reference positions ``ref`` (the carry's ref_pos
+    tensor, by identity), and the 1/m, m and int32 tag planes."""
+    ref: torch.Tensor
+    cand: object             # cell_pair.MegaCandidates
+    gw: torch.Tensor
+    gm: torch.Tensor
+    gt: torch.Tensor
 
 
 def plan_fast_lj(N, box_L, rcut, r_buff, conservative=False, frac=None):
@@ -209,6 +230,10 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
     # danger check is max |x - ref|^2 > (skin / 2)^2, not the per-axis one
     skin = max(float(min(L_np / np.asarray(cell_dim, float)) - rcut), r_buff)
     inv_thr3 = 1.0 / (0.5 * skin3) ** 2
+    # the megastep's candidate test: the guard's skins plus the rounding
+    # margin, and r_cut^2 rounded as the kernels' parameter vector has it
+    cand_pads = candidate_pads(skin3_np, L_np)
+    cand_rc2 = float(np.float32(rcut) * np.float32(rcut))
     adj_np, shift_np = build_cell_shifts(cell_dim, L_np)
     adj = torch.as_tensor(adj_np, dtype=torch.int32, device=dev)
     shifts = torch.as_tensor(shift_np, dtype=fdt, device=dev)
@@ -381,47 +406,78 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
         valid = (tag_p >= 0).to(fdt)
         return amp.reshape(k, 1, 1, 1, 1, 1) * u * valid[None, None]
 
+    def _fresh_planes(a):
+        """(nc, C, 3) -> a new (3, nz, ny, nx, C) tensor, never a view of
+        a: the megastep windows write their planes in place."""
+        out = torch.empty((3,) + plane4, dtype=fdt, device=dev)
+        out.copy_(_to_planes(a))
+        return out
+
+    def _with_cycle(c: FastCarry):
+        """The carry with the megastep cycle of its reference positions
+        (the candidate set, built here once per rebuild)."""
+        if not use_mega:
+            return c
+        gt = c.tag.reshape(plane4).to(torch.int32).contiguous()
+        gm = c.mass.reshape(plane4).contiguous()
+        cand = mega_candidates(_fresh_planes(c.ref_pos), gt, cell_dim, shifts,
+                               cand_pads, cand_rc2, C=C)
+        return c.replace(cycle=MegaCycle(ref=c.ref_pos, cand=cand,
+                                         gw=1.0 / gm, gm=gm, gt=gt))
+
+    _ws = {}
+
+    def _workspace(dyn, k):
+        """The MegaWorkspace of this program, the parameters of dyn and the
+        window k, built at the first window that needs it."""
+        key = (k, dyn['dt'], dyn['tau'], dyn['gamma'])
+        hit = _ws.get('cur')
+        if hit is not None and hit[0] is dyn['pv'] and hit[1] == key:
+            return hit[2]
+        ti2 = 1.0 / dyn['tau'] ** 2 if method_kind == 'nvt' else 0.0
+        ws = MegaWorkspace(cell_dim, C, k, method_kind, shifts, dyn['pv'],
+                           dyn['dt'], skin3, ndof=ndof, tau_inv2=ti2,
+                           gamma=dyn['gamma'], recip=recip, **ev_kw)
+        _ws['cur'] = (dyn['pv'], key, ws)
+        return ws
+
     def mega_windows(c: FastCarry, dyn, nw, k):
-        """nw chained megastep windows of k fused steps each, the state in
-        plane layout throughout; drift is monitored against c.ref_pos, so
-        the danger check stays exact across chained windows."""
-        if method_kind == 'nvt':
-            ti2 = 1.0 / dyn['tau'] ** 2
-        else:
-            ti2 = 0.0
+        """nw chained megastep windows of k fused steps each, in place on
+        fresh plane-layout copies of the carry's state (the carry a danger
+        retry restarts from is never written), each window one kernel
+        call on the candidate set of c.ref_pos; the drift is monitored
+        against c.ref_pos, so the danger check stays exact across chained
+        windows."""
+        cyc = c.cycle
+        if cyc is None or cyc.ref is not c.ref_pos:
+            raise RuntimeError("megastep window from reference positions "
+                               "without their candidate set (rebuild_carry "
+                               "and to_fast build it)")
+        ws = _workspace(dyn, k)
         aux = dict(c.aux)
-        gw = (1.0 / c.mass).reshape(plane4)
-        gm = c.mass.reshape(plane4)
-        gt = c.tag.reshape(plane4)
-        gr = _to_planes(c.ref_pos).contiguous()
-        gp = _to_planes(c.pos).contiguous()
-        gv = _to_planes(c.vel).contiguous()
-        gf = _to_planes(c.frc).contiguous()
+        gp, gv, gf = (_fresh_planes(c.pos), _fresh_planes(c.vel),
+                      _fresh_planes(c.frc))
         z = torch.zeros((), dtype=fdt, device=dev)
-        xi = aux.get('xi', z)
-        eta = aux.get('eta', z)
-        danger, wmax, ts = c.danger, c.wmax, c.timestep
-        for _ in range(nw):
-            if method_kind in ('nvt', 'langevin'):
-                kt = _kt(dyn, torch.arange(ts, ts + k, device=dev))
-            else:
-                kt = torch.ones((k,), dtype=fdt, device=dev)
-            gn = (_noise_planes(gt, dyn, ts, k)
+        sc = torch.stack([aux.get('xi', z), aux.get('eta', z), z, z])
+        ts = c.timestep
+        if method_kind in ('nvt', 'langevin'):
+            kts = _kt(dyn, torch.arange(ts, ts + nw * k, device=dev)).to(fdt)
+        for i in range(nw):
+            kt = (kts[i * k:(i + 1) * k] if method_kind != 'nve'
+                  else ws.unit_kt)
+            gn = (_noise_planes(c.tag.reshape(plane4), dyn, ts, k)
                   if method_kind == 'langevin' else None)
-            gp, gv, gf, xi, eta, d, _, mdmax = cell_megastep_planes(
-                gp, gv, gf, gw, gm, gr, cell_dim, shifts, dyn['pv'],
-                dyn['dt'], kt, xi, eta, skin3, C=C, k=k, method=method_kind,
-                gt=gt, recip=recip, ndof=ndof, tau_inv2=ti2,
-                gamma=dyn['gamma'], gn=gn, **ev_kw)
-            danger = danger | d
-            wmax = torch.maximum(wmax, mdmax)
+            megastep_window(gp, gv, gf, cyc.gw, cyc.gm, cyc.gt, cyc.cand, ws,
+                            sc, kt, gn)
             ts += k
         if method_kind == 'nvt':
-            aux['xi'] = xi
-            aux['eta'] = eta
+            aux['xi'] = sc[0]
+            aux['eta'] = sc[1]
         return c.replace(pos=_from_planes(gp), vel=_from_planes(gv),
-                         frc=_from_planes(gf), aux=aux, danger=danger,
-                         wmax=wmax, timestep=ts, since=c.since + nw * k)
+                         frc=_from_planes(gf), aux=aux,
+                         danger=c.danger | (sc[3] > 1.0),
+                         wmax=torch.maximum(c.wmax, sc[3]), timestep=ts,
+                         since=c.since + nw * k)
 
     def fused_steps(c: FastCarry, dyn, m):
         """m fused velocity-Verlet steps (hoomd_tpu/ops/fast_lj.py:809-858):
@@ -472,7 +528,11 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
     def rebuild_carry(c: FastCarry):
         """Re-bin into fresh cell-major layout; forces ride along so the
         next half-kick sees them in slot order.  typ stays on the xsel and
-        migration rebins: one type, so every slot carries type 0."""
+        migration rebins: one type, so every slot carries type 0.  A
+        megastep program builds the new reference's candidate set."""
+        return _with_cycle(_rebin_carry(c))
+
+    def _rebin_carry(c: FastCarry):
         if rebin_impl == 'xsel':
             p, v, f, im, t, m, cap_o, lost = cell_rebin_xsel(
                 c.pos, c.vel, c.frc, c.img, c.tag, c.mass, cell_dim, L_np,
@@ -566,7 +626,7 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
             cat(state.image, 0), cat(state.tag, -1),
             cat(state.typeid.to(idt), 0), cat(state.mass, 1.0))
         shape3 = (nc, C, 3)
-        return FastCarry(
+        return _with_cycle(FastCarry(
             pos=p.reshape(shape3), vel=v.reshape(shape3),
             frc=torch.zeros(shape3, dtype=fdt, device=dev),
             pe=torch.zeros((nc, C), dtype=fdt, device=dev),
@@ -578,7 +638,7 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
             danger=torch.zeros((), dtype=torch.bool, device=dev), since=0,
             wmax=torch.zeros((), dtype=fdt, device=dev),
             rebin_ovf=torch.zeros((), dtype=torch.bool, device=dev),
-            rebin_lost=torch.zeros((), dtype=torch.bool, device=dev))
+            rebin_lost=torch.zeros((), dtype=torch.bool, device=dev)))
 
     def refresh_forces(carry, dyn):
         frc, pe, vir = _forces(carry.pos, carry.tag, dyn, True)

@@ -24,7 +24,10 @@ control flags:
     most 3 times; for the migration rebin the emigrant buffers widen from
     E = 8 to 16, then the sort; retry;
   * clean -> accept, and double the window count per rebuild cycle
-    (fast_m) up to 64, fast-tracked by the measured drift.
+    (fast_m) up to 64, fast-tracked by the measured drift; after 16
+    clean segments forgive the probe and xsel strikes (the amnesty), and
+    grow a kernel window k < 4 to 4 once fast_m >= 4 shows the headroom
+    (a danger at one window per cycle reverts that growth for good).
 
 Left out of the JAX package's protocol: the lifetime cap on xsel
 re-enables and the memo of built programs (hoomd_tpu/system.py:1349-1355,
@@ -249,6 +252,10 @@ class System:
             self._reset_cadence()
         k_est = int(0.55 * (0.5 * skin) / max(vmax * dt, 1e-12))
         k_rebuild = next(q for q in (4, 3, 2, 1) if q <= max(k_est, 1))
+        if self._grow.get('fast_k_grown'):
+            # the measured drift cleared 4x the planned cadence
+            # (_grow_cadence): the ballistic estimate was conservative
+            k_rebuild = 4
         cap = self._grow.get('fast_k_cap')
         if cap:
             k_rebuild = min(k_rebuild, cap)
@@ -312,7 +319,8 @@ class System:
 
     def _reset_cadence(self):
         for key in ('fast_m', 'fast_m_ceil', 'fast_m_pinned', 'fast_k_cap',
-                    'fast_m_probe_fails', 'fast_clean_segs'):
+                    'fast_m_probe_fails', 'fast_k_grown', 'fast_k_grow_block',
+                    'fast_clean_segs'):
             self._grow.pop(key, None)
 
     def _pack_dyn(self):
@@ -419,8 +427,8 @@ class System:
                     self._fast_state_stale = True
                     seg_cap = min(seg_cap * 2, 8192)
                     self._fast_seg_cap = seg_cap
-                    self._xsel_reenable()
-                    self._grow_cadence(carry, seg, m_now, float(fl[4]))
+                    self._grow_cadence(carry, seg, fast['k_rebuild'], m_now,
+                                       float(fl[4]))
                     seg_cap = self._fast_seg_cap
                     break
                 self.fast_stats['retries'] += 1
@@ -463,6 +471,12 @@ class System:
                         self._grow['fast_m_ceil'] = m_tgt
                         self._grow['fast_m_pinned'] = True
                         self._grow['fast_clean_segs'] = 0
+                    elif self._grow.get('fast_k_grown'):
+                        # undo the kernel window's growth first, for good
+                        self._grow.pop('fast_k_grown')
+                        self._grow['fast_k_grow_block'] = True
+                        self._grow['fast_clean_segs'] = 0
+                        need_rebuild = True
                     else:
                         k_now = fast['k_rebuild']
                         self._grow['fast_k_cap'] = next(
@@ -509,38 +523,59 @@ class System:
         self._rebuild_program()
         self._pack_dyn()
 
-    def _grow_cadence(self, carry, seg, m_now, wmax):
-        """After a clean segment: double fast_m (the windows per rebuild
-        cycle) up to its ceiling, or further when the measured drift
-        ratio wmax says a longer cadence is safe.  A ceiling that danger
-        pinned is re-probed one window higher after 4 clean segments at
-        it (transients such as a melt or a dt switch pin it low), until
-        two probes of the same edge have failed."""
-        k_now = self._program['fast']['k_rebuild']
+    def _grow_cadence(self, carry, seg, k_now, m_now, wmax):
+        """After a clean segment of the program with kernel window k_now,
+        in the JAX package's order (hoomd_tpu/system.py:1284-1419):
+          * after 16 clean segments, forgive the probe and xsel strikes
+            (the amnesty: strikes earned in a melt must not bind at
+            steady state; the pin itself stays);
+          * count down an xsel strike's sort fallback;
+          * re-probe a ceiling that danger pinned after 4 clean segments
+            at it: one window higher (twice as high if not pinned), until
+            two probes of the same edge have failed;
+          * double fast_m (the windows per rebuild cycle) up to its
+            ceiling, or further when the measured drift ratio wmax says a
+            longer cadence is safe;
+          * grow a kernel window k < 4 to 4 once fast_m >= 4 ran clean,
+            unless danger capped k or reverted such a growth before."""
         cadence = k_now * m_now
         ceil_m = int(self._grow.get('fast_m_ceil', 64))
         clean = self._grow.get('fast_clean_segs', 0) + 1
         self._grow['fast_clean_segs'] = clean
+        if clean == 16 and (self._grow.get('fast_m_probe_fails')
+                            or self._grow.get('fast_xsel_fails')):
+            self._grow.pop('fast_m_probe_fails', None)
+            self._grow.pop('fast_xsel_fails', None)
+            self._grow['fast_clean_segs'] = 0
+        self._xsel_reenable()
         if (ceil_m < 64 and m_now >= ceil_m and clean >= 4
                 and self._grow.get('fast_m_probe_fails', 0) < 2):
-            ceil_m += 1
+            ceil_m = (ceil_m + 1 if self._grow.get('fast_m_pinned')
+                      else min(ceil_m * 2, 64))
             self._grow['fast_m_ceil'] = ceil_m
             self._grow['fast_clean_segs'] = 0
             self._fast_seg_cap = 512      # a failed probe redoes little
-        if seg < 2 * cadence or m_now >= ceil_m:
-            return
-        m_next = m_now * 2
-        if wmax > 0.0:
-            cad_max = cadence * 0.7 / max(math.sqrt(wmax), 1e-9)
-            m_next = max(m_next, int(cad_max // k_now))
-        m_next = min(m_next, ceil_m, max(seg // (2 * k_now), 1))
-        if m_next > m_now:
-            self._grow['fast_m'] = m_next
-            # (a program rebuilt by the xsel re-enable starts from the
-            # state, with wmax 0, and may have planned another layout)
-            if self._fast_carry is not None:
-                self._fast_carry = carry.replace(wmax=torch.zeros_like(
-                    carry.wmax))
+        m_next = m_now
+        if seg >= 2 * cadence and m_now < ceil_m:
+            m_next = m_now * 2
+            if wmax > 0.0:
+                cad_max = cadence * 0.7 / max(math.sqrt(wmax), 1e-9)
+                m_next = max(m_next, int(cad_max // k_now))
+            m_next = min(m_next, ceil_m, max(seg // (2 * k_now), 1))
+            if m_next > m_now:
+                self._grow['fast_m'] = m_next
+                # (a program rebuilt by the xsel re-enable starts from the
+                # state, with wmax 0, and may have planned another layout)
+                if self._fast_carry is not None:
+                    self._fast_carry = carry.replace(wmax=torch.zeros_like(
+                        carry.wmax))
+        if (k_now < 4 and m_now >= 4 and 'fast_k_cap' not in self._grow
+                and not self._grow.get('fast_k_grow_block')
+                and not self._grow.get('fast_k_grown')):
+            self._grow['fast_k_grown'] = True
+            self._grow['fast_m'] = max(k_now * max(m_next, m_now) // 4, 1)
+            self._rebuild_program()
+            self._pack_dyn()
 
     def _prep_forces(self):
         """Forces, PE and virial at the current positions."""

@@ -5,6 +5,7 @@ NVIDIA GPU.
     python3 profile_torch_bench.py           # the default rebin
     python3 profile_torch_bench.py rebins    # each rebin in turn
     python3 profile_torch_bench.py rebins on on off   # the turns given
+    python3 profile_torch_bench.py cadence 1 2 4      # pinned cadences
 
 from the root of the repository.  It runs chip_smoke.py's bench job
 (bench.py's script: Langevin melt, Nose-Hoover NVT, cadence warmup) and
@@ -15,11 +16,14 @@ then prints:
   3. a torch.profiler trace of 1024 steps: wall time, the summed device
      time of all kernels, their ratio (the device's busy share; the
      profiler inflates host time), and the device time per kernel;
-  4. CUDA-event times at the steady state of one k-step kernel window,
-     eight windows, one rebuild (the program's rebin) and one single
-     step;
+  4. CUDA-event times, from a fresh rebuild of the steady state, of one
+     k-step kernel window, the fast_m windows of a rebuild cycle, one
+     rebuild (the program's rebin and, on the megastep, its candidate
+     set), one single step and one rebuild cycle;
   5. the launch counts of the stencil and rebin kernels.
-With ``rebins`` it does all of this once per rebin of the rebuild, in
+With ``cadence`` (and windows per rebuild, by default 1 2 4) it then
+pins the cadence at each in turn and repeats steps 2 and 4 (one timed
+window).  With ``rebins`` it does all of this once per rebin of the rebuild, in
 the turns given as HOOMD_TPU_REBIN values, by default on (xsel, the
 default at this N), off (the sort), pallas (the migration kernels),
 pallas, off, on, so that two runs of each bracket the others on one
@@ -113,21 +117,25 @@ def profile_steps(system, steps=1024, top=25):
 
 
 def component_times(system):
+    """CUDA-event times from a fresh rebuild of the live state: one
+    window, the fast_m windows of one rebuild cycle, one rebuild, one
+    single step and one rebuild cycle."""
     fast = system._program['fast']
     carry = system._fast_carry
     if carry is None:                   # a retry rebuilt the program
         carry = system._fresh_carry()
     dyn, run = system._dyn['fast'], fast['run_chunk']
     k = fast['k_rebuild']
+    carry = run.rebuild(carry)
+    m = max(int(system._grow.get('fast_m', 1)), 1)
     t_win = cuda_ms(lambda: run.wins(carry, dyn, 1, k), 50)
-    t_win8 = cuda_ms(lambda: run.wins(carry, dyn, 8, k), 10)
+    t_winm = cuda_ms(lambda: run.wins(carry, dyn, m, k), 10)
     t_reb = cuda_ms(lambda: run.rebuild(carry), 50)
     t_step = cuda_ms(lambda: run.steps(carry, dyn, 1), 20)
-    m = max(int(system._grow.get('fast_m', 1)), 1)
     t_cyc = cuda_ms(lambda: run.cycles(carry, dyn, 1, m, k), 50)
-    print(f"one window (k={k}): {t_win:.4f} ms; 8 windows {t_win8:.4f} ms; "
-          f"rebuild {t_reb:.4f} ms; one step {t_step:.4f} ms; one rebuild "
-          f"cycle of {m} windows {t_cyc:.4f} ms", flush=True)
+    print(f"one window (k={k}): {t_win:.4f} ms; {m} windows {t_winm:.4f} "
+          f"ms; rebuild {t_reb:.4f} ms; one step {t_step:.4f} ms; one "
+          f"rebuild cycle of {m} windows {t_cyc:.4f} ms", flush=True)
 
 
 def main(argv):
@@ -138,10 +146,13 @@ def main(argv):
             os.environ['HOOMD_TPU_REBIN'] = env
             profile_job(pin_m=PIN_M)
         return
+    if argv[1:2] == ['cadence']:
+        profile_job(cadences=[int(m) for m in argv[2:]] or [1, 2, 4])
+        return
     profile_job()
 
 
-def profile_job(pin_m=None):
+def profile_job(pin_m=None, cadences=()):
     from hoomd_tpu_torch.ops import cell_pair as cp
     from hoomd_tpu_torch.ops import cell_rebin as cr
     cp.reset_launch_counts()
@@ -159,6 +170,11 @@ def profile_job(pin_m=None):
     timed_windows(system, N)
     profile_steps(system)
     component_times(system)
+    for m in cadences:
+        rearm(system, m)
+        print(f"== the cadence pinned at {m} windows per rebuild", flush=True)
+        timed_windows(system, N, reps=1)
+        component_times(system)
     print(f"fast_stats {system.fast_stats}", flush=True)
     print(json.dumps({'launches': {**cp.launch_counts(),
                                    **cr.launch_counts()}}), flush=True)

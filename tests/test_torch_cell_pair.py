@@ -132,8 +132,8 @@ def test_plain_pair_matches_jax(cell_dim, seed, ref):
                                rtol=1e-4, atol=1e-4)
 
 
-def _mega_inputs(cell_dim, C, seed):
-    cell_pos, cell_tag, L, N = _cells(cell_dim, 2.1, C, 1.25, seed)
+def _mega_inputs(cell_dim, C, seed, spacing=1.25):
+    cell_pos, cell_tag, L, N = _cells(cell_dim, 2.1, C, spacing, seed)
     rng = np.random.RandomState(seed + 100)
     nx, ny, nz = cell_dim
     valid = cell_tag >= 0
@@ -195,9 +195,14 @@ def _torch_mega(d, cell_dim, C, kt, skin, kw, device='cpu', plain=False):
         del kw['recip']             # the plain version divides exactly
     if kw['gn'] is not None:
         kw['gn'] = T(kw['gn'])
+    gr, gt, sh = T(d['gr']), T(d['gt'], torch.int32), T(d['shift'])
+    if not plain and device != 'cpu':
+        kw['cand'] = tcp.mega_candidates(
+            gr, gt, cell_dim, sh, tcp.candidate_pads(skin, d['L']),
+            float(d['pv'][0]), C=C)
     out = fn(T(d['gp']), T(d['gv']), T(d['gf']), T(d['gw']), T(d['gm']),
-             T(d['gr']), cell_dim, T(d['shift']), T(d['pv']), 0.004, T(kt),
-             0.05, 0.0, T(skin), C=C, gt=T(d['gt'], torch.int32), **kw)
+             gr, cell_dim, sh, T(d['pv']), 0.004, T(kt), 0.05, 0.0, T(skin),
+             C=C, gt=gt, **kw)
     return [o.cpu().numpy() for o in out]
 
 

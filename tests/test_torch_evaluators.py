@@ -331,7 +331,11 @@ def test_cuda_evaluator_kernels_match_plain(cuda, name):
              T(d['gp']), cell_dim, T(d['shift']), T(d['pv']), 0.004,
              torch.full((2,), 1.1, device=cuda), 0.05, 0.0,
              torch.full((3,), 0.6, device=cuda))
-    got = tcp.cell_megastep_planes(*margs, recip='div', **mk)
+    cand = tcp.mega_candidates(
+        margs[5], mk['gt'].to(torch.int32), cell_dim, margs[7],
+        tcp.candidate_pads(0.6, np.abs(d['shift']).max()),
+        float(d['pv'][0]), C=C)
+    got = tcp.cell_megastep_planes(*margs, recip='div', cand=cand, **mk)
     want = tcp.cell_megastep_planes_plain(*margs, **mk)
     torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-5)
     torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-4)

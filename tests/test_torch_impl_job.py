@@ -87,7 +87,7 @@ def check_impl_job(monkeypatch, impl, mega, wrapper):
 
     def no_megastep(*args, **kwargs):
         raise AssertionError(f"impl {impl} ran the megastep")
-    monkeypatch.setattr(tfl, 'cell_megastep_planes', no_megastep)
+    monkeypatch.setattr(tfl, 'megastep_window', no_megastep)
     ts, _ = _job(th, interop.snapshot_from_numpy(snap), _force_retries)
 
     fast = ts._program['fast']

@@ -229,7 +229,7 @@ def _spies(monkeypatch):
     wrappers run their plain versions and launch nothing)."""
     import hoomd_tpu_torch.ops.fast_lj as tfl
     calls = {}
-    for name in ('cell_step_plane_planes', 'cell_megastep_planes',
+    for name in ('cell_step_plane_planes', 'megastep_window',
                  'cell_pair_plane'):
         real = getattr(tfl, name)
 
@@ -268,7 +268,7 @@ def test_fused_job_matches_jax(torch_ctx, fused_env, method):
     ts = _job(th, interop.snapshot_from_numpy(snap), method, steps)
     assert ts._program['fast']['fused'] and not ts._program['fast']['mega']
     assert calls.get('cell_step_plane_planes', 0) >= steps
-    assert 'cell_megastep_planes' not in calls
+    assert 'megastep_window' not in calls
     assert 'cell_pair_plane' not in calls
     assert js.timestep == ts.timestep == steps
     sj, st = js.take_snapshot(), ts.take_snapshot()
@@ -304,7 +304,7 @@ def test_fused_tails_ride_the_megastep_windows(torch_ctx, monkeypatch):
     ts = _job(th, interop.snapshot_from_numpy(snap), 'nvt', 11)
     fast = ts._program['fast']
     assert fast['fused'] and fast['mega']
-    assert calls.get('cell_megastep_planes', 0) > 0
+    assert calls.get('megastep_window', 0) > 0
     assert 0 < calls.get('cell_step_plane_planes', 0) < 11
     assert 'cell_pair_plane' not in calls
 
