@@ -47,6 +47,13 @@ from the root of the repository.  In order it prints:
      the cross-kernel phase: on the bench fill the four kernels' forces
      and cell_pair_plane's agree, and cell_pair_lj's PE and virial
      cell_pair_planar's;
+  4b. the mixtures' kernels (typed_kernel_phases) at the Kob-Andersen
+     shape (64 000 particles at rho = 1.2 on the engine's plan of the
+     KA start): for every evaluator the typed planar kernel (two and four
+     types) and the half stencil (one, two and four types) against their
+     plain versions with the evaluator's ATOL, each with its CUDA-event
+     time; for the KA table also the device time, the plain version's
+     time and the bound;
   6. the bench.py job script (64k LJ, Langevin melt then Nose-Hoover NVT)
      through ``import hoomd_tpu_torch as hoomd`` on --mode=gpu, on its
      default rebin (xsel at this N), with all three launch counters > 0
@@ -69,7 +76,16 @@ from the root of the repository.  In order it prints:
      megastep not) and its NVE continuation, gated on the energy drift;
      then a 64 000-particle job per other pair evaluator on the default
      path (T, a fluid's mean-square displacement, the megastep launched,
-     the end state's PE against the plain version's);
+     the end state's PE against the plain version's); then the
+     Kob-Andersen 80:20 melt (ka_script: 64 000 particles, 2000 Langevin
+     and 500 + 1000 Nose-Hoover steps at kT = 1) on the typed planar kernel:
+     finite, T = 1 +- 0.03 over the NVT window, every tag's type kept, no
+     single-type stencil launched, the kernel's F, PE and virial on the
+     end state against its plain version's, ms per step, busy share, and a
+     1000-step NVE continuation gated on its drift; and the same script
+     with HOOMD_TPU_FAST_IMPL=planar_n3l (300 NVT steps, the typed half
+     stencil launched).  The bench job's T and PE/N must equal PR 6's
+     bit for bit;
   7. the BASELINE.json config-5 job script (4096 hard cubes at phi = 0.4,
      50 settle and 200 timed sweeps) and the hard-sphere job (4096
      spheres at a = 1.05), each with its metric line, zero overlaps
@@ -118,6 +134,15 @@ SHAPES = {'bench': ((40, 40, 40), (14, 14, 12), 40),
           '2x2x2': ((6, 6, 6), (2, 2, 2), 40)}
 TEMP_TARGET, TEMP_TOL = 1.2, 0.03
 PE_RANGE = (-4.80, -4.60)
+# an NVE continuation's energy drift, per particle per 1000 steps
+NVE_DRIFT_MAX = 1e-3
+# the bench job's T and PE/N after its timed window in PR 6's chip runs
+# (NVIDIA H100 80GB HBM3, 700 W).  The job's trajectory depends on the
+# data alone (deterministic kernels, the cadence controller reads no
+# clock), so the single-type path must reproduce them bit for bit; a
+# change that alters that path's arithmetic on purpose says so and
+# records the new values here
+PR6_BENCH_T, PR6_BENCH_PE = 1.1909790651919536, -4.693221126138524
 
 # the H100 SXM's published peaks: HBM bytes/s
 # and fp32 operations/s outside the tensor cores
@@ -1288,9 +1313,9 @@ def fused_job():
           f"T={q1['temperature']:.5f}, {system.fast_stats}, "
           f"launches={nve_counts}; the job took "
           f"{time.perf_counter() - t_job:.1f} s", flush=True)
-    if not np.isfinite(e1) or drift >= 1e-3:
+    if not np.isfinite(e1) or drift >= NVE_DRIFT_MAX:
         raise RuntimeError(f"fused NVE: energy drift {drift:.3e} per "
-                           f"particle per 1000 steps (bound 1e-3)")
+                           f"particle per 1000 steps (bound {NVE_DRIFT_MAX})")
     if nve_counts['cell_step_plane_planes'] <= 0 or not fast['fused']:
         raise RuntimeError("the fused NVE continuation never ran the fused "
                            "step")
@@ -1895,6 +1920,12 @@ def bench_script(card):
     pe = q['potential_energy'] / N
     print(f"main path: T={q['temperature']:.5f} PE/N={pe:.5f} "
           f"launches={counts}", flush=True)
+    same = (q['temperature'], pe) == (PR6_BENCH_T, PR6_BENCH_PE)
+    print(f"bench job: T={q['temperature']!r} PE/N={pe!r}; PR 6's "
+          f"T={PR6_BENCH_T!r} PE/N={PR6_BENCH_PE!r}; equal bit for bit: "
+          f"{same}", flush=True)
+    if not same:
+        raise RuntimeError("bench job: T and PE/N differ from PR 6's bits")
     if counts['mega_candidates'] <= 0:
         raise RuntimeError("main path never built a megastep candidate set")
     # where a step's time goes: the busy share of 1024 NVT steps, and one
@@ -1938,6 +1969,420 @@ def bench_script(card):
           f"fast_m {int(system._grow.get('fast_m', 1))}, {system.fast_stats}, "
           f"grow {system._grow}", flush=True)
     return counts
+
+
+# ---------------------------------------------------------------------------
+# mixtures: the Kob-Andersen melt
+
+# the Kob-Andersen 80:20 binary LJ mixture (W. Kob and H. C. Andersen,
+# Phys. Rev. E 51, 4626 (1995)): (epsilon, sigma) of each pair, r_cut =
+# 2.5 sigma, shift mode, rho = 1.2, equal masses; 64 000 particles (12 800
+# of type B) on a 40^3 sc lattice at a = 0.94104 (L = 37.6416)
+KA_PAIRS = {('A', 'A'): (1.0, 1.0), ('A', 'B'): (1.5, 0.8),
+            ('B', 'B'): (0.5, 0.88)}
+KA_N_SIDE, KA_A, KA_NB = 40, 0.94104, 12800
+KA_TEMP, KA_TEMP_TOL = 1.0, 0.03
+
+
+def ka_snapshot(data, n_side=KA_N_SIDE, seed=4):
+    """The KA start: an n_side^3 sc lattice at a = KA_A, a fifth of the
+    particles (a seeded numpy permutation) of type B, Maxwell velocities
+    at kT = 1.  A snapshot of either package (``data``: its hoomd.data)."""
+    N = n_side ** 3
+    L = n_side * KA_A
+    snap = data.make_snapshot(N, data.boxdim(L=L), particle_types=['A', 'B'])
+    g = (np.arange(n_side) + 0.5) * KA_A - L / 2
+    snap.particles.position[:] = np.stack(np.meshgrid(g, g, g, indexing='ij'),
+                                          -1).reshape(-1, 3)
+    rng = np.random.RandomState(seed)
+    tid = np.zeros(N, np.int32)
+    tid[rng.permutation(N)[:N // 5]] = 1
+    snap.particles.typeid[:] = tid
+    v = rng.normal(0.0, np.sqrt(KA_TEMP), (N, 3))
+    snap.particles.velocity[:] = v - v.mean(axis=0)
+    return snap
+
+
+def ka_setup(hoomd, n_side=KA_N_SIDE):
+    """The KA system through the public API of ``hoomd`` (either package,
+    its context initialized): the start of ka_snapshot, the mixture's
+    pair coefficients and mode_standard at dt = 0.001.  Returns the
+    System, the start's typeids and the integration mode."""
+    md = hoomd.md
+    snap = ka_snapshot(hoomd.data, n_side)
+    hoomd.init.read_snapshot(snap)
+    lj = md.pair.lj(r_cut=2.5, nlist=md.nlist.cell(r_buff=0.4))
+    for (a, b), (eps, sig) in KA_PAIRS.items():
+        lj.pair_coeff.set(a, b, epsilon=eps, sigma=sig, r_cut=2.5 * sig)
+    lj.set_params(mode='shift')
+    mode = md.integrate.mode_standard(dt=0.001)
+    return hoomd.context.current.system, snap.particles.typeid.copy(), mode
+
+
+def ka_script(hoomd, nvt_steps, n_side=KA_N_SIDE):
+    """The KA job script (ka_setup): bench.py's pattern at the mixture's
+    temperature, a 1000-step Langevin melt at dt = 0.001, kT = 1, 1000
+    more Langevin steps at dt = 0.005, then Nose-Hoover NVT at kT = 1,
+    tau = 0.5, dt = 0.005: 500 steps, then the window of nvt_steps steps
+    in runs of 100 with the temperature read after each.  The second
+    Langevin run takes up the heat that the lattice start keeps
+    releasing as the mixture relaxes: a Nose-Hoover run started at the
+    melt's end rings about kT for thousands of steps
+    (profile_torch_bench.py ka-trace).  Returns the System, the start's
+    typeids and the window's temperatures."""
+    md = hoomd.md
+    system, typeid0, mode = ka_setup(hoomd, n_side)
+    lan = md.integrate.langevin(group=hoomd.group.all(), kT=KA_TEMP, seed=7)
+    system.run(1000, quiet=True)
+    mode.set_params(dt=0.005)
+    system.run(1000, quiet=True)
+    lan.disable()
+    md.integrate.nvt(group=hoomd.group.all(), kT=KA_TEMP, tau=0.5)
+    system.run(500, quiet=True)
+    temps = []
+    for _ in range(nvt_steps // 100):
+        system.run(100, quiet=True)
+        temps.append(system.thermo_quantities()['temperature'])
+    return system, typeid0, temps
+
+
+def check_ka(system, typeid0, temps, counts, kname, what):
+    """The KA gates: finite state, the NVT window's mean T = 1 +- 0.03,
+    51 200 / 12 800 particles per type with every tag's type its start's
+    (in the snapshot and in every live slot of the engine's carry), the
+    mixture's program (two types, the sort, no megastep, no fused step)
+    and its step kernel ``kname`` launched, no single-type stencil.
+    Returns the thermo quantities."""
+    import torch
+    q = system.thermo_quantities()
+    snap = system.take_snapshot()
+    if not (np.isfinite(snap.particles.position).all()
+            and np.isfinite(snap.particles.velocity).all()
+            and np.isfinite(q['potential_energy'])):
+        raise RuntimeError(f"{what}: non-finite state")
+    t_mean = float(np.mean(temps))
+    if abs(t_mean - KA_TEMP) > KA_TEMP_TOL:
+        raise RuntimeError(f"{what}: mean T over the NVT window {t_mean:.4f} "
+                           f"outside {KA_TEMP} +- {KA_TEMP_TOL}")
+    tid = snap.particles.typeid
+    per_type = np.bincount(tid, minlength=2).tolist()
+    c = system._fast_carry
+    live = c.tag >= 0
+    tid0 = torch.as_tensor(typeid0, device=c.typ.device, dtype=c.typ.dtype)
+    carried = bool(torch.equal(c.typ[live], tid0[c.tag[live].long()]))
+    if (per_type != [len(tid) - KA_NB, KA_NB]
+            or not np.array_equal(tid, typeid0) or not carried):
+        raise RuntimeError(f"{what}: types per tag lost ({per_type}, the "
+                           f"carry's types its tags': {carried})")
+    fast = system._program['fast']
+    if (fast['ntypes'], fast['rebin_impl'], fast['mega'], fast['fused']) != (
+            2, 'sort', False, False):
+        raise RuntimeError(f"{what}: not the mixture's program ({fast})")
+    if counts[kname] <= 0:
+        raise RuntimeError(f"{what} never launched {kname}")
+    single = [k for k in ('cell_pair_plane', 'cell_megastep_planes',
+                          'cell_step_plane_planes', 'cell_pair_planar',
+                          'cell_pair_planar_n3l') if counts[k]]
+    if single:
+        raise RuntimeError(f"{what} launched single-type kernels {single}")
+    check_rebin_lost(system, what)
+    return q
+
+
+def ka_job(card):
+    """The KA job script at N = 64 000 on the card (ka_script, a window of
+    1000 NVT steps): the gates of check_ka with the typed planar kernel
+    on every step; a timed 500-step window, the device's busy share and
+    the kernel's device time per launch over 50 profiled steps, its
+    wrapper call's time on the end state and its F, PE and virial
+    against the plain version's there; then a 1000-step NVE
+    continuation, gated on its energy drift as the fused job.  Returns
+    the launch counts of the script's run."""
+    import torch
+    import hoomd_tpu_torch as hoomd
+    from hoomd_tpu_torch import md
+    from hoomd_tpu_torch.ops import cell_pair as cp
+    t_job = time.perf_counter()
+    hoomd.context.initialize("--mode=gpu --notice-level=0")
+    reset_launch_counts()
+    system, typeid0, temps = ka_script(hoomd, nvt_steps=1000)
+    counts = launch_counts()
+    what = 'KA job'
+    q = check_ka(system, typeid0, temps, counts, 'cell_pair_planar_typed',
+                 what)
+    N = system.state.N
+    fast = system._program['fast']
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    system.run(500, quiet=True)
+    ms = (time.perf_counter() - t0) * 2.0
+    busy, k_dev = device_profile(lambda: system.run(50, quiet=True),
+                                 f'50 steps of the {what}', top=6,
+                                 per_launch='cell_pair_typed_kernel')
+    # the typed kernel on the end state, against its plain version
+    c = system._fast_carry
+    _, sh = cp.build_cell_shifts(fast['cell_dim'],
+                                 system._state_raw.box.L.cpu().numpy())
+    sh = torch.as_tensor(sh, dtype=torch.float32, device=c.pos.device)
+    kw = dict(C=fast['C'], cell_tag=c.tag, pnames=fast['pnames'], ntypes=2,
+              cell_typ=c.typ)
+    pv = system._dyn['fast']['pv']
+
+    def kern():
+        return cp.cell_pair_planar(c.pos, fast['cell_dim'], sh, pv, **kw)
+    want = cp.cell_pair_planar_plain(c.pos, fast['cell_dim'], sh, pv,
+                                     cell_tag=c.tag, ntypes=2, cell_typ=c.typ)
+    ea, _ = compare(f'cell_pair_planar typed [{what} end state]',
+                    [(lab, g, w, RTOL, ATOL) for lab, g, w in
+                     zip(('F', 'pe', 'virial'), kern(), want)])
+    k_ms = cuda_ms(kern, 20)
+    print(f"{what}: plan cell_dim={fast['cell_dim']} C={fast['C']} "
+          f"k={fast['k_rebuild']} rebin={fast['rebin_impl']} "
+          f"impl={fast['impl']}; NVT T over the window {np.mean(temps):.5f} "
+          f"(reads {', '.join(f'{t:.4f}' for t in temps)}), "
+          f"T={q['temperature']:.5f} PE/N={q['potential_energy'] / N:.5f} "
+          f"P={q['pressure']:.4f}; {system.fast_stats}, grow {system._grow}; "
+          f"{ms:.4f} ms/step over 500 steps, busy share {busy:.4f}; the typed "
+          f"planar kernel {k_dev:.4f} ms per launch on the device in the "
+          f"profiled steps, {k_ms:.4f} ms per wrapper call on the end state "
+          f"(CUDA events), max_abs_err {ea:.3e} against its plain version "
+          f"there; launches={counts}", flush=True)
+    # NVE continuation
+    for m in system.methods:
+        m.disable()
+    md.integrate.nve(group=hoomd.group.all())
+    q0 = system.thermo_quantities()
+    reset_launch_counts()
+    system.run(1000, quiet=True)
+    nve_counts = launch_counts()
+    q1 = system.thermo_quantities()
+    e0 = q0['kinetic_energy'] + q0['potential_energy']
+    e1 = q1['kinetic_energy'] + q1['potential_energy']
+    drift = abs(e1 - e0) / N
+    print(f"{what} NVE continuation: E/N {e0 / N:.6f} -> {e1 / N:.6f}, drift "
+          f"{drift:.3e} per particle over 1000 steps at dt = 0.005, "
+          f"T={q1['temperature']:.5f}, {system.fast_stats}, "
+          f"launches={nve_counts}; the job took "
+          f"{time.perf_counter() - t_job:.1f} s", flush=True)
+    if not np.isfinite(e1) or drift >= NVE_DRIFT_MAX:
+        raise RuntimeError(f"{what} NVE: energy drift {drift:.3e} per "
+                           f"particle per 1000 steps (bound {NVE_DRIFT_MAX})")
+    if nve_counts['cell_pair_planar_typed'] <= 0:
+        raise RuntimeError(f"the {what}'s NVE continuation never launched "
+                           f"the typed planar kernel")
+    return counts
+
+
+def ka_n3l_job():
+    """The KA job script with HOOMD_TPU_FAST_IMPL=planar_n3l at N = 64 000,
+    a window of 300 NVT steps: the gates of check_ka with the typed half
+    stencil on every step (the typed planar kernel at the PE and virial
+    reads), and the ms per step of a timed 100-step window.  Returns the
+    launch counts of the script's run."""
+    import torch
+    import hoomd_tpu_torch as hoomd
+    t_job = time.perf_counter()
+    what = 'HOOMD_TPU_FAST_IMPL=planar_n3l KA job'
+    os.environ['HOOMD_TPU_FAST_IMPL'] = 'planar_n3l'
+    try:
+        hoomd.context.initialize("--mode=gpu --notice-level=0")
+        reset_launch_counts()
+        system, typeid0, temps = ka_script(hoomd, nvt_steps=300)
+        counts = launch_counts()
+        q = check_ka(system, typeid0, temps, counts,
+                     'cell_pair_planar_n3l_typed', what)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        system.run(100, quiet=True)
+        ms = (time.perf_counter() - t0) * 10.0
+    finally:
+        os.environ.pop('HOOMD_TPU_FAST_IMPL')
+    N = system.state.N
+    print(f"{what}: NVT T over the window {np.mean(temps):.5f}, "
+          f"T={q['temperature']:.5f} PE/N={q['potential_energy'] / N:.5f}, "
+          f"{system.fast_stats}, {ms:.4f} ms/step over 100 steps, "
+          f"launches={counts}; the job took "
+          f"{time.perf_counter() - t_job:.1f} s", flush=True)
+    return counts
+
+
+def ka_cells(dev, ntypes, jitter=0.05, seed=5):
+    """The cell-major carry of the KA start (ka_snapshot), jittered by up
+    to ``jitter`` lattice spacings, on the engine's plan of it: two types
+    80:20, or for ntypes > 2 a type drawn uniformly per particle.
+    Returns (carry, L, N, cell_dim, C)."""
+    from hoomd_tpu_torch import data
+    from hoomd_tpu_torch.ops.fast_lj import build_fast_lj_chunk, plan_fast_lj
+    from hoomd_tpu_torch.state import state_from_snapshot
+    snap = ka_snapshot(data, seed=seed)
+    N = snap.particles.N
+    rng = np.random.RandomState(seed + 1)
+    snap.particles.position[:] += rng.uniform(-jitter, jitter, (N, 3)) * KA_A
+    if ntypes > 2:
+        snap.particles.types = ['A', 'B', 'C', 'D'][:ntypes]
+        snap.particles.typeid[:] = rng.randint(0, ntypes, N)
+    st = state_from_snapshot(snap, dev)
+    L = st.box.L.cpu().numpy().astype(np.float64)
+    frac = (snap.particles.position / L + 0.5) % 1.0
+    cdim, _, C = plan_fast_lj(N, L, 2.5, 0.4, frac=frac)
+    to_fast = build_fast_lj_chunk(
+        N=N, box=st.box, cell_dim=cdim, C=C, r_buff=0.4, rcut=2.5,
+        method_kind='nvt', method_seed=0, ntypes=ntypes, device=dev)[0]
+    carry = to_fast(st, {})
+    if bool(carry.overflow):
+        raise RuntimeError(f"the KA fill overflows C={C} on {cdim}")
+    return carry, L, N, tuple(cdim), C
+
+
+def typed_table(name, ntypes, dev):
+    """The (2 + NP, T, T) shift-mode table [rc2, e_shift, *pnames] of
+    evaluator ``name``, derived in float32 as the System derives it: for
+    lj with two types the KA mixture's; else the evaluator's job
+    coefficients (EVAL_JOBS; lj at epsilon = sigma = 1, r_cut 2.5) with
+    every coefficient and r_cut scaled per pair (a, b) by
+    0.95 + 0.1 (a + b) / (2 T - 2).  Returns (table, pnames)."""
+    import torch
+    from hoomd_tpu_torch.ops import pair_eval
+    ev = pair_eval.ALL_EVALUATORS[name]
+    a = np.arange(ntypes)
+    if name == 'lj' and ntypes == 2:
+        eps = np.array([[1.0, 1.5], [1.5, 0.5]], np.float32)
+        sig = np.array([[1.0, 0.8], [0.8, 0.88]], np.float32)
+        raw = {'epsilon': eps, 'sigma': sig,
+               'alpha': np.ones((2, 2), np.float32)}
+        rc = (np.float32(2.5) * sig).astype(np.float32)
+    else:
+        coeffs, rc0 = EVAL_JOBS.get(name, (dict(epsilon=1.0, sigma=1.0), 2.5))
+        f = (0.95 + 0.1 * (a[:, None] + a[None, :]) / (2 * ntypes - 2))
+        raw = dict(ev.defaults)
+        raw.update(coeffs)
+        raw = {k: (np.float32(v) * f).astype(np.float32)
+               for k, v in raw.items()}
+        rc = (np.float32(rc0) * f).astype(np.float32)
+    tab = {k: torch.as_tensor(np.asarray(v, np.float32), device=dev)
+           for k, v in ev.derive(raw).items()}
+    tab['rcut'] = torch.as_tensor(rc, device=dev)
+    rc2 = tab['rcut'] * tab['rcut']
+    _, es = ev.energy_force(rc2, tab)
+    pn = pair_eval.kernel_pnames(name)
+    return torch.stack([rc2, es] + [tab[k] for k in pn]).float(), pn
+
+
+def typed_pair_counts(pos, tag, typ, cdim, sh, rc2):
+    """Candidate pairs (two live slots of the 27-cell stencil, not the
+    same particle) and pairs inside their own r_cut (rc2 the (T, T)
+    table), of a typed cell-major fill."""
+    import torch
+    from hoomd_tpu_torch.ops import cell_pair as cp
+    adj = torch.as_tensor(cp._adjacency_np(tuple(cdim)), dtype=torch.int64,
+                          device=pos.device)
+    live = tag >= 0
+    ti = typ.long()
+    C = pos.shape[1]
+    eye = torch.eye(C, dtype=torch.bool, device=pos.device)
+    cand = inr = 0
+    for o in range(27):
+        nb = pos[adj[:, o]] + sh[:, o, None, :]
+        d = pos[:, :, None, :] - nb[:, None, :, :]
+        ok = live[:, :, None] & live[adj[:, o]][:, None, :]
+        if o == 13:
+            ok &= ~eye
+        cand += int(ok.sum())
+        cut = rc2[ti[:, :, None], ti[adj[:, o]][:, None, :]]
+        inr += int((ok & ((d * d).sum(-1) < cut)).sum())
+    return cand, inr
+
+
+def typed_bounds(pos, tag, typ, cdim, sh, pv):
+    """Bound of the two typed kernels at this fill, with the pairs inside
+    each pair's own r_cut, and the type plane and the table among the
+    bytes.  The function needs each unordered pair once: 8 operations
+    per candidate, 15 more per pair inside its r_cut for the force and
+    3 for the -F on j; the planar kernel's PE and virial 12 more per
+    pair (half of each to each side).  The kernels' own work (the full
+    stencil evaluates each pair from both sides) does not count; rows 2
+    and 3 of lj_bounds still count ordered pairs."""
+    cand, inr = typed_pair_counts(pos, tag, typ, cdim, sh, pv[0])
+    slots = pos.shape[0] * pos.shape[1]
+    P = slots * 4
+    inb = 3 * P + P + P + sh.numel() * 4 + pv.numel() * 4
+    return {
+        'cell_pair_planar_typed': bound(inb + 10 * P,
+                                        (8 * cand + 30 * inr) / 2),
+        'cell_pair_planar_n3l_typed': bound(inb + 3 * P,
+                                            (8 * cand + 18 * inr) / 2),
+    }, cand, inr
+
+
+def typed_kernel_phases(dev):
+    """At the KA shape (ka_cells: 64 000 particles, the KA plan), for
+    every evaluator: the typed planar kernel (T = 2, 4) and the half
+    stencil (T = 1, 2, 4) against their plain versions, element by
+    element (RTOL and the evaluator's ATOL), each with its CUDA-event
+    time; for lj with two types, the KA mixture's own table, with the
+    plain version's time, the device time and the bound.  Returns the
+    rows of the two typed kernels and the times of every variant."""
+    import torch
+    from hoomd_tpu_torch.ops import cell_pair as cp
+    rows, times = {}, {}
+    for T in (1, 2, 4):
+        carry, L, N, cdim, C = ka_cells(dev, max(T, 2))
+        _, sh = cp.build_cell_shifts(cdim, L)
+        sh = torch.as_tensor(sh, dtype=torch.float32, device=dev)
+        pos, tag, typ = carry.pos, carry.tag, carry.typ
+        for name in ['lj'] + list(EVAL_JOBS):
+            atol = EVAL_ATOL.get(name, ATOL)
+            if T > 1:
+                pv, pn = typed_table(name, T, dev)
+            elif name == 'lj':
+                pv, pn = lj_params(dev)[0], cp.LJ_PNAMES
+            else:
+                pv, pn = eval_params(name, dev)[:2]
+            kw = dict(eval_name=name, pnames=pn, ntypes=T, cell_typ=typ)
+            calls = {'cell_pair_planar_n3l': (
+                lambda: cp.cell_pair_planar_n3l(pos, cdim, sh, pv, C=C,
+                                                cell_tag=tag, **kw),
+                lambda: cp.cell_pair_planar_n3l_plain(pos, cdim, sh, pv,
+                                                      cell_tag=tag, **kw))}
+            if T > 1:
+                calls['cell_pair_planar'] = (
+                    lambda: cp.cell_pair_planar(pos, cdim, sh, pv, C=C,
+                                                cell_tag=tag, **kw),
+                    lambda: cp.cell_pair_planar_plain(pos, cdim, sh, pv,
+                                                      cell_tag=tag, **kw))
+            for kname, (kern, plain) in calls.items():
+                got, want = kern(), plain()
+                if not isinstance(got, tuple):
+                    got, want = (got,), (want,)
+                label = f'{kname}[{name}, T={T}, KA shape]'
+                ea, er = compare(label, [
+                    (lab, g, w, RTOL, atol)
+                    for lab, g, w in zip(('F', 'pe', 'virial'), got, want)])
+                ka = name == 'lj' and T == 2
+                ms = cuda_ms(kern, 50 if ka else 5)
+                times.setdefault(kname, {}).setdefault(name, {})[T] = ms
+                if ka:
+                    key = kname + '_typed'
+                    rows[key] = dict(max_abs_err=ea, bound_share=er, ms=ms,
+                                     plain_ms=cuda_ms(plain, 3),
+                                     device_ms=device_ms(kern, 10))
+        if T == 2:
+            b, cand, inr = typed_bounds(pos, tag, typ, cdim, sh,
+                                        typed_table('lj', 2, dev)[0])
+            for key, (b_ms, b_by) in b.items():
+                rows[key].update(bound_ms=b_ms, bound_by=b_by)
+                r = rows[key]
+                print(f"phase {key} [KA lj, cell_dim={cdim} C={C} N={N}, "
+                      f"{cand} candidate pairs, {inr} inside r_cut]: "
+                      f"max_abs_err={r['max_abs_err']:.3e} "
+                      f"kernel_ms={r['ms']:.4f} "
+                      f"device_ms={r['device_ms']:.4f} "
+                      f"plain_ms={r['plain_ms']:.4f} bound_ms={b_ms:.6f} "
+                      f"({b_by})", flush=True)
+        print(f"phase typed kernels T={T} [KA shape cell_dim={cdim} C={C}]: "
+              + ', '.join(f"{k}[{n}] {t[n][T]:.4f} ms" for k, t in
+                          times.items() for n in t if T in t[n]), flush=True)
+    return rows, times
 
 
 # ---------------------------------------------------------------------------
@@ -2143,10 +2588,12 @@ def hpmc_kernel_phases():
     return out
 
 
-def device_profile(run, what, top=8):
+def device_profile(run, what, top=8, per_launch=None):
     """torch.profiler over run(): wall time, summed device kernel time,
     their ratio (the device's busy share; the profiler inflates host
-    time) and the device time of the top kernels."""
+    time) and the device time of the top kernels.  Returns the busy
+    share; with ``per_launch`` (a kernel name, or part of one) also the
+    device ms per launch of the kernels so named."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2170,7 +2617,11 @@ def device_profile(run, what, top=8):
           f"{dev:.3f} ms, busy share {dev / (wall * 1e3):.4f}", flush=True)
     for t, count, key in sorted(rows, reverse=True)[:top]:
         print(f"  {t / 1e3:9.3f} ms {count:6d}x  {key[:80]}", flush=True)
-    return dev / (wall * 1e3)
+    if per_launch is None:
+        return dev / (wall * 1e3)
+    named = [(t, n) for t, n, key in rows if per_launch in key]
+    return (dev / (wall * 1e3),
+            sum(t for t, _ in named) / 1e3 / max(sum(n for _, n in named), 1))
 
 
 def hpmc_job(kind, card):
@@ -2258,6 +2709,8 @@ def main():
         if name in eval_rows:
             eval_rows[name]['cell_megastep_planes'] = dict(ms=ms)
     rows.update(impl_kernel_phases(dev))
+    typed_rows, typed_ms = typed_kernel_phases(dev)
+    rows.update(typed_rows)
     rows.update(rebin_kernel_phases(dev))
     rows.update(hpmc_kernel_phases())
     print(f"kernel phases done at {time.perf_counter() - t0:.1f} s",
@@ -2278,6 +2731,9 @@ def main():
     launches['cell_step_plane_planes'] = fused_job()['cell_step_plane_planes']
     for name in EVAL_JOBS:
         eval_job(name)
+    launches['cell_pair_planar_typed'] = ka_job(card)['cell_pair_planar_typed']
+    launches['cell_pair_planar_n3l_typed'] = ka_n3l_job()[
+        'cell_pair_planar_n3l_typed']
     print(f"MD jobs done at {time.perf_counter() - t0:.1f} s", flush=True)
     launches['fused_poly_sweep'] = hpmc_job('cube', card)['fused_poly_sweep']
     launches['fused_sphere_sweep'] = hpmc_job('sphere', card)[
@@ -2299,6 +2755,12 @@ def main():
                              'cell_pair_impls.cu'),
         'cell_pair_planar_n3l': ('hoomd_tpu/ops/pallas_pair.py:937',
                                  'cell_pair_impls.cu'),
+        # the typed branches of the same two TPU kernels (pallas_pair.py
+        # :666-691, :944-990)
+        'cell_pair_planar_typed': ('hoomd_tpu/ops/pallas_pair.py:609',
+                                   'cell_pair_typed.cu'),
+        'cell_pair_planar_n3l_typed': ('hoomd_tpu/ops/pallas_pair.py:937',
+                                       'cell_pair_impls.cu'),
         'fused_poly_sweep': ('hoomd_tpu/hpmc/pallas_sweep.py:293',
                              'hpmc_sweep.cu'),
         'fused_sphere_sweep': ('hoomd_tpu/hpmc/pallas_sweep.py:50',
@@ -2325,6 +2787,9 @@ def main():
     print(json.dumps({"evaluator_kernels_ms": {
         name: {k: r['ms'] for k, r in row.items()}
         for name, row in eval_rows.items()}}), flush=True)
+    # the half stencil and the typed planar kernel at the KA shape, per
+    # evaluator and number of types
+    print(json.dumps({"typed_kernels_ms": typed_ms}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,9 +16,10 @@ hoomd``:
     md.integrate.nvt(group=hoomd.group.all(), kT=1.2, tau=0.5)
     hoomd.run(1000)
 
-The port so far runs two paths.  MD: the single-type LJ liquid on the
-cell-major engine (nve, nvt, langevin), on any of the JAX package's
-force paths (HOOMD_TPU_FAST_IMPL).  HPMC: hard spheres and one-type
+The port so far runs two paths.  MD: a liquid of one to four particle
+types with one of ten pair potentials on the cell-major engine (nve,
+nvt, langevin), on the JAX package's force paths (HOOMD_TPU_FAST_IMPL;
+a mixture on those that take one).  HPMC: hard spheres and one-type
 convex polyhedra on the fused checkerboard sweep:
 
     hoomd.context.initialize('--mode=gpu')

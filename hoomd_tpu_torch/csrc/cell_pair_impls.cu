@@ -15,12 +15,17 @@
 //                         dx = -1, 0, +1; forces.
 // hoomd_cell_pair_n3l     replaces pallas_pair.py:_kernel_planar_n3l
 //                         ('planar_n3l'): the half stencil, each pair once and
-//                         its -F put on the other particle; forces.
+//                         its -F put on the other particle; forces.  Like the
+//                         TPU kernel it takes any of the ten evaluators, and
+//                         a mixture of up to kMaxTypes types (its typed
+//                         branch, pallas_pair.py:944-990) through the
+//                         per-pair table lookup of cell_stencil.cuh.
 //
 // All four take the rules of cell_stencil.cuh: validity from tag >= 0, the
 // self pair excluded by index, dr = xi - (xj + shift) directly (the TPU's
 // 'pallas' kernel forms r^2 as |xi|^2 + |xj|^2 - 2 xi.xj for its matrix
-// unit, which loses digits at |x| ~ 20), the exact divide.
+// unit, which loses digits at |x| ~ 20), the exact divide.  The first three
+// are LJ only and single-type, as their TPU kernels are.
 //
 // What bounds them on this card: as for cell_pair.cu, the pair loop.  At
 // the 64k bench plan (2352 cells, C = 40) the full stencil visits 102M
@@ -48,7 +53,11 @@
 //     (13, M, 3) buffer (each (neighbour, e) has one source cell, so no
 //     two blocks write one entry), and a second launch adds the 13 planes
 //     to the forces in plane order.  The sums are deterministic: the same
-//     inputs give the same bits, run after run.
+//     inputs give the same bits, run after run.  A mixture's variant
+//     stages each candidate's type in its validity byte and the table in
+//     shared memory, and each thread keeps the row of its own type in
+//     registers; the single-type variants read [rc2, e_shift, *pnames]
+//     as before.
 // Every C entry point returns cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -226,7 +235,8 @@ __global__ void lj_row_kernel(const float* __restrict__ pos, const int* __restri
 }
 
 // ---------------------------------------------------------------------------
-// n3l: the half stencil.  par = [rc2, e_shift, lj1, lj2, ...].
+// n3l: the half stencil.  par = [rc2, e_shift, *pnames] of one type, or the
+// (2 + np, T, T) table of a mixture (TYPED).
 
 // Entry e of the half stencil: the own cell, (0,0,+1), the (dz, dy) = (0,+1)
 // row, then the (+1,-1), (+1,0) and (+1,+1) rows, dx = -1, 0, +1 in each.
@@ -248,17 +258,28 @@ __device__ __forceinline__ void n3l_offset(const int e, int& dz, int& dy, int& d
 
 constexpr int kN3lEntries = 14;
 
-__global__ void lj_n3l_kernel(const float* __restrict__ pos, const int* __restrict__ tag,
-                              const float* __restrict__ shifts, const float* __restrict__ par,
-                              const Geom g, float* __restrict__ frc, float* __restrict__ part) {
+// Shared memory of one block: a staged cell, the warps' j-side rows, the
+// table of a mixture (ntab floats, 0 for one type) and the validity bytes.
+static inline size_t n3l_smem_bytes(const int C, const int threads, const int ntab) {
+    return (size_t)3 * C * sizeof(float) + (size_t)(threads / 32) * 3 * C * sizeof(float) +
+           (size_t)ntab * sizeof(float) + C;
+}
+
+template <int EV, bool TYPED>
+__global__ void n3l_kernel(const float* __restrict__ pos, const int* __restrict__ tag,
+                           const int* __restrict__ typ, const float* __restrict__ shifts,
+                           const float* __restrict__ par, const int np, const int T,
+                           const Geom g, float* __restrict__ frc, float* __restrict__ part) {
     extern __shared__ float smem[];
     const int C = g.C;
     const int nw = blockDim.x >> 5;
+    const int ntab = TYPED ? (2 + np) * T * T : 0;
     float* sx = smem;
     float* sy = sx + C;
     float* sz = sy + C;
     float* accj = sz + C;                       // [warp][axis][C]
-    unsigned char* sv = reinterpret_cast<unsigned char*>(accj + nw * 3 * C);
+    float* tab = accj + nw * 3 * C;
+    unsigned char* sv = reinterpret_cast<unsigned char*>(tab + ntab);
     const int cell = blockIdx.x;
     const int ix = cell % g.nx, iy = (cell / g.nx) % g.ny, iz = cell / (g.nx * g.ny);
     const long long M = (long long)g.nx * g.ny * g.nz * C;
@@ -272,7 +293,15 @@ __global__ void lj_n3l_kernel(const float* __restrict__ pos, const int* __restri
         yi = pos[slot * 3 + 1];
         zi = pos[slot * 3 + 2];
     }
-    const PairPar lj = lj_par(par[0], par[1], par[2], par[3]);
+    PairPar P;
+    TypedRow R;
+    if constexpr (TYPED) {
+        stage_table(par, ntab, tab);
+        __syncthreads();
+        R = load_typed_row(tab, np, T, vi ? min(max(typ[slot], 0), T - 1) : 0);
+    } else {
+        P = load_pair_par(par, np);
+    }
     float acc[3] = {0.f, 0.f, 0.f};
     for (int e = 0; e < kN3lEntries; ++e) {
         int dz, dy, dx;
@@ -284,7 +313,10 @@ __global__ void lj_n3l_kernel(const float* __restrict__ pos, const int* __restri
             sx[t] = pos[js * 3 + 0] + shc[3 * k + 0];
             sy[t] = pos[js * 3 + 1] + shc[3 * k + 1];
             sz[t] = pos[js * 3 + 2] + shc[3 * k + 2];
-            sv[t] = tag[js] >= 0;
+            if constexpr (TYPED)
+                sv[t] = type_byte(tag[js], typ[js], T);
+            else
+                sv[t] = tag[js] >= 0;
         }
         for (int t = threadIdx.x; t < nw * 3 * C; t += blockDim.x) accj[t] = 0.0f;
         __syncthreads();
@@ -295,7 +327,11 @@ __global__ void lj_n3l_kernel(const float* __restrict__ pos, const int* __restri
                 const int j = jt + ((lane + s) & 31);
                 if (vi && j < C && sv[j] && (e != 0 || j > i)) {
                     float f[3] = {0.f, 0.f, 0.f};
-                    pair_acc<EV_LJ, false, false>(xi - sx[j], yi - sy[j], zi - sz[j], lj, f);
+                    if constexpr (TYPED)
+                        typed_pair_acc<EV, false>(xi - sx[j], yi - sy[j], zi - sz[j], R,
+                                                  sv[j] - 1, f);
+                    else
+                        pair_acc<EV, false, false>(xi - sx[j], yi - sy[j], zi - sz[j], P, f);
                     for (int a = 0; a < 3; ++a) {
                         acc[a] += f[a];
                         aj[a * C + j] -= f[a];
@@ -330,6 +366,19 @@ __global__ void n3l_fold_kernel(float* __restrict__ frc, const float* __restrict
     float f = frc[q];
     for (int o = 0; o < kN3lEntries - 1; ++o) f += part[o * n3 + q];
     frc[q] = f;
+}
+
+template <int EV, bool TYPED>
+static cudaError_t launch_n3l(const float* pos, const int* tag, const int* typ,
+                              const float* shifts, const float* par, const int np, const int T,
+                              float* frc, float* part, const Geom g, cudaStream_t st) {
+    const int threads = threads_for(g.C);
+    const size_t smem = n3l_smem_bytes(g.C, threads, TYPED ? (2 + np) * T * T : 0);
+    cudaError_t e = set_smem(n3l_kernel<EV, TYPED>, smem);
+    if (e != cudaSuccess) return e;
+    n3l_kernel<EV, TYPED><<<g.nx * g.ny * g.nz, threads, smem, st>>>(pos, tag, typ, shifts, par,
+                                                                     np, T, g, frc, part);
+    return cudaGetLastError();
 }
 
 }  // namespace hoomd_torch
@@ -377,20 +426,24 @@ int hoomd_cell_pair_lj_row(const float* pos, const int* tag, const float* shifts
     return cudaGetLastError();
 }
 
-// pos, tag, shifts as above, par [rc2, e_shift, lj1, lj2, ...]; frc
-// (nc, C, 3); part a (13, nc * C, 3) scratch buffer.  Two launches.
-int hoomd_cell_pair_n3l(const float* pos, const int* tag, const float* shifts,
-                        const float* par, float* frc, float* part, int nx, int ny, int nz, int C,
-                        void* stream) {
+// pos, tag, shifts as above, typ (nc, C) (a mixture only, else null), par
+// [rc2, e_shift, *pnames] of evaluator ev, or with ntypes > 1 the
+// (2 + np, ntypes, ntypes) table; frc (nc, C, 3); part a (13, nc * C, 3)
+// scratch buffer.  Two launches.
+int hoomd_cell_pair_n3l(const float* pos, const int* tag, const int* typ, const float* shifts,
+                        const float* par, int np, int ntypes, float* frc, float* part, int nx,
+                        int ny, int nz, int C, int ev, void* stream) {
+    if (ntypes < 1 || ntypes > kMaxTypes || np < 0 || np > kMaxPnames)
+        return cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int threads = threads_for(C);
-    const size_t smem =
-        (size_t)3 * C * sizeof(float) + (size_t)(threads / 32) * 3 * C * sizeof(float) + C;
-    cudaError_t e = set_smem(lj_n3l_kernel, smem);
+    const Geom g{nx, ny, nz, C};
+    cudaError_t e = dispatch_eval(ev, [&](auto t) {
+        constexpr int EV = decltype(t)::value;
+        return ntypes > 1
+                   ? launch_n3l<EV, true>(pos, tag, typ, shifts, par, np, ntypes, frc, part, g, st)
+                   : launch_n3l<EV, false>(pos, tag, typ, shifts, par, np, 1, frc, part, g, st);
+    });
     if (e != cudaSuccess) return e;
-    lj_n3l_kernel<<<nx * ny * nz, threads, smem, st>>>(pos, tag, shifts, par,
-                                                       Geom{nx, ny, nz, C}, frc, part);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
     const long long n3 = (long long)nx * ny * nz * C * 3;
     n3l_fold_kernel<<<(unsigned)((n3 + 255) / 256), 256, 0, st>>>(frc, part, n3);
     return cudaGetLastError();

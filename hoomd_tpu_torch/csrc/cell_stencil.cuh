@@ -1,5 +1,5 @@
 // 27-cell pair stencil shared by the cell kernels (cell_pair.cu,
-// cell_step.cu, cell_pair_impls.cu).
+// cell_pair_typed.cu, cell_step.cu, cell_pair_impls.cu).
 //
 // It computes what the TPU kernels of hoomd_tpu/ops/pallas_pair.py
 // compute (_kernel_plane, _kernel_planar, _kernel_step_plane, the force
@@ -247,6 +247,102 @@ __device__ inline void stencil_sum(const float xi, const float yi, const float z
     for (int t = 0; t < n; ++t) {
         if (!sv[t] || t == self) continue;
         pair_acc<EV, APPROX, PV>(xi - sx[t], yi - sy[t], zi - sz[t], P, acc);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// Mixtures of up to kMaxTypes particle types: the typed branches of
+// _kernel_planar and _kernel_planar_n3l.  The parameter table is the
+// (2 + np, T, T) tensor [rc2, e_shift, *pnames], entry [k, ti, tj] at
+// (k * T + ti) * T + tj.  The TPU mixes it per pair with one-hot sums (its
+// kernels have no gather); here a block copies the table into shared
+// memory once, each thread keeps the row of its own type ti in registers,
+// and a candidate of type tj selects column tj.  A staged candidate's
+// byte holds its type plus one, 0 for an invalid slot.
+constexpr int kMaxTypes = 4;
+constexpr int kParRows = 2 + kMaxPnames;
+
+// The staging byte of a slot: 0 for padding, else its type plus one, the
+// type clamped to [0, T) so that no lookup leaves the table.
+__device__ __forceinline__ unsigned char type_byte(const int tag, const int typ, const int T) {
+    return tag >= 0 ? (unsigned char)(min(max(typ, 0), T - 1) + 1) : (unsigned char)0;
+}
+
+// The table into shared memory, block-wide (the caller synchronises).
+__device__ inline void stage_table(const float* __restrict__ par, const int n, float* tab) {
+    for (int t = threadIdx.x; t < n; t += blockDim.x) tab[t] = par[t];
+}
+
+// As stage_stencil, with each candidate's type byte.
+__device__ inline void stage_stencil_typed(const Vec3 pos, const int* __restrict__ tag,
+                                           const int* __restrict__ typ, const int T,
+                                           const float* __restrict__ shifts, const Geom g,
+                                           const int cell, float* sx, float* sy, float* sz,
+                                           unsigned char* sv) {
+    const int n = 27 * g.C;
+    for (int t = threadIdx.x; t < n; t += blockDim.x) {
+        const int k = t / g.C;
+        const long long slot = stencil_slot(g, cell, k, t - k * g.C);
+        const float* sh = shifts + ((long long)cell * 27 + k) * 3;
+        sx[t] = pos.at(slot, 0) + sh[0];
+        sy[t] = pos.at(slot, 1) + sh[1];
+        sz[t] = pos.at(slot, 2) + sh[2];
+        sv[t] = type_byte(tag[slot], typ[slot], T);
+    }
+}
+
+// Row ti of every parameter of the table in shared memory.
+struct TypedRow {
+    float v[kParRows][kMaxTypes];
+};
+
+__device__ __forceinline__ TypedRow load_typed_row(const float* tab, const int np, const int T,
+                                                   const int ti) {
+    TypedRow R;
+#pragma unroll
+    for (int k = 0; k < kParRows; ++k)
+#pragma unroll
+        for (int c = 0; c < kMaxTypes; ++c)
+            R.v[k][c] = (k < 2 + np && c < T) ? tab[(k * T + ti) * T + c] : 0.0f;
+    return R;
+}
+
+// Column tj of one row, selected in registers.
+__device__ __forceinline__ float pick(const float (&col)[kMaxTypes], const int tj) {
+    float x = col[0];
+#pragma unroll
+    for (int c = 1; c < kMaxTypes; ++c) x = tj == c ? col[c] : x;
+    return x;
+}
+
+// One candidate of type tj, as pair_acc with the pair's own parameters
+// (exact divide): the cut tests r^2 < rc2[ti, tj], r^2 rounded as
+// pair_acc rounds it, and only a pair inside it picks the others.
+template <int EV, bool PV>
+__device__ __forceinline__ void typed_pair_acc(const float dx, const float dy, const float dz,
+                                               const TypedRow& R, const int tj, float* acc) {
+    const float r2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                               __fmul_rn(dz, dz));
+    if (!(r2 < pick(R.v[0], tj))) return;
+    PairPar P;
+    P.rc2 = pick(R.v[0], tj);
+    P.e_shift = pick(R.v[1], tj);
+#pragma unroll
+    for (int k = 0; k < kMaxPnames; ++k) P.q[k] = pick(R.v[2 + k], tj);
+    pair_acc<EV, false, PV>(dx, dy, dz, P, acc);
+}
+
+// stencil_sum over typed candidates.
+template <int EV, bool PV>
+__device__ inline void typed_stencil_sum(const float xi, const float yi, const float zi,
+                                         const int self, const int n, const float* sx,
+                                         const float* sy, const float* sz,
+                                         const unsigned char* sv, const TypedRow& R,
+                                         float* acc) {
+    for (int t = 0; t < n; ++t) {
+        const int b = sv[t];
+        if (!b || t == self) continue;
+        typed_pair_acc<EV, PV>(xi - sx[t], yi - sy[t], zi - sz[t], R, b - 1, acc);
     }
 }
 

@@ -1,5 +1,5 @@
 """numpy arrays from the JAX package -> the port's objects (snapshots,
-fast-engine carries, LJ parameters, hull tables, cell planes).
+fast-engine carries, pair parameter tables, hull tables, cell planes).
 
 The parity tests feed both packages identical inputs through these
 functions: the JAX side's arrays go through numpy, never as JAX arrays.
@@ -42,6 +42,22 @@ def carry_from_numpy(fields, device='cpu'):
         dt = _CARRY_DTYPES.get(k, torch.float32)
         out[k] = torch.as_tensor(np.asarray(v), dtype=dt, device=device)
     return out
+
+
+def pair_tables_from_numpy(pv, ntypes, device='cpu', eval_name='lj'):
+    """The JAX package's fast-engine parameter array (its ``_fast_dyn()
+    ['pv']``: [rc2, e_shift, *pnames], (2 + NP,) for one type or the
+    (2 + NP, T, T) per-pair table of a mixture) -> the float32 tensor the
+    port's kernels take, after checking its shape against ``ntypes`` and
+    the kernel parameter order of ``eval_name`` (pair_eval.kernel_pnames)."""
+    from .ops import pair_eval
+    pv = np.array(pv, np.float32)
+    n = 2 + len(pair_eval.kernel_pnames(eval_name))
+    want = (n,) if ntypes == 1 else (n, ntypes, ntypes)
+    if pv.shape != want:
+        raise ValueError(f"{eval_name} with {ntypes} type(s) takes a table of "
+                         f"shape {want}, got {pv.shape}")
+    return torch.as_tensor(pv, device=device)
 
 
 def lj_params_from_numpy(pv, device='cpu'):

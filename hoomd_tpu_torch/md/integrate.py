@@ -53,7 +53,9 @@ class nve(_method):
 class langevin(_method):
     """Langevin dynamics: velocity Verlet with drag -gamma v and uniform
     random kicks sqrt(6 gamma kT / dt) * U(-1, 1) in the second half
-    step, keyed by (seed, timestep, tag, axis)."""
+    step, keyed by (seed, timestep, tag, axis).  gamma is per type
+    (set_gamma, default 1.0): each particle takes its own type's, which
+    reaches the engine as a (T,) table."""
 
     def __init__(self, group, kT, seed, dscale=False, tally=False,
                  noiseless_t=False, noiseless_r=False):

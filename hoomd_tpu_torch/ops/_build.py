@@ -45,7 +45,9 @@ _SIGNATURES = {
     'hoomd_cell_pair_lj': [P, P, P, P, P, P, P, P, I, I, P],
     'hoomd_cell_pair_lj3d': [P, P, P, P, P, I, I, I, I, P],
     'hoomd_cell_pair_lj_row': [P, P, P, P, P, I, I, I, I, I, P],
-    'hoomd_cell_pair_n3l': [P, P, P, P, P, P, I, I, I, I, P],
+    'hoomd_cell_pair_n3l': [P, P, P, P, P, I, I, P, P, I, I, I, I, I, P],
+    'hoomd_cell_pair_planar_typed': [P, P, P, P, P, I, I, P, P, P, I, I, I,
+                                     I, I, I, P],
     'hoomd_hpmc_sphere_sweep': [P, P, P, P, P, P, P, P, I, P,
                                 I, I, I, I, F, F, F, P],
     'hoomd_hpmc_poly_sweep': [P, P, P, P, P, P, P, P, P, P, I, P,

@@ -18,20 +18,28 @@ built once per rebuild from the reference positions.
 These four take any of the ten pair evaluators of ops/pair_eval.py
 (``eval_name``, with the parameter vector [rc2, e_shift, *pnames] in the
 order of pair_eval.kernel_pnames).  The engine's other force paths
-(HOOMD_TPU_FAST_IMPL) run LJ only, one kernel each:
+(HOOMD_TPU_FAST_IMPL) run one kernel each, LJ only but for the half
+stencil:
 
   cell_pair_lj          (_kernel, 'pallas')        adjacency-listed cells;
                                                    forces, PE, virial
   cell_pair_lj_pallas3d (_kernel3d, 'pallas3d')    forces only
   cell_pair_lj_row      (_kernel_row, 'row')       forces only
-  cell_pair_planar_n3l  (_kernel_planar_n3l,       half stencil, forces only
-                         'planar_n3l')
+  cell_pair_planar_n3l  (_kernel_planar_n3l,       half stencil, forces
+                         'planar_n3l')             only, every evaluator
+
+A mixture of 2 to MAX_TYPES particle types (the typed branches of
+_kernel_planar and _kernel_planar_n3l) runs on cell_pair_planar and
+cell_pair_planar_n3l only: their ``ntypes`` and ``cell_typ`` arguments
+take the (2 + NP, T, T) per-pair table, and each has a typed kernel
+(csrc/cell_pair_typed.cu, csrc/cell_pair_impls.cu) with its own launch
+counter; the other kernels are single-type, as in the JAX engine.
 
 On a CUDA tensor a wrapper launches its hand-written kernel
-(csrc/cell_pair.cu, csrc/cell_step.cu, csrc/cell_pair_impls.cu, built by
-ops/_build.py) or raises; on a CPU tensor it runs the plain version.
-Nothing falls back from one to the other.  Each wrapper counts its
-launches in ``<wrapper>.launches``.
+(csrc/cell_pair.cu, csrc/cell_pair_typed.cu, csrc/cell_step.cu,
+csrc/cell_pair_impls.cu, built by ops/_build.py) or raises; on a CPU
+tensor it runs the plain version.  Nothing falls back from one to the
+other.  Each wrapper counts its launches in ``<wrapper>.launches``.
 
 Validity comes from the tag (>= 0), and the self pair is excluded by
 index, in the kernels and the plain versions alike.  ``cell_pair_xla``
@@ -51,6 +59,9 @@ from . import pair_eval
 # largest cell capacity the kernels take: 27*C*13 bytes of shared memory
 # per block and C threads per block
 MAX_C = 512
+# most particle types of a mixture (csrc/cell_stencil.cuh kMaxTypes; the
+# JAX engine's limit, hoomd_tpu/system.py:463)
+MAX_TYPES = 4
 
 
 def build_cell_shifts(cell_dim, box_L):
@@ -119,17 +130,28 @@ def _recip_flag(recip):
 # plain torch versions
 
 
+# the virial's six components, (u, w) of each, in the kernels' order
+VIRIAL_PAIRS = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
+
+
 def _stencil_plain(cell_pos, cell_tag, adj, cell_shift, params_vec,
-                   want_pv, eval_name='lj', pnames=LJ_PNAMES):
+                   want_pv, eval_name='lj', pnames=LJ_PNAMES, cell_typ=None):
     """Direct-dr stencil over all cells, each against the 27 cells of its
     row of ``adj`` (nc, 27) under the image shifts ``cell_shift``, chunked
     to bound memory.  A slot meets itself only in the entry that lists its
     own cell under a zero shift (the centre of build_cell_shifts's table).
+    With ``cell_typ`` (nc, C) params_vec is the (2 + NP, T, T) table of a
+    mixture, read per pair by the two slots' types: rc2 for every
+    candidate, the rest for the pairs inside it only, whose sums run over
+    those pairs alone.
     Returns F (nc, C, 3) and, with want_pv, pe (nc, C), vir (nc, C, 6)."""
     nc, C, _ = cell_pos.shape
     dev = cell_pos.device
     ev = _evaluator(eval_name, pnames)
-    rc2, e_shift, p = pair_eval.params_dict(params_vec, pnames)
+    if cell_typ is None:
+        rc2, e_shift, p = pair_eval.params_dict(params_vec, pnames)
+    else:
+        typ = cell_typ.long()
     adj = adj.long()
     own = ((adj == torch.arange(nc, device=dev)[:, None])
            & (cell_shift == 0).all(-1))                   # (nc, 27)
@@ -148,14 +170,37 @@ def _stencil_plain(cell_pos, cell_tag, adj, cell_shift, params_vec,
         xj = (cell_pos[a] + cell_shift[c0:c1, :, None, :]).reshape(
             n, 27 * C, 3)
         vj = valid[a].reshape(n, 27 * C)
+        if cell_typ is not None:
+            ti = typ[c0:c1, :, None].expand(n, C, 27 * C)
+            tj = typ[a].reshape(n, 1, 27 * C).expand(n, C, 27 * C)
+            rc2 = params_vec[0][ti, tj]
         xi = cell_pos[c0:c1]
-        dr = xi[:, :, None, :] - xj[:, None, :, :]        # (n, C, 27C, 3)
-        dx, dy, dz = dr[..., 0], dr[..., 1], dr[..., 2]
+        # dr = xi - xj by component, each (n, C, 27C) contiguous
+        xj = xj.permute(2, 0, 1)
+        dx, dy, dz = (xi[:, :, None, d] - xj[d][:, None, :] for d in range(3))
         r2 = dx * dx + dy * dy + dz * dz
         self_pair = (own[c0:c1, None, :, None]
                      & eye[None, :, None, :]).reshape(n, C, 27 * C)
         pair = (valid[c0:c1, :, None] & vj[:, None, :] & (r2 < rc2)
                 & ~self_pair)
+        if cell_typ is not None:
+            # the pairs inside their cut alone, each with its own
+            # parameters, summed on their slot in j order
+            at = pair.nonzero(as_tuple=True)
+            _, es_in, p_in = pair_eval.params_dict(params_vec, pnames,
+                                                   ti[at], tj[at])
+            r2_in = r2[at]
+            f_in, e_in = ev.energy_force(torch.clamp(r2_in, min=1e-3), p_in)
+            slot = (c0 + at[0]) * C + at[1]
+            d_in = torch.stack([dx[at], dy[at], dz[at]], dim=-1)
+            fd = f_in[:, None] * d_in
+            F.view(nc * C, 3).index_add_(0, slot, fd)
+            if want_pv:
+                e_in = torch.where(r2_in > 1e-6, e_in - es_in, 0.0)
+                pe.view(nc * C).index_add_(0, slot, 0.5 * e_in)
+                vir.view(nc * C, 6).index_add_(0, slot, 0.5 * torch.stack(
+                    [fd[:, u] * d_in[:, w] for u, w in VIRIAL_PAIRS], -1))
+            continue
         f_raw, e_raw = ev.energy_force(torch.clamp(r2, min=1e-3), p)
         fdivr = torch.where(pair, f_raw, 0.0)
         F[c0:c1] = torch.stack([(fdivr * dx).sum(-1), (fdivr * dy).sum(-1),
@@ -179,11 +224,14 @@ def cell_pair_plane_plain(cell_pos, cell_dim, cell_shift, params_vec, *,
 
 
 def cell_pair_planar_plain(cell_pos, cell_dim, cell_shift, params_vec, *,
-                           cell_tag, eval_name='lj', pnames=LJ_PNAMES):
-    """Plain torch version of cell_pair_planar: (F, pe, vir)."""
+                           cell_tag, eval_name='lj', pnames=LJ_PNAMES,
+                           ntypes=1, cell_typ=None):
+    """Plain torch version of cell_pair_planar: (F, pe, vir); with
+    ntypes > 1 the (2 + NP, T, T) table of a mixture and its cell_typ."""
     return _stencil_plain(cell_pos, cell_tag,
                           _adjacency(cell_dim, cell_pos.device), cell_shift,
-                          params_vec, True, eval_name, pnames)
+                          params_vec, True, eval_name, pnames,
+                          cell_typ if ntypes > 1 else None)
 
 
 def _pv_of_lj(lj_params):
@@ -224,14 +272,20 @@ N3L_ROWS = ((0, 0), (0, 1), (1, -1), (1, 0), (1, 1))
 
 
 def cell_pair_planar_n3l_plain(cell_pos, cell_dim, cell_shift, params_vec,
-                               *, cell_tag):
+                               *, cell_tag, eval_name='lj', pnames=LJ_PNAMES,
+                               ntypes=1, cell_typ=None):
     """Plain torch version of cell_pair_planar_n3l: it walks the half
     stencil itself.  Every pair is evaluated once, its force summed on
     the home cell's slot and its -F put back on the neighbour cell's
-    slot."""
+    slot; a mixture's pair reads table[k, t_home, t_neighbour]."""
     nc, C, _ = cell_pos.shape
     dev = cell_pos.device
-    rc2, _, p = pair_eval.params_dict(params_vec, LJ_PNAMES)
+    ev = _evaluator(eval_name, pnames)
+    typed = ntypes > 1
+    if typed:
+        typ = cell_typ.long()
+    else:
+        rc2, _, p = pair_eval.params_dict(params_vec, pnames)
     adj = _adjacency(cell_dim, dev)
     valid = cell_tag >= 0
     upper = torch.ones((C, C), dtype=torch.bool, device=dev).triu(1)
@@ -244,11 +298,14 @@ def cell_pair_planar_n3l_plain(cell_pos, cell_dim, cell_shift, params_vec,
             dr = cell_pos[:, :, None, :] - xj[:, None, :, :]  # (nc, C, C, 3)
             r2 = (dr[..., 0] * dr[..., 0] + dr[..., 1] * dr[..., 1]
                   + dr[..., 2] * dr[..., 2])
+            if typed:
+                rc2, _, p = pair_eval.params_dict(params_vec, pnames,
+                                                  typ[:, :, None],
+                                                  typ[nb][:, None, :])
             pair = valid[:, :, None] & valid[nb][:, None, :] & (r2 < rc2)
             if k == 13:
                 pair = pair & upper
-            f_raw, _ = pair_eval.lj.energy_force(torch.clamp(r2, min=1e-3),
-                                                 p)
+            f_raw, _ = ev.energy_force(torch.clamp(r2, min=1e-3), p)
             f = torch.where(pair, f_raw, 0.0)[..., None] * dr
             F += f.sum(2)
             F.index_add_(0, nb, -f.sum(1))
@@ -533,21 +590,35 @@ def _check_shapes(C, **shapes):
 
 
 def _check_pair_args(cell_pos, cell_tag, cell_dim, cell_shift, params_vec,
-                     C, eval_name, pnames):
-    """Shapes, and the evaluator: returns its kernel id."""
+                     C, eval_name, pnames, ntypes=1, cell_typ=None):
+    """Shapes, the types of a mixture, and the evaluator: returns its
+    kernel id."""
     nc = int(np.prod(cell_dim))
-    _check_shapes(C, cell_pos=(cell_pos, (nc, C, 3)),
+    shapes = dict(cell_pos=(cell_pos, (nc, C, 3)),
                   cell_tag=(cell_tag, (nc, C)),
                   cell_shift=(cell_shift, (nc, 27, 3)))
-    return _eval_id(eval_name, pnames, params_vec)
+    if ntypes > 1:
+        if cell_typ is None:
+            raise ValueError(f"a mixture of {ntypes} types needs cell_typ")
+        shapes['cell_typ'] = (cell_typ, (nc, C))
+    _check_shapes(C, **shapes)
+    return _eval_id(eval_name, pnames, params_vec, ntypes)
 
 
-def _eval_id(eval_name, pnames, params_vec):
+def _eval_id(eval_name, pnames, params_vec, ntypes=1):
     _evaluator(eval_name, pnames)
-    if params_vec.numel() != 2 + len(pnames):
+    if not 1 <= ntypes <= MAX_TYPES:
+        raise NotImplementedError(f"{ntypes} particle types: the kernels "
+                                  f"take 1 to {MAX_TYPES}")
+    if ntypes == 1 and params_vec.numel() != 2 + len(pnames):
         raise ValueError(f"params_vec needs [rc2, e_shift, "
                          f"{', '.join(pnames)}], got {params_vec.numel()} "
                          f"values")
+    want = (2 + len(pnames), ntypes, ntypes)
+    if ntypes > 1 and tuple(params_vec.shape) != want:
+        raise ValueError(f"params_vec of {ntypes} types needs the per-pair "
+                         f"table [rc2, e_shift, {', '.join(pnames)}] of shape "
+                         f"{want}, got {tuple(params_vec.shape)}")
     return pair_eval.EVAL_IDS[eval_name]
 
 
@@ -591,16 +662,27 @@ cell_pair_plane.launches = 0
 
 
 def cell_pair_planar(cell_pos, cell_dim, cell_shift, params_vec, *, C,
-                     cell_tag, eval_name='lj', pnames=LJ_PNAMES):
+                     cell_tag, eval_name='lj', pnames=LJ_PNAMES, ntypes=1,
+                     cell_typ=None, want_pv=True):
     """Forces, per-particle PE (1/2 per pair) and the 6-component virial
-    (1/2 per pair, order xx, xy, xz, yy, yz, zz) of the single-type
-    stencil of the pair evaluator ``eval_name`` (exact divide)."""
+    (1/2 per pair, order xx, xy, xz, yy, yz, zz) of the stencil of the
+    pair evaluator ``eval_name`` (exact divide); F alone with want_pv
+    False.  One type: params_vec = [rc2, e_shift, *pnames].  A mixture of
+    ntypes = 2..MAX_TYPES: params_vec is the (2 + NP, T, T) table, read
+    per pair (i, j) at [k, typ_i, typ_j], and cell_typ (nc, C) the slots'
+    types; its kernel (csrc/cell_pair_typed.cu) counts its launches in
+    ``typed_launches``."""
     ev = _check_pair_args(cell_pos, cell_tag, cell_dim, cell_shift,
-                          params_vec, C, eval_name, pnames)
+                          params_vec, C, eval_name, pnames, ntypes, cell_typ)
+    if ntypes > 1:
+        return _cell_pair_planar_typed(cell_pos, cell_dim, cell_shift,
+                                       params_vec, C, cell_tag, cell_typ,
+                                       ntypes, ev, eval_name, pnames, want_pv)
     if _device_of(cell_pos) == 'cpu':
-        return cell_pair_planar_plain(cell_pos, cell_dim, cell_shift,
-                                      params_vec, cell_tag=cell_tag,
-                                      eval_name=eval_name, pnames=pnames)
+        out = cell_pair_planar_plain(cell_pos, cell_dim, cell_shift,
+                                     params_vec, cell_tag=cell_tag,
+                                     eval_name=eval_name, pnames=pnames)
+        return out if want_pv else out[0]
     _require_cuda_inputs(cell_tag, cell_shift, params_vec)
     lib = _kernel_lib()
     pos = cell_pos.contiguous().float()
@@ -618,10 +700,42 @@ def cell_pair_planar(cell_pos, cell_dim, cell_shift, params_vec, *, C,
         C, ev, _stream(pos))
     lib.check(err, 'cell_pair_planar')
     cell_pair_planar.launches += 1
-    return F, pe, vir
+    return (F, pe, vir) if want_pv else F
+
+
+def _cell_pair_planar_typed(cell_pos, cell_dim, cell_shift, params_vec, C,
+                            cell_tag, cell_typ, ntypes, ev, eval_name, pnames,
+                            want_pv):
+    if _device_of(cell_pos) == 'cpu':
+        out = cell_pair_planar_plain(cell_pos, cell_dim, cell_shift,
+                                     params_vec, cell_tag=cell_tag,
+                                     eval_name=eval_name, pnames=pnames,
+                                     ntypes=ntypes, cell_typ=cell_typ)
+        return out if want_pv else out[0]
+    _require_cuda_inputs(cell_tag, cell_typ, cell_shift, params_vec)
+    lib = _kernel_lib()
+    pos, tag, sh, par = _lj_args(cell_pos, cell_tag, cell_shift, params_vec)
+    typ = cell_typ.contiguous().to(torch.int32)
+    nc = pos.shape[0]
+    F = torch.empty_like(pos)
+    pe = vir = None
+    if want_pv:
+        pe = torch.empty((nc, C), dtype=pos.dtype, device=pos.device)
+        vir = torch.empty((nc, C, 6), dtype=pos.dtype, device=pos.device)
+    nx, ny, nz = cell_dim
+    err = lib.lib.hoomd_cell_pair_planar_typed(
+        pos.data_ptr(), tag.data_ptr(), typ.data_ptr(), sh.data_ptr(),
+        par.data_ptr(), len(pnames), ntypes, F.data_ptr(),
+        pe.data_ptr() if want_pv else None,
+        vir.data_ptr() if want_pv else None, nx, ny, nz, C, ev, int(want_pv),
+        _stream(pos))
+    lib.check(err, 'cell_pair_planar (typed)')
+    cell_pair_planar.typed_launches += 1
+    return (F, pe, vir) if want_pv else F
 
 
 cell_pair_planar.launches = 0
+cell_pair_planar.typed_launches = 0
 
 _METHODS = {'nve': 0, 'nvt': 1, 'langevin': 2}
 
@@ -990,35 +1104,48 @@ cell_pair_lj_row.launches = 0
 
 
 def cell_pair_planar_n3l(cell_pos, cell_dim, cell_shift, params_vec, *, C,
-                         cell_tag):
-    """Forces (nc, C, 3) of the single-type LJ stencil by Newton's third
-    law: the half stencil (own cell with i < j, then (0,0,+1), the (0,+1)
-    row and the three dz = +1 rows) evaluates each pair once and puts -F
-    on the other particle.  params_vec = [rc2, e_shift, lj1, lj2, ...].
-    The kernel sums without atomics, in a fixed order (csrc/
-    cell_pair_impls.cu), so equal inputs give equal bits; its order is
-    not the plain version's, and the two agree to rounding."""
-    _check_pair_args(cell_pos, cell_tag, cell_dim, cell_shift, params_vec, C,
-                     'lj', LJ_PNAMES)
+                         cell_tag, eval_name='lj', pnames=LJ_PNAMES, ntypes=1,
+                         cell_typ=None):
+    """Forces (nc, C, 3) of the stencil of the pair evaluator
+    ``eval_name`` by Newton's third law: the half stencil (own cell with
+    i < j, then (0,0,+1), the (0,+1) row and the three dz = +1 rows)
+    evaluates each pair once and puts -F on the other particle.
+    params_vec and cell_typ as cell_pair_planar's; a mixture's launches
+    count in ``typed_launches``.  The kernel sums without atomics, in a
+    fixed order (csrc/cell_pair_impls.cu), so equal inputs give equal
+    bits; its order is not the plain version's, and the two agree to
+    rounding."""
+    ev = _check_pair_args(cell_pos, cell_tag, cell_dim, cell_shift,
+                          params_vec, C, eval_name, pnames, ntypes, cell_typ)
     if _device_of(cell_pos) == 'cpu':
         return cell_pair_planar_n3l_plain(cell_pos, cell_dim, cell_shift,
-                                          params_vec, cell_tag=cell_tag)
-    _require_cuda_inputs(cell_tag, cell_shift, params_vec)
+                                          params_vec, cell_tag=cell_tag,
+                                          eval_name=eval_name, pnames=pnames,
+                                          ntypes=ntypes, cell_typ=cell_typ)
+    typed = ntypes > 1
+    _require_cuda_inputs(cell_tag, cell_shift, params_vec,
+                         *((cell_typ,) if typed else ()))
     lib = _kernel_lib()
     pos, tag, sh, par = _lj_args(cell_pos, cell_tag, cell_shift, params_vec)
+    typ = cell_typ.contiguous().to(torch.int32) if typed else None
     F = torch.empty_like(pos)
     part = torch.empty((13,) + tuple(pos.shape), dtype=pos.dtype,
                        device=pos.device)
     nx, ny, nz = cell_dim
     err = lib.lib.hoomd_cell_pair_n3l(
-        pos.data_ptr(), tag.data_ptr(), sh.data_ptr(), par.data_ptr(),
-        F.data_ptr(), part.data_ptr(), nx, ny, nz, C, _stream(pos))
+        pos.data_ptr(), tag.data_ptr(), typ.data_ptr() if typed else None,
+        sh.data_ptr(), par.data_ptr(), len(pnames), ntypes, F.data_ptr(),
+        part.data_ptr(), nx, ny, nz, C, ev, _stream(pos))
     lib.check(err, 'cell_pair_planar_n3l')
-    cell_pair_planar_n3l.launches += 1
+    if typed:
+        cell_pair_planar_n3l.typed_launches += 1
+    else:
+        cell_pair_planar_n3l.launches += 1
     return F
 
 
 cell_pair_planar_n3l.launches = 0
+cell_pair_planar_n3l.typed_launches = 0
 
 KERNEL_WRAPPERS = (cell_pair_plane, cell_pair_planar, cell_megastep_planes,
                    mega_candidates, cell_step_plane_planes, cell_pair_lj,
@@ -1026,38 +1153,58 @@ KERNEL_WRAPPERS = (cell_pair_plane, cell_pair_planar, cell_megastep_planes,
                    cell_pair_planar_n3l)
 
 
+# the wrappers whose mixtures launch kernels of their own, counted apart
+# as '<wrapper>_typed'
+TYPED_WRAPPERS = (cell_pair_planar, cell_pair_planar_n3l)
+
+
 def reset_launch_counts():
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+    for fn in TYPED_WRAPPERS:
+        fn.typed_launches = 0
 
 
 def launch_counts():
-    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+    return {**{fn.__name__: fn.launches for fn in KERNEL_WRAPPERS},
+            **{fn.__name__ + '_typed': fn.typed_launches
+               for fn in TYPED_WRAPPERS}}
 
 
 # ---------------------------------------------------------------------------
 # independent reference: the JAX package's XLA formulation, in torch
 
 
-def cell_pair_xla(cell_pos, cell_dim, cell_shift, params_vec, *,
-                  eval_name='lj', pnames=LJ_PNAMES):
-    """Roll-and-matmul formulation of the cell-pair computation
-    (pallas_pair.py cell_pair_xla): expanded r^2, padding excluded by
-    magnitude and the self pair by r^2 > 1e-3.  Returns (F, pe, vir)."""
-    nc, C, _ = cell_pos.shape
-    nx, ny, nz = cell_dim
-    g3 = cell_pos.reshape(nz, ny, nx, C, 3)
+def _rolled_stencil(g, nc, C):
+    """(nz, ny, nx, C, ...) -> (nc, 27 C, ...): the 27 neighbour cells of
+    every cell by periodic rolls, in build_cell_shifts order."""
     blocks = []
-    k = 0
     for dz in (-1, 0, 1):
         for dy in (-1, 0, 1):
             for dx in (-1, 0, 1):
-                nb = torch.roll(g3, shifts=(-dz, -dy, -dx), dims=(0, 1, 2))
-                blocks.append(nb.reshape(nc, C, 3) + cell_shift[:, k, None, :])
-                k += 1
-    xj = torch.cat(blocks, dim=1)                          # (nc, 27C, 3)
+                nb = torch.roll(g, shifts=(-dz, -dy, -dx), dims=(0, 1, 2))
+                blocks.append(nb.reshape((nc, C) + g.shape[4:]))
+    return torch.stack(blocks, dim=1).reshape((nc, 27 * C) + g.shape[4:])
+
+
+def cell_pair_xla(cell_pos, cell_dim, cell_shift, params_vec, *,
+                  eval_name='lj', pnames=LJ_PNAMES, ntypes=1, cell_typ=None):
+    """Roll-and-matmul formulation of the cell-pair computation
+    (pallas_pair.py cell_pair_xla): expanded r^2, padding excluded by
+    magnitude and the self pair by r^2 > 1e-3.  With ntypes > 1 the
+    (2 + NP, T, T) table of a mixture, gathered per pair by cell_typ.
+    Returns (F, pe, vir)."""
+    nc, C, _ = cell_pos.shape
+    nx, ny, nz = cell_dim
+    xj = (_rolled_stencil(cell_pos.reshape(nz, ny, nx, C, 3), nc, C)
+          + cell_shift.repeat_interleave(C, dim=1))       # (nc, 27C, 3)
     ev = _evaluator(eval_name, pnames)
-    rc2, e_shift, p = pair_eval.params_dict(params_vec, pnames)
+    if ntypes > 1:
+        tj = _rolled_stencil(cell_typ.long().reshape(nz, ny, nx, C), nc, C)
+        rc2, e_shift, p = pair_eval.params_dict(
+            params_vec, pnames, cell_typ.long()[:, :, None], tj[:, None, :])
+    else:
+        rc2, e_shift, p = pair_eval.params_dict(params_vec, pnames)
     xi = cell_pos
     xi2 = (xi * xi).sum(-1)
     xj2 = (xj * xj).sum(-1)

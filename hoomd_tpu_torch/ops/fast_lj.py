@@ -1,4 +1,5 @@
-"""Cell-major single-type pair engine (counterpart of hoomd_tpu/ops/fast_lj.py).
+"""Cell-major pair engine for one to four particle types (counterpart of
+hoomd_tpu/ops/fast_lj.py).
 
 The state lives in cell-major layout (ncells, C, ...): drift, kick and
 thermostat are elementwise on padded slots, forces come from the cell
@@ -26,11 +27,21 @@ steps are fused steps (cell_step_plane_planes, one kernel call each, the
 Nose-Hoover algebra between them on device scalars); every other impl
 runs each step as one_step, on its own kernel.  The pair evaluator
 (``eval_name``, one of pair_eval.FAST_EVALS) rides the kernels of
-'plane', 'planar' and 'xla'; the other impls are LJ only.  PE and
-virial, read at chunk boundaries, come from cell_pair_planar, but for
-'pallas' (its kernel returns them) and 'pallas3d', 'row' and 'xla' (the
-XLA formulation, plain torch, as the JAX engine computes it outside any
-kernel).
+'plane', 'planar', 'planar_n3l' and 'xla'; the other impls are LJ only.
+PE and virial, read at chunk boundaries, come from cell_pair_planar, but
+for 'pallas' (its kernel returns them) and 'pallas3d', 'row' and 'xla'
+(the XLA formulation, plain torch, as the JAX engine computes it outside
+any kernel).
+
+A mixture (ntypes 2 to 4, hoomd_tpu/ops/fast_lj.py:372-467, 692-707)
+takes the per-pair (2 + NP, T, T) parameter table and the carry's typ:
+every step is a one_step (no megastep, no fused step), its forces from
+the typed cell_pair_planar on 'plane' and 'planar', the typed half
+stencil on 'planar_n3l' and the typed XLA formulation on 'xla'; the
+LJ-only impls are single-type and refuse it.  Its Langevin friction is
+each particle's type's (hoomd_tpu/md/integrate.py:234); the JAX fast
+engine takes type 0's for all (hoomd_tpu/system.py:1139-1141), which
+this engine does not copy.
 
 A megastep program keeps, beside each reference (ref_pos), its
 MegaCycle: the candidate set of that reference (cell_pair.mega_candidates,
@@ -191,7 +202,8 @@ def plan_fast_lj(N, box_L, rcut, r_buff, conservative=False, frac=None):
 def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
                         method_seed, k_rebuild=4, rebin_impl='sort',
                         rebin_E=8, impl='plane', mega=True, fused=False,
-                        eval_name='lj', pnames=LJ_PNAMES, device='cpu'):
+                        eval_name='lj', pnames=LJ_PNAMES, ntypes=1,
+                        device='cpu'):
     """Returns (to_fast, refresh_forces, run, to_state).
 
     rebin_impl: 'sort', 'xsel' or 'pallas' (the migration sweep and place
@@ -201,18 +213,30 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
     (only with impl 'plane' and nve or nvt; the megastep, where it runs,
     still takes the windows, as in the JAX engine).  eval_name / pnames:
     the pair evaluator and its parameter order (pair_eval.kernel_pnames).
+    ntypes: the particle types; with more than one, the megastep and the
+    fused step are off and 'pallas', 'pallas3d' and 'row' raise
+    NotImplementedError.
 
-    dyn layout: {'pv': device tensor [rc2, e_shift, *pnames], 'lj' (lj
-    only): device tensor [lj1, lj2, rc2, e_shift], 'dt': float, 'kT':
-    packed variant on the device, 'tau': float, 'gamma': float}."""
+    dyn layout: {'pv': device tensor [rc2, e_shift, *pnames], of shape
+    (2 + NP, T, T) for a mixture, 'lj' (lj, one type): device tensor
+    [lj1, lj2, rc2, e_shift], 'dt': float, 'kT': packed variant on the
+    device, 'tau': float, 'gamma': float (type 0's), 'gamma_t': (T,)
+    device tensor of every type's Langevin friction}."""
     if impl not in FAST_IMPLS:
         raise ValueError(f"force impl (HOOMD_TPU_FAST_IMPL) {impl!r} is not "
                          f"one of {', '.join(FAST_IMPLS)}")
-    use_mega = mega and impl == 'plane'
+    if ntypes > 1 and impl in ('pallas', 'pallas3d', 'row'):
+        raise NotImplementedError(f"HOOMD_TPU_FAST_IMPL={impl} runs one "
+                                  f"particle type only ({ntypes} particle "
+                                  f"types)")
+    # hoomd_tpu/ops/fast_lj.py:692-707: the megastep and the fused step
+    # are single-type
+    use_mega = mega and impl == 'plane' and ntypes == 1
     # hoomd_tpu/ops/fast_lj.py:692-695: the fused single step serves the
     # windows only with the megastep off, and the head and tail single
     # steps whenever it holds
-    use_fused = fused and impl == 'plane' and method_kind in ('nve', 'nvt')
+    use_fused = (fused and impl == 'plane' and ntypes == 1
+                 and method_kind in ('nve', 'nvt'))
     ev_kw = dict(eval_name=eval_name, pnames=pnames)
     idt = int_dtype()
     fdt = torch.float32
@@ -290,9 +314,21 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
             res = res + (out[:, 12:15],)
         return res + (ovf,)
 
-    def _forces(pos, tag, dyn, want_pv):
+    def _forces(pos, tag, typ, dyn, want_pv):
         """F, or (F, pe, vir) with want_pv, on the path of ``impl``
-        (hoomd_tpu/ops/fast_lj.py:372-467)."""
+        (hoomd_tpu/ops/fast_lj.py:372-467); a mixture's on the typed
+        kernels, every step's on cell_pair_planar for 'plane' and
+        'planar'."""
+        if ntypes > 1:
+            tk = dict(ev_kw, ntypes=ntypes, cell_typ=typ)
+            if impl == 'planar_n3l' and not want_pv:
+                return cell_pair_planar_n3l(pos, cell_dim, shifts, dyn['pv'],
+                                            C=C, cell_tag=tag, **tk)
+            if impl == 'xla':
+                out = cell_pair_xla(pos, cell_dim, shifts, dyn['pv'], **tk)
+                return out if want_pv else out[0]
+            return cell_pair_planar(pos, cell_dim, shifts, dyn['pv'], C=C,
+                                    cell_tag=tag, want_pv=want_pv, **tk)
         if impl == 'pallas':
             out = cell_pair_lj(pos, adj, shifts, dyn['lj'], ncells=nc, C=C,
                                cell_tag=tag)
@@ -306,7 +342,7 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
             return frc, pe, vir
         elif impl == 'planar_n3l' and not want_pv:
             return cell_pair_planar_n3l(pos, cell_dim, shifts, dyn['pv'], C=C,
-                                        cell_tag=tag)
+                                        cell_tag=tag, **ev_kw)
         elif impl == 'plane' and not want_pv:
             # the fast reciprocal under a thermostat, which absorbs its
             # ~1e-4 force error; NVE divides exactly (fast_lj.py:414-425)
@@ -359,14 +395,18 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
         danger = c.danger | (md2 > 1.0)
         wmax = torch.maximum(c.wmax, md2)
 
-        frc = torch.where(valid, _forces(pos, c.tag, dyn, False), 0.0)
+        frc = torch.where(valid, _forces(pos, c.tag, c.typ, dyn, False), 0.0)
         if method_kind == 'langevin':
             kT = _kt(dyn, c.timestep)
             u = torch.stack([hashrng.uniform_pm1(method_seed, c.timestep,
                                                  c.tag, salt=ax)
                              for ax in (1, 2, 3)], dim=-1)
-            noise = torch.sqrt(6.0 * dyn['gamma'] * kT / dt) * u
-            f_tot = torch.where(valid, frc + noise - dyn['gamma'] * vel, 0.0)
+            # each slot's own type's friction in a mixture; one type keeps
+            # the scalar (and its bits)
+            gamma = (dyn['gamma'] if ntypes == 1
+                     else dyn['gamma_t'][c.typ.long()][..., None])
+            noise = torch.sqrt(6.0 * gamma * kT / dt) * u
+            f_tot = torch.where(valid, frc + noise - gamma * vel, 0.0)
             vel = torch.where(valid, vel + 0.5 * dt * f_tot * minv, vel)
             frc = f_tot
         else:
@@ -527,9 +567,10 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
 
     def rebuild_carry(c: FastCarry):
         """Re-bin into fresh cell-major layout; forces ride along so the
-        next half-kick sees them in slot order.  typ stays on the xsel and
-        migration rebins: one type, so every slot carries type 0.  A
-        megastep program builds the new reference's candidate set."""
+        next half-kick sees them in slot order.  The sort carries typ; the
+        xsel and migration rebins run for one type only (the host's gate),
+        so typ stays, type 0 in every slot.  A megastep program builds the
+        new reference's candidate set."""
         return _with_cycle(_rebin_carry(c))
 
     def _rebin_carry(c: FastCarry):
@@ -641,7 +682,7 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
             rebin_lost=torch.zeros((), dtype=torch.bool, device=dev)))
 
     def refresh_forces(carry, dyn):
-        frc, pe, vir = _forces(carry.pos, carry.tag, dyn, True)
+        frc, pe, vir = _forces(carry.pos, carry.tag, carry.typ, dyn, True)
         valid = (carry.tag >= 0)[..., None]
         return carry.replace(frc=torch.where(valid, frc, 0.0), pe=pe,
                              vir=vir)

@@ -257,7 +257,15 @@ def kernel_pnames(eval_name):
     return tuple(sorted(ev.derive(probe).keys())) + ('rcut',)
 
 
-def params_dict(params_vec, pnames):
-    """[rc2, e_shift, *pnames] -> (rc2, e_shift, {name: scalar})."""
+def params_dict(params_vec, pnames, ti=None, tj=None):
+    """[rc2, e_shift, *pnames] -> (rc2, e_shift, {name: value}).
+
+    One type: params_vec is (2 + NP,) and every value a scalar.  A
+    mixture: params_vec is the (2 + NP, T, T) per-pair table and ti, tj
+    are the two particles' type ids (int tensors that broadcast against
+    each other); every value is then gathered per pair as
+    table[k, ti, tj] (hoomd_tpu/ops/pallas_pair.py:252-262)."""
+    if ti is not None:
+        params_vec = params_vec[:, ti, tj]
     return params_vec[0], params_vec[1], {
         nm: params_vec[2 + k] for k, nm in enumerate(pnames)}

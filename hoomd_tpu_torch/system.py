@@ -1,8 +1,9 @@
 """System orchestration: the run loop (counterpart of hoomd_tpu/system.py).
 
 The port runs two engines: the cell-major pair engine of ops/fast_lj.py
-for MD (one type, one of the ten stencil evaluators of ops/pair_eval.py),
-and the fused checkerboard sweep of hpmc/ for hard-particle MC
+for MD (one to four particle types, one of the ten stencil evaluators of
+ops/pair_eval.py), and the fused checkerboard sweep of hpmc/ for
+hard-particle MC
 (an HPMC integrator replaces the MD pipeline, as in the JAX package).  A
 configuration outside them raises NotImplementedError naming the first
 gate it failed; there is no general engine to fall back to yet.
@@ -170,7 +171,7 @@ class System:
     def _build_fast(self, forces, methods):
         """Gates + construction of the cell-major pair engine."""
         from .ops import pair_eval
-        from .ops.cell_pair import MAX_C
+        from .ops.cell_pair import MAX_C, MAX_TYPES
         from .ops.fast_lj import build_fast_lj_chunk, plan_fast_lj
 
         def _decline(why):
@@ -185,8 +186,11 @@ class System:
             _decline('no integration mode (md.integrate.mode_standard)')
         if self.integrator_mode.aniso:
             _decline('anisotropic integration')
-        if len(self.particle_types) != 1:
-            _decline(f'{len(self.particle_types)} particle types (need 1)')
+        ntypes = len(self.particle_types)
+        if ntypes > MAX_TYPES:
+            # (hoomd_tpu/system.py:463; the JAX package leaves for its
+            # general engine)
+            _decline(f'{ntypes} particle types (at most {MAX_TYPES})')
         snap = self.snapshot_template
         for name in ('bonds', 'angles', 'dihedrals', 'impropers',
                      'constraints', 'pairs'):
@@ -195,8 +199,8 @@ class System:
         if np.any(np.asarray(snap.particles.charge) != 0):
             _decline('particle charges')
         f = forces[0]
-        # any single-type, charge/diameter-free evaluator rides the stencil
-        # kernels (hoomd_tpu/system.py FAST_EVALS)
+        # any charge/diameter-free evaluator rides the stencil kernels
+        # (hoomd_tpu/system.py FAST_EVALS)
         eval_name = getattr(getattr(f, '_evaluator', None), '__name__', None)
         if eval_name not in pair_eval.FAST_EVALS:
             _decline(f'pair evaluator {eval_name!r} not stencil-eligible '
@@ -275,23 +279,26 @@ class System:
         impl = os.environ.get('HOOMD_TPU_FAST_IMPL') or 'plane'
         mega = os.environ.get('HOOMD_TPU_MEGA', 'on') != 'off'
         fused = os.environ.get('HOOMD_TPU_FUSED') == 'on'
-        # the LJ-only kernels host no other evaluator; the JAX package
-        # leaves its fast engine there (hoomd_tpu/system.py:614-617), and
-        # its half stencil's evaluator variant is not ported yet
-        if eval_name != 'lj' and impl in ('pallas', 'pallas3d', 'row',
-                                          'planar_n3l'):
+        # the LJ-only kernels host no other evaluator and no mixture; the
+        # JAX package leaves its fast engine there (hoomd_tpu/system.py:
+        # 614-617, 634-635)
+        if eval_name != 'lj' and impl in ('pallas', 'pallas3d', 'row'):
             _decline(f'HOOMD_TPU_FAST_IMPL={impl} runs the lj evaluator only '
                      f'(pair evaluator {eval_name!r})')
+        if ntypes > 1 and impl in ('pallas', 'pallas3d', 'row'):
+            _decline(f'HOOMD_TPU_FAST_IMPL={impl} runs one particle type '
+                     f'only ({ntypes} particle types)')
         # rebuild implementation, by the JAX package's gates
         # (hoomd_tpu/system.py:702-726): below 4096 particles the sort
         # costs next to nothing; the int payload rides the migration and
         # xsel rebins as float32 values, exact below 2^24; only the planar
-        # family of force paths takes them.  HOOMD_TPU_REBIN=off keeps the
-        # sort, =pallas takes the migration sweep and place, and anything
-        # else the staged select (xsel)
+        # family of force paths takes them, and one type only (they move no
+        # type column).  HOOMD_TPU_REBIN=off keeps the sort, =pallas takes
+        # the migration sweep and place, and anything else the staged
+        # select (xsel)
         rebin_impl = 'sort'
         env_rebin = os.environ.get('HOOMD_TPU_REBIN', 'on')
-        if ((1 << 12) <= N < (1 << 23) and min(cell_dim) >= 3
+        if (ntypes == 1 and (1 << 12) <= N < (1 << 23) and min(cell_dim) >= 3
                 and impl in ('plane', 'planar', 'planar_n3l')
                 and not self._grow.get('fast_rebin_sort')
                 and env_rebin != 'off'):
@@ -307,7 +314,7 @@ class System:
             rcut=rcut, method_kind=kind, method_seed=getattr(m, 'seed', 0),
             k_rebuild=k_rebuild, rebin_impl=rebin_impl, rebin_E=rebin_E,
             impl=impl, mega=mega, fused=fused, eval_name=eval_name,
-            pnames=pnames, device=self.device)
+            pnames=pnames, ntypes=ntypes, device=self.device)
         return {'to_fast': to_fast, 'refresh': refresh,
                 'run_chunk': run_chunk, 'to_state': to_state,
                 'C': C, 'cell_dim': tuple(cell_dim), 'method': m,
@@ -315,7 +322,7 @@ class System:
                 'skin': skin, 'rebin_impl': rebin_impl, 'rebin_E': rebin_E,
                 'impl': impl, 'mega': run_chunk.mega,
                 'fused': run_chunk.fused, 'eval_name': eval_name,
-                'pnames': pnames, 'pair_force': f}
+                'pnames': pnames, 'ntypes': ntypes, 'pair_force': f}
 
     def _reset_cadence(self):
         for key in ('fast_m', 'fast_m_ceil', 'fast_m_pinned', 'fast_k_cap',
@@ -342,18 +349,25 @@ class System:
 
         def T(x):
             return torch.as_tensor(np.float32(x), device=dev)
-        rc = T(fp['rcut'][0, 0])
+        if fast['ntypes'] == 1:
+            rc = T(fp['rcut'][0, 0])
+            scal = {k: T(v[0, 0]) for k, v in fp['tables'].items()}
+        else:
+            # a mixture: (T, T) tables, each pair's own r_cut and shift
+            # (hoomd_tpu/system.py:1112-1122)
+            rc = T(fp['rcut'])
+            scal = {k: T(v) for k, v in fp['tables'].items()}
         rc2 = rc * rc
-        scal = {k: T(v[0, 0]) for k, v in fp['tables'].items()}
         scal['rcut'] = rc
         if f.mode == 'shift':
             _, e_shift = f._evaluator.energy_force(rc2, scal)
         else:
-            e_shift = torch.zeros((), dtype=torch.float32, device=dev)
+            e_shift = torch.zeros_like(rc2)
+        # (2 + NP,) for one type, (2 + NP, T, T) for a mixture
         pv = torch.stack([rc2, e_shift] + [scal[k] for k in fast['pnames']])
         mp = self._dyn['methods'][0]
         out = {'pv': pv, 'dt': self._dyn['dt']}
-        if fast['eval_name'] == 'lj':
+        if fast['eval_name'] == 'lj' and fast['ntypes'] == 1:
             # the LJ-only kernels' parameter order
             out['lj'] = torch.stack([scal['lj1'], scal['lj2'], rc2, e_shift])
         if fast['kind'] in ('langevin', 'nvt'):
@@ -364,6 +378,9 @@ class System:
         out['tau'] = float(mp.get('tau', 1.0))
         gam = mp.get('gamma')
         out['gamma'] = float(np.float32(gam[0])) if gam is not None else 1.0
+        # every type's friction, which a mixture's one_step reads per slot
+        out['gamma_t'] = (T(gam) if gam is not None
+                          else torch.ones(fast['ntypes'], device=dev))
         return out
 
     def _ensure_ready(self):

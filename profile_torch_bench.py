@@ -6,6 +6,9 @@ NVIDIA GPU.
     python3 profile_torch_bench.py rebins    # each rebin in turn
     python3 profile_torch_bench.py rebins on on off   # the turns given
     python3 profile_torch_bench.py cadence 1 2 4      # pinned cadences
+    python3 profile_torch_bench.py ka        # the Kob-Andersen mixture
+    python3 profile_torch_bench.py ka-trace  # its T and PE/N from the start
+    python3 profile_torch_bench.py ka-trace 16   # the same at 16^3 = 4096
 
 from the root of the repository.  It runs chip_smoke.py's bench job
 (bench.py's script: Langevin melt, Nose-Hoover NVT, cadence warmup) and
@@ -32,8 +35,18 @@ a rebuild, as the run loop chains them).  After the warmup it re-arms the rebin 
 or an overflow in the lattice melt may have fallen back to the sort) and
 pins the cadence at PIN_M windows per rebuild, so that the runs differ
 in the rebin alone; the System's retry counters and growth table are
-printed after each timed window.  It checks nothing; chip_smoke.py is
-the check.
+printed after each timed window.  With ``ka`` it runs chip_smoke.py's
+Kob-Andersen job instead (ka_script: 64 000 particles of a two-type LJ
+mixture, every step a one_step on the typed planar kernel) to its NVT
+steady state and prints steps 1-3 and 5, and step 4 without the kernel
+window (it has none).  With ``ka-trace`` it prints the KA job's
+temperature and PE/N every 100 steps from the lattice start, twice: the
+1000-step Langevin melt then 3000 Nose-Hoover steps, and the same with
+ka_script's second Langevin run of 1000 steps at dt = 0.005 between
+them; a number after it is the lattice's side (by default 40, the
+job's 64 000 particles; tests/test_torch_types.py runs the same trace
+through the JAX package on the CPU).  It checks nothing; chip_smoke.py
+is the check.
 """
 
 from __future__ import annotations
@@ -138,7 +151,84 @@ def component_times(system):
           f"rebuild cycle of {m} windows {t_cyc:.4f} ms", flush=True)
 
 
+def profile_ka():
+    """The KA mixture's NVT steady state: timed windows, the profile, a
+    single step, a rebuild and a rebuild cycle by CUDA events."""
+    import hoomd_tpu_torch as hoomd
+    from chip_smoke import ka_script
+    from hoomd_tpu_torch.ops import cell_pair as cp
+    from hoomd_tpu_torch.ops import cell_rebin as cr
+    cp.reset_launch_counts()
+    cr.reset_launch_counts()
+    print('card:', card(), flush=True)
+    hoomd.context.initialize('--mode=gpu --notice-level=0')
+    system, _, temps = ka_script(hoomd, nvt_steps=500)
+    N = system.state.N
+    fast = system._program['fast']
+    print(f"KA job at its NVT steady state: plan {fast['cell_dim']} "
+          f"C={fast['C']} k={fast['k_rebuild']} rebin={fast['rebin_impl']} "
+          f"impl={fast['impl']}, T over the window "
+          f"{sum(temps) / len(temps):.5f}, "
+          f"grow {system._grow}, {system.fast_stats}", flush=True)
+    timed_windows(system, N)
+    profile_steps(system)
+    carry = system._fast_carry
+    dyn, run = system._dyn['fast'], fast['run_chunk']
+    m = max(int(system._grow.get('fast_m', 1)), 1)
+    k = fast['k_rebuild']
+    carry = run.rebuild(carry)
+    t_step = cuda_ms(lambda: run.steps(carry, dyn, 1), 50)
+    t_reb = cuda_ms(lambda: run.rebuild(carry), 50)
+    t_cyc = cuda_ms(lambda: run.cycles(carry, dyn, 1, m, k), 10)
+    print(f"one step {t_step:.4f} ms; rebuild {t_reb:.4f} ms; one rebuild "
+          f"cycle of {m * k} steps {t_cyc:.4f} ms (CUDA events)", flush=True)
+    print(json.dumps({'launches': {**cp.launch_counts(),
+                                   **cr.launch_counts()}}), flush=True)
+
+
+def ka_trace(settle, n_side=None, hoomd=None,
+             args='--mode=gpu --notice-level=0'):
+    """T and PE/N every 100 steps of the KA job (n_side^3 particles, by
+    default the job's) from its lattice start: the melt, with ``settle``
+    1000 Langevin steps at dt = 0.005, then 3000 Nose-Hoover steps.
+    ``hoomd`` is the package that runs it (by default hoomd_tpu_torch),
+    its context initialized with ``args``."""
+    from chip_smoke import KA_N_SIDE, KA_TEMP, ka_setup
+    if hoomd is None:
+        import hoomd_tpu_torch as hoomd
+    md = hoomd.md
+    hoomd.context.initialize(args)
+    system, _, mode = ka_setup(hoomd, n_side or KA_N_SIDE)
+    N = system.state.N
+    what = (f'ka-trace {hoomd.__name__} N={N} '
+            + ('with' if settle else 'without') + ' the settle')
+
+    def reads(phase, steps):
+        for i in range(steps // 100):
+            system.run(100, quiet=True)
+            q = system.thermo_quantities()
+            print(f"{what}: {phase} {100 * (i + 1)} T {q['temperature']:.4f} "
+                  f"PE/N {q['potential_energy'] / N:.4f}", flush=True)
+    lan = md.integrate.langevin(group=hoomd.group.all(), kT=KA_TEMP, seed=7)
+    reads('melt', 1000)
+    mode.set_params(dt=0.005)
+    if settle:
+        reads('settle', 1000)
+    lan.disable()
+    md.integrate.nvt(group=hoomd.group.all(), kT=KA_TEMP, tau=0.5)
+    reads('nvt', 3000)
+
+
 def main(argv):
+    if argv[1:2] == ['ka']:
+        profile_ka()
+        return
+    if argv[1:2] == ['ka-trace']:
+        print('card:', card(), flush=True)
+        n_side = int(argv[2]) if len(argv) > 2 else None
+        ka_trace(False, n_side)
+        ka_trace(True, n_side)
+        return
     if argv[1:2] == ['rebins']:
         turns = argv[2:] or ['on', 'off', 'pallas', 'pallas', 'off', 'on']
         for env in turns:

@@ -209,14 +209,15 @@ def _lj_script(types=('A',), charge=0.0, mode='shift', tilt=0.0,
 
 
 @pytest.mark.parametrize('kw,gate', [
-    (dict(types=('A', 'B')), '2 particle types'),
+    (dict(types=('A', 'B'), impl='row'), '2 particle types'),
     (dict(charge=0.5), 'particle charges'),
     (dict(mode='xplor'), "shift mode 'xplor'"),
     (dict(tilt=0.1), 'non-orthorhombic'),
     (dict(group='tags'), 'group.all()'),
 ] + [(dict(pair='gauss', impl=impl),
       f"HOOMD_TPU_FAST_IMPL={impl} runs the lj evaluator only")
-     for impl in ('row', 'pallas', 'pallas3d', 'planar_n3l')])
+     for impl in ('row', 'pallas', 'pallas3d')]
+   + [(dict(types=tuple('ABCDE')), '5 particle types')])
 def test_configs_outside_the_slice_raise(torch_ctx, monkeypatch, kw, gate):
     kw = dict(kw)
     impl = kw.pop('impl', None)
