@@ -54,6 +54,12 @@ from the root of the repository.  In order it prints:
      plain versions with the evaluator's ATOL, each with its CUDA-event
      time; for the KA table also the device time, the plain version's
      time and the bound;
+  4c. the charged kernel (charged_kernel_phases) at config 4's shape
+     (4096 ions of the rock-salt start jittered by 0.05 of the spacing,
+     cell grid (8, 5, 4), C = 40): ewald and lj_ewald with one, two and
+     four types, cell_pair_planar with cell_q against its plain version
+     (RTOL, ATOL), with the wrapper call's CUDA-event time, the device
+     time, the plain version's time and the bound;
   6. the bench.py job script (64k LJ, Langevin melt then Nose-Hoover NVT)
      through ``import hoomd_tpu_torch as hoomd`` on --mode=gpu, on its
      default rebin (xsel at this N), with all three launch counters > 0
@@ -84,8 +90,19 @@ from the root of the repository.  In order it prints:
      end state against its plain version's, ms per step, busy share, and a
      1000-step NVE continuation gated on its drift; and the same script
      with HOOMD_TPU_FAST_IMPL=planar_n3l (300 NVT steps, the typed half
-     stencil launched).  The bench job's T and PE/N must equal PR 6's
-     bit for bit;
+     stencil launched); then BASELINE config 4, the PPPM charged fluid
+     (pppm_job: bench_all.py:158-217's script, 4096 ions, pair.lj and
+     md.charge.pppm on a 32^3 mesh, Nose-Hoover NVT): its metric line
+     pppm_fluid_4k_particle_steps_per_sec, finite state, the NVT window's
+     T = 1 +- 0.05, the start's plan, every step on the charged typed kernel and no other kernel,
+     the kernel equal to its plain version on the end state, its busy
+     share, and 500 NVE steps on its mesh and 500 on a 64^3 mesh, the
+     latter gated on the drift of the energy it conserves; the window's
+     mean PE/N over four velocity seeds against the JAX package's; then
+     the NaCl Madelung energy (madelung_job: 512 ions of one type, pppm
+     alone, the one-type charged kernel held to its plain version at
+     that job's plan) to rel 2e-3.  The bench job's T and PE/N must
+     equal the recorded PR6_BENCH_T and PR6_BENCH_PE bit for bit;
   7. the BASELINE.json config-5 job script (4096 hard cubes at phi = 0.4,
      50 settle and 200 timed sweeps) and the hard-sphere job (4096
      spheres at a = 1.05), each with its metric line, zero overlaps
@@ -2206,6 +2223,517 @@ def ka_n3l_job():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the PPPM charged fluid (BASELINE config 4, bench_all.py:158-217)
+
+PPPM_N_SIDE, PPPM_A, PPPM_MESH = 16, 1.6, 32
+PPPM_TEMP, PPPM_TEMP_TOL = 1.0, 0.05
+# the engine's plan of its lattice start (conservative, as for every
+# charged job): the shape of the charged kernel phases
+PPPM_SHAPE = ((8, 5, 4), 40)
+# kappa of md.charge.pppm's default, 3.2 / r_cut, as float32
+PPPM_KAPPA = float(np.float32(3.2 / 2.5))
+# config 4's mean PE/N over pppm_job's NVT window through the JAX
+# package's fast engine on the CPU, per velocity seed (`PYTHONPATH=.
+# python tests/test_torch_charged.py pppm-trace SEED`; 9 is the
+# config's).  A window's reads are correlated (one seed's PE/N moves by
+# up to 0.09 across its window), so the samples are whole-window means
+# of independent seeds (their sd 0.0183): the port's mean over the same
+# seeds must lie within PPPM_PE_BAND (0.0388) of theirs, 3 standard
+# deviations of the difference of two such means as that spread
+# estimates it.
+# Leaving out the mesh or the real-space Ewald term moves PE/N by far
+# more
+PPPM_PE_JAX = {9: -2.468142104148865, 10: -2.431856894493103,
+               11: -2.440688943862915, 12: -2.466552734375}
+PPPM_PE_BAND = 3.0 * float(np.std(list(PPPM_PE_JAX.values()), ddof=1)
+                           * np.sqrt(2.0 / len(PPPM_PE_JAX)))
+
+
+def pppm_snapshot(data, n_side=PPPM_N_SIDE, seed=9):
+    """Config 4's start: n_side^3 ions of charge +1 (type A) and -1 (type
+    B) alternating on a simple cubic lattice of spacing 1.6, Maxwell
+    velocities at kT = 1 (numpy ``seed``, 9 in the config).  A snapshot
+    of either package (``data``: its hoomd.data)."""
+    N = n_side ** 3
+    L = n_side * PPPM_A
+    snap = data.make_snapshot(N, data.boxdim(L=L), particle_types=['A', 'B'])
+    ijk = np.stack(np.meshgrid(*[np.arange(n_side)] * 3, indexing='ij'),
+                   -1).reshape(-1, 3)
+    snap.particles.position[:] = (ijk + 0.5) * PPPM_A - L / 2
+    s = np.where(ijk.sum(1) % 2 == 0, 1.0, -1.0)
+    snap.particles.charge[:] = s
+    snap.particles.typeid[:] = np.where(s > 0, 0, 1)
+    v = np.random.RandomState(seed).normal(0, 1.0, (N, 3))
+    snap.particles.velocity[:] = v - v.mean(axis=0)
+    return snap
+
+
+def pppm_script(hoomd, n_side=PPPM_N_SIDE, mesh=PPPM_MESH, seed=9):
+    """Config 4's job script through the public API of ``hoomd`` (either
+    package, its context initialized): pair.lj (epsilon = sigma = 1,
+    r_cut 2.5, no shift) and md.charge.pppm (a mesh^3 mesh, 32^3 in the
+    config, order 5, r_cut 2.5) on one cell list, Nose-Hoover NVT at
+    kT = 1, tau = 0.5, dt = 0.005; ``seed`` draws the velocities.
+    Returns the System."""
+    md = hoomd.md
+    hoomd.init.read_snapshot(pppm_snapshot(hoomd.data, n_side, seed))
+    nl = md.nlist.cell()
+    lj = md.pair.lj(r_cut=2.5, nlist=nl)
+    for t1, t2 in [('A', 'A'), ('A', 'B'), ('B', 'B')]:
+        lj.pair_coeff.set(t1, t2, epsilon=1.0, sigma=1.0)
+    p = md.charge.pppm(group=hoomd.group.all(), nlist=nl)
+    p.set_params(Nx=mesh, Ny=mesh, Nz=mesh, order=5, rcut=2.5)
+    md.integrate.mode_standard(dt=0.005)
+    md.integrate.nvt(group=hoomd.group.all(), kT=PPPM_TEMP, tau=0.5)
+    return hoomd.context.current.system
+
+
+def pppm_warmup(system):
+    """bench_all.py's 300 steps and four cadence-warmup runs of 512."""
+    system.run(300, quiet=True)
+    for _ in range(4):
+        system.run(512, quiet=True)
+
+
+def pppm_window(system, steps=1000):
+    """The NVT window: T and PE/N read after every 100 of ``steps``
+    steps."""
+    N = system.state.N
+    temps, pes = [], []
+    for _ in range(steps // 100):
+        system.run(100, quiet=True)
+        q = system.thermo_quantities()
+        temps.append(q['temperature'])
+        pes.append(q['potential_energy'] / N)
+    return temps, pes
+
+
+# operations per pair inside r_cut of each charged evaluator, counting
+# exp, erfc, sqrt and a divide as one each: lj_ewald the LJ terms (11),
+# r, kappa r and 1/r (3), the A&S polynomial and its exp (16), the energy
+# (3) and the force (10); ewald r, kappa r, erfc, the energy (2) and the
+# force (9) with its exp
+CHARGED_EVAL_OPS = {'ewald': 14, 'lj_ewald': 43}
+
+
+def pppm_cells(dev, ntypes, jitter=0.05, seed=5):
+    """The cell-major carry of config 4's start (pppm_snapshot), jittered
+    by up to ``jitter`` lattice spacings, at PPPM_SHAPE, and its slots'
+    charges: one type (all A), the two types of the job, or for ntypes = 4
+    a type drawn uniformly per ion.  Returns (carry, q_cells, L, N,
+    cell_dim, C)."""
+    import torch
+    from hoomd_tpu_torch import data
+    from hoomd_tpu_torch.ops.fast_lj import build_fast_lj_chunk
+    from hoomd_tpu_torch.state import state_from_snapshot
+    snap = pppm_snapshot(data)
+    N = snap.particles.N
+    rng = np.random.RandomState(seed)
+    snap.particles.position[:] += rng.uniform(-jitter, jitter,
+                                              (N, 3)) * PPPM_A
+    if ntypes != 2:
+        snap.particles.types = ['A', 'B', 'C', 'D'][:ntypes]
+        snap.particles.typeid[:] = rng.randint(0, ntypes, N)
+    st = state_from_snapshot(snap, dev)
+    L = st.box.L.cpu().numpy().astype(np.float64)
+    cdim, C = PPPM_SHAPE
+    to_fast = build_fast_lj_chunk(
+        N=N, box=st.box, cell_dim=cdim, C=C, r_buff=0.4, rcut=2.5,
+        method_kind='nvt', method_seed=0, ntypes=ntypes, device=dev)[0]
+    carry = to_fast(st, {})
+    if bool(carry.overflow):
+        raise RuntimeError(f"the config-4 fill overflows C={C} on {cdim}")
+    q = torch.as_tensor(snap.particles.charge, dtype=torch.float32,
+                        device=dev)
+    qc = torch.where(carry.tag >= 0, q[carry.tag.long().clamp(min=0)], 0.0)
+    return carry, qc, L, N, cdim, C
+
+
+def charged_table(name, ntypes, dev):
+    """[rc2, 0, *pnames] of a charged evaluator as a charged job packs it
+    (r_cut 2.5, kappa 3.2 / 2.5, no shift); for ntypes > 1 the (2 + NP,
+    T, T) table with lj1 = lj2 = 4 scaled per pair (a, b) by
+    0.95 + 0.1 (a + b) / (2 T - 2).  Returns (table, pnames)."""
+    import torch
+    from hoomd_tpu_torch.ops import pair_eval
+    a = np.arange(ntypes)
+    f = (0.95 + 0.1 * (a[:, None] + a[None, :]) / max(2 * ntypes - 2, 1)
+         if ntypes > 1 else np.ones((1, 1)))
+    tab = {'kappa': np.full((ntypes, ntypes), PPPM_KAPPA),
+           'lj1': 4.0 * f, 'lj2': 4.0 * f,
+           'rcut': np.full((ntypes, ntypes), 2.5)}
+    tab = {k: torch.as_tensor(np.asarray(v, np.float32), device=dev)
+           for k, v in tab.items()}
+    rc2 = tab['rcut'] * tab['rcut']
+    pn = pair_eval.kernel_pnames(name)
+    pv = torch.stack([rc2, torch.zeros_like(rc2)] + [tab[k] for k in pn])
+    return (pv[:, 0, 0] if ntypes == 1 else pv).contiguous(), pn
+
+
+def charged_bounds(name, pos, tag, typ, cdim, sh, pv, ntypes):
+    """Bound of the charged kernel at this fill, counted as typed_bounds
+    counts a mixture's: each unordered pair once, 8 operations per
+    candidate for the r^2 test, and per pair inside r_cut the charge
+    product (1), the evaluator (CHARGED_EVAL_OPS), the force (6) and the
+    -F on j (3), PE and virial (12); the bytes of positions, tags,
+    charges (and types), shifts and table in, F, PE and virial out."""
+    rc2 = pv[0].reshape(1, 1) if ntypes == 1 else pv[0]
+    cand, inr = typed_pair_counts(pos, tag, typ, cdim, sh, rc2)
+    P = pos.shape[0] * pos.shape[1] * 4
+    inb = (3 + 1 + 1 + (ntypes > 1)) * P + sh.numel() * 4 + pv.numel() * 4
+    per_pair = 1 + CHARGED_EVAL_OPS[name] + 6 + 3 + 12
+    return bound(inb + 10 * P, (8 * cand + per_pair * inr) / 2), cand, inr
+
+
+def charged_kernel_phases(dev):
+    """At config 4's shape (pppm_cells: 4096 ions jittered by 0.05 of the
+    spacing, PPPM_SHAPE): both charged evaluators with one, two and four
+    types, the charged kernel (cell_pair_planar with cell_q) against its
+    plain version element by element (RTOL and the evaluator's ATOL),
+    with the wrapper call's time (CUDA events), the device time, the plain
+    version's time and the bound.  Returns the row of the two-type
+    lj_ewald variant (config 4's), cell_pair_planar_q_typed, and every
+    variant's times (the one-type ewald variant's row, cell_pair_planar_q,
+    comes from madelung_job, at the plan of the job that launches it)."""
+    import torch
+    from hoomd_tpu_torch.ops import cell_pair as cp
+    rows, times = {}, {}
+    for T in (1, 2, 4):
+        carry, qc, L, N, cdim, C = pppm_cells(dev, T)
+        _, sh = cp.build_cell_shifts(cdim, L)
+        sh = torch.as_tensor(sh, dtype=torch.float32, device=dev)
+        pos, tag, typ = carry.pos, carry.tag, carry.typ
+        for name in ('ewald', 'lj_ewald'):
+            pv, pn = charged_table(name, T, dev)
+            kw = dict(eval_name=name, pnames=pn, ntypes=T, cell_q=qc,
+                      cell_typ=typ if T > 1 else None)
+
+            def kern():
+                return cp.cell_pair_planar(pos, cdim, sh, pv, C=C,
+                                           cell_tag=tag, **kw)
+
+            def plain():
+                return cp.cell_pair_planar_plain(pos, cdim, sh, pv,
+                                                 cell_tag=tag, **kw)
+            label = f'cell_pair_planar charged[{name}, T={T}, config 4]'
+            ea, er = compare(label, [
+                (lab, g, w, RTOL, EVAL_ATOL.get(name, ATOL))
+                for lab, g, w in zip(('F', 'pe', 'virial'), kern(), plain())])
+            (b_ms, b_by), cand, inr = charged_bounds(name, pos, tag, typ,
+                                                     cdim, sh, pv, T)
+            r = dict(max_abs_err=ea, bound_share=er, ms=cuda_ms(kern, 50),
+                     plain_ms=cuda_ms(plain, 3), device_ms=device_ms(kern, 10),
+                     bound_ms=b_ms, bound_by=b_by)
+            times.setdefault(name, {})[T] = r
+            print(f"phase charged kernel [{name}, T={T}, cell_dim={cdim} "
+                  f"C={C} N={N}, {cand} candidate pairs, {inr} inside "
+                  f"r_cut]: max_abs_err={ea:.3e} kernel_ms={r['ms']:.4f} "
+                  f"device_ms={r['device_ms']:.4f} "
+                  f"plain_ms={r['plain_ms']:.4f} bound_ms={b_ms:.6f} "
+                  f"({b_by})", flush=True)
+    rows['cell_pair_planar_q_typed'] = times['lj_ewald'][2]
+    return rows, times
+
+
+def check_charged_counts(counts, kname, what):
+    """The charged job launched ``kname`` and no other kernel: no
+    uncharged pair kernel, no rebin kernel (a mixture sorts)."""
+    if counts[kname] <= 0:
+        raise RuntimeError(f"{what} never launched {kname}")
+    other = {k: n for k, n in counts.items() if n and k != kname}
+    if other:
+        raise RuntimeError(f"{what} launched other kernels: {other}")
+
+
+def pppm_job(card):
+    """Config 4's job script (pppm_script) at 4096 ions on the card:
+    bench_all.py's warmup and timed 1000-step window (its metric line),
+    then the NVT window (pppm_window) and the gates: finite state, the
+    window's mean T = 1 +- 0.05, the start's plan PPPM_SHAPE, every step
+    on the charged typed kernel and no other kernel launched, the kernel
+    equal to its plain version on the end state; the busy share and the
+    kernel's device time per launch over 100 profiled steps; two 500-step
+    NVE continuations, with the drift of the energy they conserve
+    (nve_drift): on config 4's 32^3 mesh, whose PPPM force error heats
+    the liquid (the JAX package's fast engine heats the same way, and a
+    64^3 mesh does not: PERF.md), printed; then on a 64^3 mesh, gated
+    below NVE_DRIFT_MAX.  Last, the script again from the other seeds of
+    PPPM_PE_JAX (pppm_seed_window), and the mean PE/N of the port's
+    windows over those seeds within PPPM_PE_BAND of the JAX package's.
+    Returns the launch counts of the script's run through the timed
+    window."""
+    import torch
+    import hoomd_tpu_torch as hoomd
+    from hoomd_tpu_torch import md
+    from hoomd_tpu_torch.ops import cell_pair as cp
+    what = 'config-4 job'
+    t_job = time.perf_counter()
+    hoomd.context.initialize("--mode=gpu --notice-level=0")
+    reset_launch_counts()
+    system = pppm_script(hoomd)
+    N = system.state.N
+    system._ensure_ready()
+    plan0 = (system._program['fast']['cell_dim'], system._program['fast']['C'])
+    if plan0 != PPPM_SHAPE:
+        raise RuntimeError(f"{what}: the plan of the lattice start {plan0}, "
+                           f"not {PPPM_SHAPE}")
+    pppm_warmup(system)
+    steps = 1000
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    system.run(steps, quiet=True)
+    el = time.perf_counter() - t0
+    counts = launch_counts()
+    fast = system._program['fast']
+    print(json.dumps({
+        "metric": "pppm_fluid_4k_particle_steps_per_sec",
+        "value": steps * N / el, "unit": "particle-steps/s/chip",
+        "extra": {"N": N, "steps": steps, "elapsed_s": el,
+                  "ms_per_step": el / steps * 1e3,
+                  "cell_dim": list(fast['cell_dim']), "C": fast['C'],
+                  "eval": fast['eval_name'], "card": card,
+                  "package": "torch"}}), flush=True)
+    check_charged_counts(counts, 'cell_pair_planar_q_typed', what)
+    # one launch per step and one per thermo read at least
+    if counts['cell_pair_planar_q_typed'] < 300 + 4 * 512 + steps:
+        raise RuntimeError(f"{what}: the charged kernel ran on fewer steps "
+                           f"than the script's ({counts})")
+    if (fast['ntypes'], fast['rebin_impl'], fast['mega'], fast['fused'],
+            fast['eval_name']) != (2, 'sort', False, False, 'lj_ewald'):
+        raise RuntimeError(f"{what}: not config 4's program ({fast})")
+    temps, pes = pppm_window(system)
+    busy, k_dev = device_profile(lambda: system.run(100, quiet=True),
+                                 f'100 steps of the {what}', top=10,
+                                 per_launch='cell_pair_q_kernel')
+    q = system.thermo_quantities()
+    snap = system.take_snapshot()
+    if not (np.isfinite(snap.particles.position).all()
+            and np.isfinite(snap.particles.velocity).all()
+            and np.isfinite(q['potential_energy'])):
+        raise RuntimeError(f"{what}: non-finite state")
+    t_mean, pe_mean = float(np.mean(temps)), float(np.mean(pes))
+    # the kernel on the end state, against its plain version
+    c = system._fast_carry
+    _, sh = cp.build_cell_shifts(fast['cell_dim'],
+                                 system._state_raw.box.L.cpu().numpy())
+    sh = torch.as_tensor(sh, dtype=torch.float32, device=c.pos.device)
+    qt = torch.as_tensor(snap.particles.charge, dtype=torch.float32,
+                         device=c.pos.device)
+    qc = torch.where(c.tag >= 0, qt[c.tag.long().clamp(min=0)], 0.0)
+    kw = dict(cell_tag=c.tag, eval_name='lj_ewald', pnames=fast['pnames'],
+              ntypes=2, cell_typ=c.typ, cell_q=qc)
+    pv = system._dyn['fast']['pv']
+    got = cp.cell_pair_planar(c.pos, fast['cell_dim'], sh, pv, C=fast['C'],
+                              **kw)
+    want = cp.cell_pair_planar_plain(c.pos, fast['cell_dim'], sh, pv, **kw)
+    ea, _ = compare(f'cell_pair_planar charged [{what} end state]',
+                    [(lab, g, w, RTOL, EVAL_ATOL.get('lj_ewald', ATOL))
+                     for lab, g, w in zip(('F', 'pe', 'virial'), got, want)])
+    print(f"{what}: plan cell_dim={fast['cell_dim']} C={fast['C']} "
+          f"k={fast['k_rebuild']} rebin={fast['rebin_impl']} "
+          f"impl={fast['impl']} eval={fast['eval_name']}; "
+          f"{el / steps * 1e3:.4f} ms/step over the timed {steps} steps, "
+          f"{steps * N / el:.6g} particle-steps/s; NVT window mean T "
+          f"{t_mean!r} (reads {', '.join(f'{t:.4f}' for t in temps)}), "
+          f"mean PE/N {pe_mean!r} (JAX package {PPPM_PE_JAX[9]}); busy "
+          f"share {busy:.4f}, the charged kernel "
+          f"{k_dev:.4f} ms per launch on the device; max_abs_err {ea:.3e} "
+          f"against its plain version on the end state; "
+          f"{system.fast_stats}, grow {system._grow}; launches={counts}; "
+          f"{card}", flush=True)
+    if abs(t_mean - PPPM_TEMP) > PPPM_TEMP_TOL:
+        raise RuntimeError(f"{what}: mean T over the NVT window {t_mean:.4f} "
+                           f"outside {PPPM_TEMP} +- {PPPM_TEMP_TOL}")
+    # NVE continuations: on config 4's mesh, and on a mesh of twice its
+    # resolution, gated
+    for m in system.methods:
+        m.disable()
+    md.integrate.nve(group=hoomd.group.all())
+    pppm = next(f for f in system.forces if type(f).__name__ == 'pppm')
+    reset_launch_counts()
+    drift32 = nve_drift(system, f'{what} NVE continuation, 32^3 mesh')
+    pppm.set_params(Nx=2 * PPPM_MESH, Ny=2 * PPPM_MESH, Nz=2 * PPPM_MESH,
+                    order=5, rcut=2.5)
+    drift = nve_drift(system, f'{what} NVE continuation, 64^3 mesh')
+    nve_counts = launch_counts()
+    print(f"{what} NVE: drift {drift32:.3e} per particle over 500 steps on "
+          f"the 32^3 mesh (the PPPM discretization's heating, as the JAX "
+          f"package's), {drift:.3e} on the 64^3 mesh (gated below "
+          f"{NVE_DRIFT_MAX}); launches={nve_counts}; the job took "
+          f"{time.perf_counter() - t_job:.1f} s", flush=True)
+    if not np.isfinite(drift) or abs(drift) >= NVE_DRIFT_MAX:
+        raise RuntimeError(f"{what} NVE: energy drift {drift:.3e} per "
+                           f"particle over 500 steps on the 64^3 mesh "
+                           f"(bound {NVE_DRIFT_MAX})")
+    check_charged_counts(nve_counts, 'cell_pair_planar_q_typed',
+                         f'{what} NVE continuations')
+    pes = {9: pe_mean}
+    for seed in PPPM_PE_JAX:
+        if seed not in pes:
+            pes[seed] = pppm_seed_window(hoomd, seed)
+    port = float(np.mean(list(pes.values())))
+    jax = float(np.mean(list(PPPM_PE_JAX.values())))
+    print(f"{what}: the NVT window's mean PE/N per velocity seed, port "
+          f"{pes}, JAX package {PPPM_PE_JAX}; means {port!r} and {jax!r}, "
+          f"apart {port - jax:.4e} (band {PPPM_PE_BAND:.4e}); the job "
+          f"took {time.perf_counter() - t_job:.1f} s", flush=True)
+    if not abs(port - jax) <= PPPM_PE_BAND:
+        raise RuntimeError(f"{what}: mean PE/N over seeds {sorted(pes)} "
+                           f"{port:.4f}, the JAX package's {jax:.4f} +- "
+                           f"{PPPM_PE_BAND:.4f}")
+    return counts
+
+
+def pppm_seed_window(hoomd, seed):
+    """Config 4's script on the card with velocities from ``seed``:
+    bench_all.py's warmup and timed window, then the NVT window.  Returns
+    the window's mean PE/N; its mean T must be 1 +- 0.05."""
+    hoomd.context.initialize("--mode=gpu --notice-level=0")
+    system = pppm_script(hoomd, seed=seed)
+    pppm_warmup(system)
+    system.run(1000, quiet=True)
+    temps, pes = pppm_window(system)
+    if abs(np.mean(temps) - PPPM_TEMP) > PPPM_TEMP_TOL:
+        raise RuntimeError(f"config-4 job, seed {seed}: mean T over the "
+                           f"NVT window {np.mean(temps):.4f}")
+    return float(np.mean(pes))
+
+
+def nve_drift(system, what):
+    """500 NVE steps of pppm_script's job (either package), read every 50:
+    the drift per particle of the energy the dynamics conserves (KE + PE +
+    lj_cut_energy), the slope of a least-squares line through the reads
+    times 500.  Prints the reads and the raw KE + PE's change."""
+    N = system.state.N
+    e_raw, e_cons = [], []
+    for i in range(11):
+        if i:
+            system.run(50, quiet=True)
+        q = system.thermo_quantities()
+        e_raw.append((q['kinetic_energy'] + q['potential_energy']) / N)
+        e_cons.append(e_raw[-1] + lj_cut_energy(system) / N)
+    drift = float(np.polyfit(50 * np.arange(11), e_cons, 1)[0]) * 500
+    print(f"{what}: E/N {e_raw[0]:.6f} -> {e_raw[-1]:.6f} "
+          f"({e_raw[-1] - e_raw[0]:.3e}, with the pairs crossing the "
+          f"unshifted r_cut); the conserved E/N {e_cons[0]:.6f} -> "
+          f"{e_cons[-1]:.6f}, reads every 50 steps "
+          f"{', '.join(f'{e - e_cons[0]:.2e}' for e in e_cons)}, drift "
+          f"{drift:.3e} per particle over 500 steps at dt = 0.005, "
+          f"T={q['temperature']:.5f}", flush=True)
+    return drift
+
+
+def lj_cut_energy(system, rc=2.5):
+    """-V_LJ(r_cut) times the number of pairs closer than r_cut in the
+    current state of pppm_script's job (either package; epsilon = sigma =
+    1 for every type pair).  Its pair.lj runs unshifted (mode 'none', as
+    pppm requires), so KE + PE jumps by V_LJ(r_cut) whenever a pair
+    crosses r_cut; the forces are those of the shifted potential, whose
+    energy, KE + PE + this sum, the dynamics conserves.  Counted over all
+    pairs of the snapshot under the minimum image in float64 torch (on the
+    card when there is one), apart from the kernels under test."""
+    import torch
+    snap = system.take_snapshot()
+    dev = torch.device('cuda' if torch.cuda.is_available() else 'cpu')
+    pos = torch.as_tensor(snap.particles.position, dtype=torch.float64,
+                          device=dev)
+    L = torch.tensor([snap.box.Lx, snap.box.Ly, snap.box.Lz],
+                     dtype=torch.float64, device=dev)
+    n = 0
+    for i in range(0, pos.shape[0], 256):
+        d = pos[i:i + 256, None, :] - pos[None]
+        d = d - L * torch.round(d / L)
+        r2 = (d * d).sum(-1)
+        n += int(((r2 > 0) & (r2 < rc * rc)).sum())
+    return -4.0 * (rc ** -12 - rc ** -6) * (n // 2)
+
+
+def madelung_job():
+    """The NaCl Madelung energy on the card (tests/test_pppm.py): 512 ions
+    of one type with charges +-1 on a rock-salt lattice of spacing 1 in a
+    box of 8, md.charge.pppm alone (32^3, order 5, r_cut 3), one NVE step
+    at dt = 0: PE per ion -1.747565 / 2 to rel 2e-3, every force below
+    5e-2, the one-type charged kernel (ewald) launched and no other.  Then
+    that kernel against its plain version at the job's own plan (a few
+    cells per axis, so the 27-cell stencil visits a neighbour cell more
+    than once): on the end state, and on it jittered by up to 0.2, whose
+    forces do not cancel by symmetry, with the times and the bound there.
+    Returns the launch counts and the one-type kernel's row."""
+    import torch
+    import hoomd_tpu_torch as hoomd
+    from hoomd_tpu_torch.ops import cell_pair as cp
+    hoomd.context.initialize("--mode=gpu --notice-level=0")
+    n, a = 4, 1.0
+    N = (2 * n) ** 3
+    snap = hoomd.data.make_snapshot(N, hoomd.data.boxdim(L=2 * n * a))
+    ijk = np.stack(np.meshgrid(*[np.arange(2 * n)] * 3, indexing='ij'),
+                   -1).reshape(-1, 3)
+    snap.particles.position[:] = ijk * a - n * a + a / 2
+    snap.particles.charge[:] = (-1.0) ** ijk.sum(1)
+    hoomd.init.read_snapshot(snap)
+    system = hoomd.context.current.system
+    p = hoomd.md.charge.pppm(group=hoomd.group.all(),
+                             nlist=hoomd.md.nlist.cell())
+    p.set_params(Nx=32, Ny=32, Nz=32, order=5, rcut=3.0)
+    hoomd.md.integrate.mode_standard(dt=0.0)
+    hoomd.md.integrate.nve(group=hoomd.group.all())
+    reset_launch_counts()
+    system.run(1, quiet=True)
+    pe = system.thermo_quantities()['potential_energy'] / N
+    counts = launch_counts()
+    fmax = float(system.state.net_force.abs().max())
+    fast = system._program['fast']
+    cdim, C = fast['cell_dim'], fast['C']
+    want = -1.747565 / 2
+    print(f"Madelung job: PE per ion {pe!r} (want {want}, rel "
+          f"{abs(pe / want - 1):.3e}), max |F| {fmax:.3e}, eval "
+          f"{fast['eval_name']}, plan cell_dim={cdim} C={C}, "
+          f"launches={counts}", flush=True)
+    check_charged_counts(counts, 'cell_pair_planar_q', 'Madelung job')
+    if abs(pe / want - 1) > 2e-3 or not fmax < 5e-2:
+        raise RuntimeError(f"Madelung job: PE per ion {pe:.6f} (want "
+                           f"{want} to rel 2e-3), max |F| {fmax:.3e}")
+    c = system._fast_carry
+    _, sh = cp.build_cell_shifts(cdim, system._state_raw.box.L.cpu().numpy())
+    sh = torch.as_tensor(sh, dtype=torch.float32, device=c.pos.device)
+    qt = torch.as_tensor(snap.particles.charge, dtype=torch.float32,
+                         device=c.pos.device)
+    qc = torch.where(c.tag >= 0, qt[c.tag.long().clamp(min=0)], 0.0)
+    pv = system._dyn['fast']['pv']
+    kw = dict(cell_tag=c.tag, eval_name=fast['eval_name'],
+              pnames=fast['pnames'], ntypes=1, cell_q=qc)
+    g = torch.Generator(device=c.pos.device).manual_seed(3)
+    jit = (torch.rand(c.pos.shape, generator=g, device=c.pos.device)
+           - 0.5) * 0.4
+    for label, pos in (('end state', c.pos),
+                       ('end state jittered', c.pos + jit * (c.tag >= 0)
+                        .unsqueeze(-1))):
+        def kern(pos=pos):
+            return cp.cell_pair_planar(pos, cdim, sh, pv, C=C, **kw)
+
+        def plain(pos=pos):
+            return cp.cell_pair_planar_plain(pos, cdim, sh, pv, **kw)
+        ea, er = compare(f'cell_pair_planar charged [Madelung job {label}]',
+                         [(lab, g_, w, RTOL, EVAL_ATOL.get('ewald', ATOL))
+                          for lab, g_, w in zip(('F', 'pe', 'virial'),
+                                                kern(), plain())])
+    (b_ms, b_by), cand, inr = charged_bounds('ewald', pos, c.tag, c.typ,
+                                             cdim, sh, pv, 1)
+    row = dict(max_abs_err=ea, bound_share=er, ms=cuda_ms(kern, 50),
+               plain_ms=cuda_ms(plain, 3), device_ms=device_ms(kern, 10),
+               bound_ms=b_ms, bound_by=b_by)
+    dev_ms = (f"{row['device_ms']:.4f}" if row['device_ms'] > 0 else
+              "not measured (the profiler saw no device events)")
+    print(f"phase charged kernel [ewald, T=1, the Madelung job's plan "
+          f"cell_dim={cdim} C={C} N={N}, jittered, {cand} candidate pairs, "
+          f"{inr} inside r_cut]: max_abs_err={ea:.3e} "
+          f"kernel_ms={row['ms']:.4f} device_ms={dev_ms} "
+          f"plain_ms={row['plain_ms']:.4f} bound_ms={b_ms:.6f} ({b_by})",
+          flush=True)
+    return counts, row
+
+
 def ka_cells(dev, ntypes, jitter=0.05, seed=5):
     """The cell-major carry of the KA start (ka_snapshot), jittered by up
     to ``jitter`` lattice spacings, on the engine's plan of it: two types
@@ -2711,6 +3239,8 @@ def main():
     rows.update(impl_kernel_phases(dev))
     typed_rows, typed_ms = typed_kernel_phases(dev)
     rows.update(typed_rows)
+    charged_rows, charged_ms = charged_kernel_phases(dev)
+    rows.update(charged_rows)
     rows.update(rebin_kernel_phases(dev))
     rows.update(hpmc_kernel_phases())
     print(f"kernel phases done at {time.perf_counter() - t0:.1f} s",
@@ -2734,6 +3264,10 @@ def main():
     launches['cell_pair_planar_typed'] = ka_job(card)['cell_pair_planar_typed']
     launches['cell_pair_planar_n3l_typed'] = ka_n3l_job()[
         'cell_pair_planar_n3l_typed']
+    launches['cell_pair_planar_q_typed'] = pppm_job(card)[
+        'cell_pair_planar_q_typed']
+    counts, rows['cell_pair_planar_q'] = madelung_job()
+    launches['cell_pair_planar_q'] = counts['cell_pair_planar_q']
     print(f"MD jobs done at {time.perf_counter() - t0:.1f} s", flush=True)
     launches['fused_poly_sweep'] = hpmc_job('cube', card)['fused_poly_sweep']
     launches['fused_sphere_sweep'] = hpmc_job('sphere', card)[
@@ -2761,6 +3295,12 @@ def main():
                                    'cell_pair_typed.cu'),
         'cell_pair_planar_n3l_typed': ('hoomd_tpu/ops/pallas_pair.py:937',
                                        'cell_pair_impls.cu'),
+        # the charge channel of _kernel_planar (needs_q, :692-697), one
+        # type and a mixture
+        'cell_pair_planar_q': ('hoomd_tpu/ops/pallas_pair.py:609',
+                               'cell_pair_charged.cu'),
+        'cell_pair_planar_q_typed': ('hoomd_tpu/ops/pallas_pair.py:609',
+                                     'cell_pair_charged.cu'),
         'fused_poly_sweep': ('hoomd_tpu/hpmc/pallas_sweep.py:293',
                              'hpmc_sweep.cu'),
         'fused_sphere_sweep': ('hoomd_tpu/hpmc/pallas_sweep.py:50',
@@ -2790,6 +3330,9 @@ def main():
     # the half stencil and the typed planar kernel at the KA shape, per
     # evaluator and number of types
     print(json.dumps({"typed_kernels_ms": typed_ms}), flush=True)
+    # the charged kernel at config 4's shape, per evaluator and number of
+    # types: wrapper ms, device ms, plain ms, bound
+    print(json.dumps({"charged_kernels": charged_ms}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

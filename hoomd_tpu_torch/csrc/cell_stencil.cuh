@@ -1,5 +1,6 @@
 // 27-cell pair stencil shared by the cell kernels (cell_pair.cu,
-// cell_pair_typed.cu, cell_step.cu, cell_pair_impls.cu).
+// cell_pair_typed.cu, cell_pair_charged.cu, cell_step.cu,
+// cell_pair_impls.cu).
 //
 // It computes what the TPU kernels of hoomd_tpu/ops/pallas_pair.py
 // compute (_kernel_plane, _kernel_planar, _kernel_step_plane, the force
@@ -100,7 +101,12 @@ enum Eval {
     EV_FSLJ = 7,           // pv force_shifted_lj: lj1 lj2 rcut
     EV_DPD = 8,            // pv dpd_conservative: A rcut
     EV_MOLIERE = 9,        // pv moliere: Zsq aF rcut
-    EV_COUNT = 10
+    // the charged evaluators (pair_eval.CHARGED_EVALS), which read the
+    // pair's q_i q_j; only cell_pair_charged.cu instantiates them, and
+    // dispatch_eval leaves them out
+    EV_EWALD = 10,         // pv ewald: kappa rcut
+    EV_LJ_EWALD = 11,      // pv lj_ewald: kappa lj1 lj2 rcut
+    EV_COUNT = 12
 };
 
 // Most parameters an evaluator reads after [rc2, e_shift] (mie: 5).
@@ -134,11 +140,22 @@ __device__ __forceinline__ void lj_raw(const float r2i, const float lj1, const f
     e = r6i * (lj1 * r6i - lj2);
 }
 
+// erfc by Abramowitz-Stegun 7.1.26, in the operation order of
+// pair_eval.erfc_approx.
+__device__ __forceinline__ float erfc_approx(const float x) {
+    const float t = 1.0f / (1.0f + 0.3275911f * x);
+    const float poly =
+        t * (0.254829592f +
+             t * (-0.284496736f + t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
+    return poly * expf(-x * x);
+}
+
 // (force_divr, energy) of evaluator EV at r2 (already clamped), in the
-// operation order of its pair_eval.energy_force.
+// operation order of its pair_eval.energy_force; qiqj, the pair's charge
+// product, is read by the charged evaluators alone.
 template <int EV, bool APPROX>
-__device__ __forceinline__ void eval_pair(const float r2, const float* q, float& f,
-                                          float& e) {
+__device__ __forceinline__ void eval_pair(const float r2, const float* q, float& f, float& e,
+                                          const float qiqj = 0.0f) {
     if constexpr (EV == EV_LJ) {
         lj_raw(APPROX ? __fdividef(1.0f, r2) : 1.0f / r2, q[0], q[1], f, e);
     } else if constexpr (EV == EV_GAUSS) {
@@ -187,8 +204,7 @@ __device__ __forceinline__ void eval_pair(const float r2, const float* q, float&
         const float w = fmaxf(1.0f - r / rc, 0.0f);
         e = 0.5f * q[0] * rc * w * w;
         f = q[0] * w / r;
-    } else {
-        static_assert(EV == EV_MOLIERE, "unknown evaluator");
+    } else if constexpr (EV == EV_MOLIERE) {
         const float r = sqrtf(r2);
         const float aF = q[1];
         const float c[3] = {0.35f, 0.55f, 0.10f};
@@ -203,6 +219,22 @@ __device__ __forceinline__ void eval_pair(const float r2, const float* q, float&
         const float pref = q[0] / r;
         f = pref * fs / r;
         e = pref * es;
+    } else if constexpr (EV == EV_EWALD) {
+        // the exact erfc, as torch.special.erfc
+        const float r = sqrtf(r2);
+        const float kr = q[0] * r;
+        const float ec = erfcf(kr);
+        e = qiqj * ec / r;
+        f = qiqj * (ec / r + 2.0f * q[0] / 1.7724538509055159f * expf(-kr * kr)) / r2;
+    } else {
+        static_assert(EV == EV_LJ_EWALD, "unknown evaluator");
+        lj_raw(1.0f / r2, q[1], q[2], f, e);
+        const float r2i = 1.0f / r2;
+        const float rinv = sqrtf(r2i);
+        const float kr = q[0] * (r2 * rinv);
+        const float ec = erfc_approx(kr);
+        e = e + qiqj * ec * rinv;
+        f = f + qiqj * (ec * rinv + 2.0f * q[0] * 0.5641895835477563f * expf(-kr * kr)) * r2i;
     }
 }
 
@@ -210,10 +242,11 @@ __device__ __forceinline__ void eval_pair(const float r2, const float* q, float&
 // (3) and, with PV, the full-pair energy (1) and virial (6, order xx, xy,
 // xz, yy, yz, zz) to acc.  Nothing is added outside r_cut.  APPROX picks
 // the fast reciprocal of lj under a thermostat; it means nothing for the
-// other evaluators.
+// other evaluators.  qiqj: the pair's charge product (charged evaluators).
 template <int EV, bool APPROX, bool PV>
 __device__ __forceinline__ void pair_acc(const float dx, const float dy, const float dz,
-                                         const PairPar& P, float* acc) {
+                                         const PairPar& P, float* acc,
+                                         const float qiqj = 0.0f) {
     // r^2 rounded as torch's separate ops, (dx dx + dy dy) + dz dz, with no
     // FMA contraction: a pair within an ulp of r_cut is in or out alike in
     // the kernel and its plain version
@@ -221,7 +254,7 @@ __device__ __forceinline__ void pair_acc(const float dx, const float dy, const f
                                __fmul_rn(dz, dz));
     if (!(r2 < P.rc2)) return;
     float fdivr, e;
-    eval_pair<EV, APPROX && EV == EV_LJ>(fmaxf(r2, 1e-3f), P.q, fdivr, e);
+    eval_pair<EV, APPROX && EV == EV_LJ>(fmaxf(r2, 1e-3f), P.q, fdivr, e, qiqj);
     acc[0] += fdivr * dx;
     acc[1] += fdivr * dy;
     acc[2] += fdivr * dz;
@@ -320,7 +353,8 @@ __device__ __forceinline__ float pick(const float (&col)[kMaxTypes], const int t
 // pair_acc rounds it, and only a pair inside it picks the others.
 template <int EV, bool PV>
 __device__ __forceinline__ void typed_pair_acc(const float dx, const float dy, const float dz,
-                                               const TypedRow& R, const int tj, float* acc) {
+                                               const TypedRow& R, const int tj, float* acc,
+                                               const float qiqj = 0.0f) {
     const float r2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
                                __fmul_rn(dz, dz));
     if (!(r2 < pick(R.v[0], tj))) return;
@@ -329,7 +363,7 @@ __device__ __forceinline__ void typed_pair_acc(const float dx, const float dy, c
     P.e_shift = pick(R.v[1], tj);
 #pragma unroll
     for (int k = 0; k < kMaxPnames; ++k) P.q[k] = pick(R.v[2 + k], tj);
-    pair_acc<EV, false, PV>(dx, dy, dz, P, acc);
+    pair_acc<EV, false, PV>(dx, dy, dz, P, acc, qiqj);
 }
 
 // stencil_sum over typed candidates.
@@ -343,6 +377,17 @@ __device__ inline void typed_stencil_sum(const float xi, const float yi, const f
         const int b = sv[t];
         if (!b || t == self) continue;
         typed_pair_acc<EV, PV>(xi - sx[t], yi - sy[t], zi - sz[t], R, b - 1, acc);
+    }
+}
+
+// Each staged candidate's charge into sq (27 C floats), in the order of
+// stage_stencil; padding slots hold q = 0 in the engine's charge planes.
+__device__ inline void stage_charges(const float* __restrict__ q, const Geom g, const int cell,
+                                     float* sq) {
+    const int n = 27 * g.C;
+    for (int t = threadIdx.x; t < n; t += blockDim.x) {
+        const int k = t / g.C;
+        sq[t] = q[stencil_slot(g, cell, k, t - k * g.C)];
     }
 }
 
@@ -392,7 +437,8 @@ static inline cudaError_t set_smem(K kernel, size_t bytes) {
 }
 
 // Run fn(EvalTag<EV>{}) for the evaluator id ev, so a launcher
-// instantiates its kernel for all ten evaluators.
+// instantiates its kernel for all ten uncharged evaluators (the charged
+// ones have their own dispatch, in cell_pair_charged.cu).
 template <int E>
 struct EvalTag {
     static constexpr int value = E;

@@ -1,5 +1,6 @@
 """numpy arrays from the JAX package -> the port's objects (snapshots,
-fast-engine carries, pair parameter tables, hull tables, cell planes).
+fast-engine carries, pair parameter tables, PPPM parameters, hull
+tables, cell planes).
 
 The parity tests feed both packages identical inputs through these
 functions: the JAX side's arrays go through numpy, never as JAX arrays.
@@ -47,9 +48,11 @@ def carry_from_numpy(fields, device='cpu'):
 def pair_tables_from_numpy(pv, ntypes, device='cpu', eval_name='lj'):
     """The JAX package's fast-engine parameter array (its ``_fast_dyn()
     ['pv']``: [rc2, e_shift, *pnames], (2 + NP,) for one type or the
-    (2 + NP, T, T) per-pair table of a mixture) -> the float32 tensor the
-    port's kernels take, after checking its shape against ``ntypes`` and
-    the kernel parameter order of ``eval_name`` (pair_eval.kernel_pnames)."""
+    (2 + NP, T, T) per-pair table of a mixture; for a charged job, eval_name
+    'ewald' or 'lj_ewald', the merged table of its charged branch) -> the
+    float32 tensor the port's kernels take, after checking its shape
+    against ``ntypes`` and the kernel parameter order of ``eval_name``
+    (pair_eval.kernel_pnames)."""
     from .ops import pair_eval
     pv = np.array(pv, np.float32)
     n = 2 + len(pair_eval.kernel_pnames(eval_name))
@@ -58,6 +61,17 @@ def pair_tables_from_numpy(pv, ntypes, device='cpu', eval_name='lj'):
         raise ValueError(f"{eval_name} with {ntypes} type(s) takes a table of "
                          f"shape {want}, got {pv.shape}")
     return torch.as_tensor(pv, device=device)
+
+
+def pppm_params_from_numpy(params, device='cpu'):
+    """The JAX package's pppm._pack_params dict ({'kappa', 'bmod': three
+    arrays, 'mvec': three arrays}) -> the float32 tensors of the port's
+    md.charge.mesh_compute, on ``device``."""
+    def T(x):
+        return torch.as_tensor(np.array(x, np.float32), device=device)
+    return {'kappa': T(params['kappa']),
+            'bmod': tuple(T(b) for b in params['bmod']),
+            'mvec': tuple(T(m) for m in params['mvec'])}
 
 
 def lj_params_from_numpy(pv, device='cpu'):

@@ -1,6 +1,6 @@
 """Molecular dynamics package (counterpart of hoomd_tpu/md): the slice's
-nlist, pair and integrate namespaces."""
+nlist, pair, charge and integrate namespaces."""
 
-from . import integrate, nlist, pair
+from . import charge, integrate, nlist, pair
 
-__all__ = ['integrate', 'nlist', 'pair']
+__all__ = ['charge', 'integrate', 'nlist', 'pair']

@@ -2,9 +2,10 @@
 
 The ten pair potentials the cell-stencil engine runs (lj, gauss, yukawa,
 morse, mie, buckingham, lj1208, force_shifted_lj, dpd_conservative,
-moliere).  The JAX package's slj, reaction_field, ewald, zbl and dlvo
-need diameters or charges, which its stencil engine declines too; they
-are not ported.  Coefficients follow the reference's
+moliere), and ewald, the real-space Ewald pair, which reads the
+particles' charges: md.charge.pppm attaches one, or it runs on its own.
+The JAX package's slj, reaction_field, zbl and dlvo need diameters or
+charges that its stencil engine declines; they are not ported.  Coefficients follow the reference's
 ``pair_coeff.set('A', 'B', epsilon=..., ...)`` protocol, with per-pair
 r_cut overrides and shift modes 'none' / 'shift' / 'xplor' (the System
 gates 'xplor' out of the slice).
@@ -136,3 +137,6 @@ force_shifted_lj = _make_pair_class(
 dpd_conservative = _make_pair_class(
     'dpd_conservative', "Conservative DPD (md/pair.py dpd_conservative).")
 moliere = _make_pair_class('moliere', "Moliere screening (md/pair.py).")
+ewald = _make_pair_class(
+    'ewald', "Real-space Ewald (md/pair.py ewald); pair with md.charge.pppm "
+             "for full electrostatics.")

@@ -48,6 +48,8 @@ _SIGNATURES = {
     'hoomd_cell_pair_n3l': [P, P, P, P, P, I, I, P, P, I, I, I, I, I, P],
     'hoomd_cell_pair_planar_typed': [P, P, P, P, P, I, I, P, P, P, I, I, I,
                                      I, I, I, P],
+    'hoomd_cell_pair_planar_q': [P, P, P, P, P, P, I, I, P, P, P, I, I, I, I,
+                                 I, I, P],
     'hoomd_hpmc_sphere_sweep': [P, P, P, P, P, P, P, P, I, P,
                                 I, I, I, I, F, F, F, P],
     'hoomd_hpmc_poly_sweep': [P, P, P, P, P, P, P, P, P, P, I, P,

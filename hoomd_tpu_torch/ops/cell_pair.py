@@ -35,6 +35,14 @@ take the (2 + NP, T, T) per-pair table, and each has a typed kernel
 (csrc/cell_pair_typed.cu, csrc/cell_pair_impls.cu) with its own launch
 counter; the other kernels are single-type, as in the JAX engine.
 
+The charged evaluators (pair_eval.CHARGED_EVALS: ewald, lj_ewald) read
+each pair's charge product: they run on cell_pair_planar with
+``cell_q`` (nc, C), the slots' charges (the needs_q branch of
+_kernel_planar), for one type or a mixture, on the kernel of
+csrc/cell_pair_charged.cu, whose launches count in ``q_launches`` and
+``q_typed_launches``; and on cell_pair_xla with cell_q.  No other
+wrapper takes them.
+
 On a CUDA tensor a wrapper launches its hand-written kernel
 (csrc/cell_pair.cu, csrc/cell_pair_typed.cu, csrc/cell_step.cu,
 csrc/cell_pair_impls.cu, built by ops/_build.py) or raises; on a CPU
@@ -105,13 +113,22 @@ def _adjacency(cell_dim, device):
 LJ_PNAMES = ('lj1', 'lj2', 'rcut')
 
 
-def _evaluator(eval_name, pnames):
+def _evaluator(eval_name, pnames, charged=False):
     """The pair_eval evaluator of ``eval_name``, after checking that
-    ``pnames`` is the order the kernels read its parameters in."""
+    ``pnames`` is the order the kernels read its parameters in.  With
+    ``charged`` (a cell_q was given) it must be one of the charged
+    evaluators, without it one of the others."""
     if eval_name not in pair_eval.EVAL_IDS:
         raise NotImplementedError(
             f"pair evaluator {eval_name!r}: the stencil kernels run "
-            f"{', '.join(pair_eval.FAST_EVALS)}")
+            f"{', '.join(pair_eval.FAST_EVALS + pair_eval.CHARGED_EVALS)}")
+    if charged and eval_name not in pair_eval.CHARGED_EVALS:
+        raise NotImplementedError(
+            f"cell_q feeds the charged evaluators "
+            f"{', '.join(pair_eval.CHARGED_EVALS)}, not {eval_name!r}")
+    if not charged and eval_name in pair_eval.CHARGED_EVALS:
+        raise ValueError(f"pair evaluator {eval_name!r} reads each pair's "
+                         f"charges: pass cell_q, the slots' charges")
     want = pair_eval.kernel_pnames(eval_name)
     if tuple(pnames) != want:
         raise ValueError(f"pnames {tuple(pnames)} of {eval_name!r}: the "
@@ -135,7 +152,8 @@ VIRIAL_PAIRS = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
 
 
 def _stencil_plain(cell_pos, cell_tag, adj, cell_shift, params_vec,
-                   want_pv, eval_name='lj', pnames=LJ_PNAMES, cell_typ=None):
+                   want_pv, eval_name='lj', pnames=LJ_PNAMES, cell_typ=None,
+                   cell_q=None):
     """Direct-dr stencil over all cells, each against the 27 cells of its
     row of ``adj`` (nc, 27) under the image shifts ``cell_shift``, chunked
     to bound memory.  A slot meets itself only in the entry that lists its
@@ -143,11 +161,12 @@ def _stencil_plain(cell_pos, cell_tag, adj, cell_shift, params_vec,
     With ``cell_typ`` (nc, C) params_vec is the (2 + NP, T, T) table of a
     mixture, read per pair by the two slots' types: rc2 for every
     candidate, the rest for the pairs inside it only, whose sums run over
-    those pairs alone.
+    those pairs alone.  With ``cell_q`` (nc, C), the slots' charges, each
+    pair's evaluator reads qiqj = q_i q_j.
     Returns F (nc, C, 3) and, with want_pv, pe (nc, C), vir (nc, C, 6)."""
     nc, C, _ = cell_pos.shape
     dev = cell_pos.device
-    ev = _evaluator(eval_name, pnames)
+    ev = _evaluator(eval_name, pnames, cell_q is not None)
     if cell_typ is None:
         rc2, e_shift, p = pair_eval.params_dict(params_vec, pnames)
     else:
@@ -174,6 +193,8 @@ def _stencil_plain(cell_pos, cell_tag, adj, cell_shift, params_vec,
             ti = typ[c0:c1, :, None].expand(n, C, 27 * C)
             tj = typ[a].reshape(n, 1, 27 * C).expand(n, C, 27 * C)
             rc2 = params_vec[0][ti, tj]
+        if cell_q is not None:
+            qq = cell_q[c0:c1, :, None] * cell_q[a].reshape(n, 1, 27 * C)
         xi = cell_pos[c0:c1]
         # dr = xi - xj by component, each (n, C, 27C) contiguous
         xj = xj.permute(2, 0, 1)
@@ -189,6 +210,8 @@ def _stencil_plain(cell_pos, cell_tag, adj, cell_shift, params_vec,
             at = pair.nonzero(as_tuple=True)
             _, es_in, p_in = pair_eval.params_dict(params_vec, pnames,
                                                    ti[at], tj[at])
+            if cell_q is not None:
+                p_in['qiqj'] = qq[at]
             r2_in = r2[at]
             f_in, e_in = ev.energy_force(torch.clamp(r2_in, min=1e-3), p_in)
             slot = (c0 + at[0]) * C + at[1]
@@ -201,7 +224,8 @@ def _stencil_plain(cell_pos, cell_tag, adj, cell_shift, params_vec,
                 vir.view(nc * C, 6).index_add_(0, slot, 0.5 * torch.stack(
                     [fd[:, u] * d_in[:, w] for u, w in VIRIAL_PAIRS], -1))
             continue
-        f_raw, e_raw = ev.energy_force(torch.clamp(r2, min=1e-3), p)
+        pp = p if cell_q is None else dict(p, qiqj=qq)
+        f_raw, e_raw = ev.energy_force(torch.clamp(r2, min=1e-3), pp)
         fdivr = torch.where(pair, f_raw, 0.0)
         F[c0:c1] = torch.stack([(fdivr * dx).sum(-1), (fdivr * dy).sum(-1),
                                 (fdivr * dz).sum(-1)], dim=-1)
@@ -225,13 +249,14 @@ def cell_pair_plane_plain(cell_pos, cell_dim, cell_shift, params_vec, *,
 
 def cell_pair_planar_plain(cell_pos, cell_dim, cell_shift, params_vec, *,
                            cell_tag, eval_name='lj', pnames=LJ_PNAMES,
-                           ntypes=1, cell_typ=None):
+                           ntypes=1, cell_typ=None, cell_q=None):
     """Plain torch version of cell_pair_planar: (F, pe, vir); with
-    ntypes > 1 the (2 + NP, T, T) table of a mixture and its cell_typ."""
+    ntypes > 1 the (2 + NP, T, T) table of a mixture and its cell_typ;
+    with cell_q the charged evaluators."""
     return _stencil_plain(cell_pos, cell_tag,
                           _adjacency(cell_dim, cell_pos.device), cell_shift,
                           params_vec, True, eval_name, pnames,
-                          cell_typ if ntypes > 1 else None)
+                          cell_typ if ntypes > 1 else None, cell_q)
 
 
 def _pv_of_lj(lj_params):
@@ -590,9 +615,10 @@ def _check_shapes(C, **shapes):
 
 
 def _check_pair_args(cell_pos, cell_tag, cell_dim, cell_shift, params_vec,
-                     C, eval_name, pnames, ntypes=1, cell_typ=None):
-    """Shapes, the types of a mixture, and the evaluator: returns its
-    kernel id."""
+                     C, eval_name, pnames, ntypes=1, cell_typ=None,
+                     cell_q=None):
+    """Shapes, the types of a mixture, the charges, and the evaluator:
+    returns its kernel id."""
     nc = int(np.prod(cell_dim))
     shapes = dict(cell_pos=(cell_pos, (nc, C, 3)),
                   cell_tag=(cell_tag, (nc, C)),
@@ -601,12 +627,16 @@ def _check_pair_args(cell_pos, cell_tag, cell_dim, cell_shift, params_vec,
         if cell_typ is None:
             raise ValueError(f"a mixture of {ntypes} types needs cell_typ")
         shapes['cell_typ'] = (cell_typ, (nc, C))
+    if cell_q is not None:
+        shapes['cell_q'] = (cell_q, (nc, C))
     _check_shapes(C, **shapes)
-    return _eval_id(eval_name, pnames, params_vec, ntypes)
+    return _eval_id(eval_name, pnames, params_vec, ntypes, cell_q is not None)
 
 
-def _eval_id(eval_name, pnames, params_vec, ntypes=1):
-    _evaluator(eval_name, pnames)
+def _eval_id(eval_name, pnames, params_vec, ntypes=1, charged=False):
+    """The kernel id of ``eval_name``, after checking it and the parameter
+    table; the charged evaluators only with ``charged`` (a cell_q)."""
+    _evaluator(eval_name, pnames, charged)
     if not 1 <= ntypes <= MAX_TYPES:
         raise NotImplementedError(f"{ntypes} particle types: the kernels "
                                   f"take 1 to {MAX_TYPES}")
@@ -663,7 +693,7 @@ cell_pair_plane.launches = 0
 
 def cell_pair_planar(cell_pos, cell_dim, cell_shift, params_vec, *, C,
                      cell_tag, eval_name='lj', pnames=LJ_PNAMES, ntypes=1,
-                     cell_typ=None, want_pv=True):
+                     cell_typ=None, want_pv=True, cell_q=None):
     """Forces, per-particle PE (1/2 per pair) and the 6-component virial
     (1/2 per pair, order xx, xy, xz, yy, yz, zz) of the stencil of the
     pair evaluator ``eval_name`` (exact divide); F alone with want_pv
@@ -671,9 +701,17 @@ def cell_pair_planar(cell_pos, cell_dim, cell_shift, params_vec, *, C,
     ntypes = 2..MAX_TYPES: params_vec is the (2 + NP, T, T) table, read
     per pair (i, j) at [k, typ_i, typ_j], and cell_typ (nc, C) the slots'
     types; its kernel (csrc/cell_pair_typed.cu) counts its launches in
-    ``typed_launches``."""
+    ``typed_launches``.  With cell_q (nc, C), the slots' charges (0 on
+    padding), the charged evaluators ewald and lj_ewald, one type or a
+    mixture, on csrc/cell_pair_charged.cu: ``q_launches`` and
+    ``q_typed_launches``."""
     ev = _check_pair_args(cell_pos, cell_tag, cell_dim, cell_shift,
-                          params_vec, C, eval_name, pnames, ntypes, cell_typ)
+                          params_vec, C, eval_name, pnames, ntypes, cell_typ,
+                          cell_q)
+    if cell_q is not None:
+        return _cell_pair_planar_q(cell_pos, cell_dim, cell_shift, params_vec,
+                                   C, cell_tag, cell_typ, cell_q, ntypes, ev,
+                                   eval_name, pnames, want_pv)
     if ntypes > 1:
         return _cell_pair_planar_typed(cell_pos, cell_dim, cell_shift,
                                        params_vec, C, cell_tag, cell_typ,
@@ -734,8 +772,48 @@ def _cell_pair_planar_typed(cell_pos, cell_dim, cell_shift, params_vec, C,
     return (F, pe, vir) if want_pv else F
 
 
+def _cell_pair_planar_q(cell_pos, cell_dim, cell_shift, params_vec, C,
+                        cell_tag, cell_typ, cell_q, ntypes, ev, eval_name,
+                        pnames, want_pv):
+    typed = ntypes > 1
+    if _device_of(cell_pos) == 'cpu':
+        out = cell_pair_planar_plain(cell_pos, cell_dim, cell_shift,
+                                     params_vec, cell_tag=cell_tag,
+                                     eval_name=eval_name, pnames=pnames,
+                                     ntypes=ntypes, cell_typ=cell_typ,
+                                     cell_q=cell_q)
+        return out if want_pv else out[0]
+    _require_cuda_inputs(cell_tag, cell_q, cell_shift, params_vec,
+                         *((cell_typ,) if typed else ()))
+    lib = _kernel_lib()
+    pos, tag, sh, par = _lj_args(cell_pos, cell_tag, cell_shift, params_vec)
+    typ = cell_typ.contiguous().to(torch.int32) if typed else None
+    q = cell_q.contiguous().float()
+    nc = pos.shape[0]
+    F = torch.empty_like(pos)
+    pe = vir = None
+    if want_pv:
+        pe = torch.empty((nc, C), dtype=pos.dtype, device=pos.device)
+        vir = torch.empty((nc, C, 6), dtype=pos.dtype, device=pos.device)
+    nx, ny, nz = cell_dim
+    err = lib.lib.hoomd_cell_pair_planar_q(
+        pos.data_ptr(), tag.data_ptr(), typ.data_ptr() if typed else None,
+        q.data_ptr(), sh.data_ptr(), par.data_ptr(), len(pnames), ntypes,
+        F.data_ptr(), pe.data_ptr() if want_pv else None,
+        vir.data_ptr() if want_pv else None, nx, ny, nz, C, ev, int(want_pv),
+        _stream(pos))
+    lib.check(err, 'cell_pair_planar (charged)')
+    if typed:
+        cell_pair_planar.q_typed_launches += 1
+    else:
+        cell_pair_planar.q_launches += 1
+    return (F, pe, vir) if want_pv else F
+
+
 cell_pair_planar.launches = 0
 cell_pair_planar.typed_launches = 0
+cell_pair_planar.q_launches = 0
+cell_pair_planar.q_typed_launches = 0
 
 _METHODS = {'nve': 0, 'nvt': 1, 'langevin': 2}
 
@@ -1163,12 +1241,19 @@ def reset_launch_counts():
         fn.launches = 0
     for fn in TYPED_WRAPPERS:
         fn.typed_launches = 0
+    cell_pair_planar.q_launches = 0
+    cell_pair_planar.q_typed_launches = 0
 
 
 def launch_counts():
+    """Launches by kernel: each wrapper's, a mixture's as
+    '<wrapper>_typed', and the charged kernel's (one type, a mixture) as
+    'cell_pair_planar_q' and 'cell_pair_planar_q_typed'."""
     return {**{fn.__name__: fn.launches for fn in KERNEL_WRAPPERS},
             **{fn.__name__ + '_typed': fn.typed_launches
-               for fn in TYPED_WRAPPERS}}
+               for fn in TYPED_WRAPPERS},
+            'cell_pair_planar_q': cell_pair_planar.q_launches,
+            'cell_pair_planar_q_typed': cell_pair_planar.q_typed_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1188,23 +1273,28 @@ def _rolled_stencil(g, nc, C):
 
 
 def cell_pair_xla(cell_pos, cell_dim, cell_shift, params_vec, *,
-                  eval_name='lj', pnames=LJ_PNAMES, ntypes=1, cell_typ=None):
+                  eval_name='lj', pnames=LJ_PNAMES, ntypes=1, cell_typ=None,
+                  cell_q=None):
     """Roll-and-matmul formulation of the cell-pair computation
     (pallas_pair.py cell_pair_xla): expanded r^2, padding excluded by
     magnitude and the self pair by r^2 > 1e-3.  With ntypes > 1 the
-    (2 + NP, T, T) table of a mixture, gathered per pair by cell_typ.
+    (2 + NP, T, T) table of a mixture, gathered per pair by cell_typ; with
+    cell_q (nc, C) the charged evaluators, qiqj from the rolled charges.
     Returns (F, pe, vir)."""
     nc, C, _ = cell_pos.shape
     nx, ny, nz = cell_dim
     xj = (_rolled_stencil(cell_pos.reshape(nz, ny, nx, C, 3), nc, C)
           + cell_shift.repeat_interleave(C, dim=1))       # (nc, 27C, 3)
-    ev = _evaluator(eval_name, pnames)
+    ev = _evaluator(eval_name, pnames, cell_q is not None)
     if ntypes > 1:
         tj = _rolled_stencil(cell_typ.long().reshape(nz, ny, nx, C), nc, C)
         rc2, e_shift, p = pair_eval.params_dict(
             params_vec, pnames, cell_typ.long()[:, :, None], tj[:, None, :])
     else:
         rc2, e_shift, p = pair_eval.params_dict(params_vec, pnames)
+    if cell_q is not None:
+        qj = _rolled_stencil(cell_q.reshape(nz, ny, nx, C), nc, C)
+        p = dict(p, qiqj=cell_q[:, :, None] * qj[:, None, :])
     xi = cell_pos
     xi2 = (xi * xi).sum(-1)
     xj2 = (xj * xj).sum(-1)

@@ -43,6 +43,17 @@ each particle's type's (hoomd_tpu/md/integrate.py:234); the JAX fast
 engine takes type 0's for all (hoomd_tpu/system.py:1139-1141), which
 this engine does not copy.
 
+A charged job (hoomd_tpu/ops/fast_lj.py:226-267, 372-391, 622-636,
+1144-1159: md.charge.pppm with its real-space pair, or md.pair.ewald
+alone) keeps each tag's charge (q_tab) and gathers the slots' charges
+from the tags at every force evaluation.  Its pair force is a charged
+evaluator (ewald, or lj_ewald: pair.lj fused with the real-space Ewald
+pair) on the charged cell_pair_planar for 'plane', 'planar' and
+'planar_n3l', on cell_pair_xla with cell_q for 'xla'; the PPPM mesh
+(``mesh_cfg``, md/charge.py mesh_compute) adds its force every step and
+its PE and virial at refresh.  Every step is a one_step: the megastep
+and the fused step are off.
+
 A megastep program keeps, beside each reference (ref_pos), its
 MegaCycle: the candidate set of that reference (cell_pair.mega_candidates,
 built by rebuild_carry and to_fast, once per rebuild) and the mass and
@@ -203,7 +214,7 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
                         method_seed, k_rebuild=4, rebin_impl='sort',
                         rebin_E=8, impl='plane', mega=True, fused=False,
                         eval_name='lj', pnames=LJ_PNAMES, ntypes=1,
-                        device='cpu'):
+                        charges=None, mesh_cfg=None, device='cpu'):
     """Returns (to_fast, refresh_forces, run, to_state).
 
     rebin_impl: 'sort', 'xsel' or 'pallas' (the migration sweep and place
@@ -215,7 +226,10 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
     the pair evaluator and its parameter order (pair_eval.kernel_pnames).
     ntypes: the particle types; with more than one, the megastep and the
     fused step are off and 'pallas', 'pallas3d' and 'row' raise
-    NotImplementedError.
+    NotImplementedError.  charges: the (N,) charge of each tag, for a
+    charged evaluator (ewald, lj_ewald); mesh_cfg: {'fn': the PPPM mesh
+    hook fn(pos, q, box, params, want_pv)}, with its parameters in
+    dyn['mesh'].  A charged program runs no megastep and no fused step.
 
     dyn layout: {'pv': device tensor [rc2, e_shift, *pnames], of shape
     (2 + NP, T, T) for a mixture, 'lj' (lj, one type): device tensor
@@ -229,13 +243,15 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
         raise NotImplementedError(f"HOOMD_TPU_FAST_IMPL={impl} runs one "
                                   f"particle type only ({ntypes} particle "
                                   f"types)")
+    needs_q = charges is not None
     # hoomd_tpu/ops/fast_lj.py:692-707: the megastep and the fused step
-    # are single-type
-    use_mega = mega and impl == 'plane' and ntypes == 1
+    # are single-type and uncharged (the mesh hook runs between force and
+    # kick)
+    use_mega = mega and impl == 'plane' and ntypes == 1 and not needs_q
     # hoomd_tpu/ops/fast_lj.py:692-695: the fused single step serves the
     # windows only with the megastep off, and the head and tail single
     # steps whenever it holds
-    use_fused = (fused and impl == 'plane' and ntypes == 1
+    use_fused = (fused and impl == 'plane' and ntypes == 1 and not needs_q
                  and method_kind in ('nve', 'nvt'))
     ev_kw = dict(eval_name=eval_name, pnames=pnames)
     idt = int_dtype()
@@ -265,6 +281,11 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
     nxyz_i = torch.as_tensor(cell_dim, dtype=torch.int64, device=dev)
     ndof = 3.0 * N
     recip = 'approx' if method_kind in ('nvt', 'langevin') else 'div'
+    if needs_q:
+        # each tag's charge, and 0 for the padding's tag N
+        q_tab = torch.cat([torch.as_tensor(np.asarray(charges), dtype=fdt,
+                                           device=dev),
+                           torch.zeros(1, dtype=fdt, device=dev)])
 
     def _cid_flat(pos_w):
         f = box.make_fraction(pos_w)
@@ -314,11 +335,38 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
             res = res + (out[:, 12:15],)
         return res + (ovf,)
 
-    def _forces(pos, tag, typ, dyn, want_pv):
+    def _all_forces(pos, tag, typ, dyn, want_pv):
+        """The pair force on the path of ``impl`` (_forces) and, in a
+        charged program, the PPPM mesh's (hoomd_tpu/ops/fast_lj.py:622-636,
+        1144-1159): F, or (F, pe, vir) with want_pv."""
+        if not needs_q:
+            return _forces(pos, tag, typ, dyn, want_pv)
+        # the slots' charges from their tags, 0 on padding
+        qc = torch.where(tag >= 0, q_tab[tag.long().clamp(0, N)], 0.0)
+        out = _forces(pos, tag, typ, dyn, want_pv, qc)
+        if mesh_cfg is None:
+            return out
+        fm, pm, vm = mesh_cfg['fn'](pos.reshape(M, 3), qc.reshape(M), box,
+                                    dyn['mesh'], want_pv=want_pv)
+        if not want_pv:
+            return out + fm.reshape(nc, C, 3)
+        return (out[0] + fm.reshape(nc, C, 3), out[1] + pm.reshape(nc, C),
+                out[2] + vm.reshape(nc, C, 6))
+
+    def _forces(pos, tag, typ, dyn, want_pv, q_cells=None):
         """F, or (F, pe, vir) with want_pv, on the path of ``impl``
         (hoomd_tpu/ops/fast_lj.py:372-467); a mixture's on the typed
         kernels, every step's on cell_pair_planar for 'plane' and
-        'planar'."""
+        'planar'; a charged evaluator's (q_cells, the slots' charges) on
+        the charged cell_pair_planar, or cell_pair_xla for 'xla'."""
+        if q_cells is not None:
+            qk = dict(ev_kw, ntypes=ntypes, cell_q=q_cells,
+                      cell_typ=typ if ntypes > 1 else None)
+            if impl == 'xla':
+                out = cell_pair_xla(pos, cell_dim, shifts, dyn['pv'], **qk)
+                return out if want_pv else out[0]
+            return cell_pair_planar(pos, cell_dim, shifts, dyn['pv'], C=C,
+                                    cell_tag=tag, want_pv=want_pv, **qk)
         if ntypes > 1:
             tk = dict(ev_kw, ntypes=ntypes, cell_typ=typ)
             if impl == 'planar_n3l' and not want_pv:
@@ -395,7 +443,8 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
         danger = c.danger | (md2 > 1.0)
         wmax = torch.maximum(c.wmax, md2)
 
-        frc = torch.where(valid, _forces(pos, c.tag, c.typ, dyn, False), 0.0)
+        frc = torch.where(valid, _all_forces(pos, c.tag, c.typ, dyn, False),
+                          0.0)
         if method_kind == 'langevin':
             kT = _kt(dyn, c.timestep)
             u = torch.stack([hashrng.uniform_pm1(method_seed, c.timestep,
@@ -682,7 +731,7 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
             rebin_lost=torch.zeros((), dtype=torch.bool, device=dev)))
 
     def refresh_forces(carry, dyn):
-        frc, pe, vir = _forces(carry.pos, carry.tag, carry.typ, dyn, True)
+        frc, pe, vir = _all_forces(carry.pos, carry.tag, carry.typ, dyn, True)
         valid = (carry.tag >= 0)[..., None]
         return carry.replace(frc=torch.where(valid, frc, 0.0), pe=pe,
                              vir=vir)

@@ -2,10 +2,13 @@
 
 The ten evaluators the cell-stencil engine runs, the JAX package's
 ``FAST_EVALS``: lj, gauss, yukawa, morse, mie, buckingham, lj1208,
-force_shifted_lj, dpd_conservative and moliere.  Contract as in the JAX
-package: given r^2 and per-pair parameters, return (force_divr,
-pair_energy) with force_divr = -(dV/dr)/r, elementwise on tensors.
-``derive`` runs on the host's float32 numpy coefficient tables.
+force_shifted_lj, dpd_conservative and moliere; and the two that read a
+per-pair charge product ``p['qiqj']``, ``CHARGED_EVALS``: ewald (the
+real-space Ewald sum, exact erfc) and lj_ewald (LJ plus the same, with
+erfc_approx), which only the charged stencil kernel runs.  Contract as
+in the JAX package: given r^2 and per-pair parameters, return
+(force_divr, pair_energy) with force_divr = -(dV/dr)/r, elementwise on
+tensors.  ``derive`` runs on the host's float32 numpy coefficient tables.
 
 The CUDA kernels (csrc/cell_stencil.cuh) carry one device evaluator per
 name, picked by ``EVAL_IDS``; each reads its parameters in the order of
@@ -238,19 +241,96 @@ class moliere:
         return pref * fdivr / r, pref * e
 
 
+class ewald:
+    """Real-space Ewald. V = q_i q_j erfc(kappa r)/r, the exact erfc; the
+    short-range part of md.charge.pppm, or a pair force of its own."""
+    coeff_names = ('kappa',)
+    defaults = {}
+    needs_charge = True
+
+    @staticmethod
+    def derive(p):
+        return dict(p)
+
+    @staticmethod
+    def energy_force(r2, p):
+        r = torch.sqrt(r2)
+        kr = p['kappa'] * r
+        erfc = torch.special.erfc(kr)
+        e = p['qiqj'] * erfc / r
+        fdivr = p['qiqj'] * (erfc / r
+                             + 2.0 * p['kappa'] / np.sqrt(np.pi)
+                             * torch.exp(-kr * kr)) / r2
+        return fdivr, e
+
+
+def erfc_approx(x):
+    """erfc by Abramowitz-Stegun 7.1.26 (|err| <= 1.5e-7): a rational
+    prefactor times exp(-x^2), in the JAX package's operation order; the
+    charged kernel evaluates the same polynomial."""
+    t = 1.0 / (1.0 + 0.3275911 * x)
+    poly = t * (0.254829592 + t * (-0.284496736 + t * (
+        1.421413741 + t * (-1.453152027 + t * 1.061405429))))
+    return poly * torch.exp(-x * x)
+
+
+# 1/sqrt(pi), the float32 constant of the JAX package's lj_ewald
+SQRT_PI_INV_F32 = float(np.float32(0.5641895835477563))
+
+
+class lj_ewald:
+    """LJ plus real-space Ewald in one evaluator, for pair.lj and the
+    real-space pair of md.charge.pppm on one neighbour list with equal
+    cutoffs: V = 4 eps [(sig/r)^12 - (sig/r)^6] + q_i q_j erfc(kappa r)/r,
+    erfc by erfc_approx."""
+    coeff_names = ('lj1', 'lj2', 'kappa')
+    defaults = {}
+    needs_charge = True
+
+    @staticmethod
+    def derive(p):
+        return dict(p)
+
+    @staticmethod
+    def energy_force(r2, p):
+        r2inv = 1.0 / r2
+        r6inv = r2inv * r2inv * r2inv
+        fdivr = r2inv * r6inv * (12.0 * p['lj1'] * r6inv - 6.0 * p['lj2'])
+        e = r6inv * (p['lj1'] * r6inv - p['lj2'])
+        rinv = torch.sqrt(r2inv)
+        r = r2 * rinv
+        kr = p['kappa'] * r
+        ec = erfc_approx(kr)
+        qq = p['qiqj']
+        e = e + qq * ec * rinv
+        fdivr = fdivr + qq * (ec * rinv
+                              + 2.0 * p['kappa'] * SQRT_PI_INV_F32
+                              * torch.exp(-kr * kr)) * r2inv
+        return fdivr, e
+
+
 # the stencil engine's evaluators (hoomd_tpu/system.py FAST_EVALS), by the
-# id the kernels take (enum Eval in csrc/cell_stencil.cuh, same order)
+# id the kernels take (enum Eval in csrc/cell_stencil.cuh, same order),
+# then the two charged ones, which only the charged kernel takes
 FAST_EVALS = ('lj', 'gauss', 'yukawa', 'morse', 'mie', 'buckingham',
               'lj1208', 'force_shifted_lj', 'dpd_conservative', 'moliere')
-ALL_EVALUATORS = {name: globals()[name] for name in FAST_EVALS}
-EVAL_IDS = {name: i for i, name in enumerate(FAST_EVALS)}
+CHARGED_EVALS = ('ewald', 'lj_ewald')
+ALL_EVALUATORS = {name: globals()[name]
+                  for name in FAST_EVALS + CHARGED_EVALS}
+EVAL_IDS = {name: i for i, name in enumerate(FAST_EVALS + CHARGED_EVALS)}
+# the charged evaluators' parameter order (hoomd_tpu/system.py:642-646)
+CHARGED_PNAMES = {'ewald': ('kappa', 'rcut'),
+                  'lj_ewald': ('kappa', 'lj1', 'lj2', 'rcut')}
 
 
 @functools.lru_cache(maxsize=None)
 def kernel_pnames(eval_name):
     """The parameter names of ``eval_name`` in the order the kernels read
     them after [rc2, e_shift]: its derived table names, sorted, then
-    'rcut' (as the System builds pnames from the packed tables)."""
+    'rcut' (as the System builds pnames from the packed tables); for a
+    charged evaluator the JAX package's explicit order, CHARGED_PNAMES."""
+    if eval_name in CHARGED_PNAMES:
+        return CHARGED_PNAMES[eval_name]
     ev = ALL_EVALUATORS[eval_name]
     probe = {n: np.ones(1, np.float32) * np.float32(ev.defaults.get(n, 1.0))
              for n in ev.coeff_names}

@@ -2,8 +2,9 @@
 
 The port runs two engines: the cell-major pair engine of ops/fast_lj.py
 for MD (one to four particle types, one of the ten stencil evaluators of
-ops/pair_eval.py), and the fused checkerboard sweep of hpmc/ for
-hard-particle MC
+ops/pair_eval.py, or a charged job: md.charge.pppm with its real-space
+Ewald pair and at most one unshifted pair.lj, or md.pair.ewald alone),
+and the fused checkerboard sweep of hpmc/ for hard-particle MC
 (an HPMC integrator replaces the MD pipeline, as in the JAX package).  A
 configuration outside them raises NotImplementedError naming the first
 gate it failed; there is no general engine to fall back to yet.
@@ -170,6 +171,8 @@ class System:
 
     def _build_fast(self, forces, methods):
         """Gates + construction of the cell-major pair engine."""
+        from ._config import real_dtype
+        from .md import charge as md_charge
         from .ops import pair_eval
         from .ops.cell_pair import MAX_C, MAX_TYPES
         from .ops.fast_lj import build_fast_lj_chunk, plan_fast_lj
@@ -178,8 +181,51 @@ class System:
             raise NotImplementedError(
                 f"hoomd_tpu_torch runs the cell-major LJ engine only, and "
                 f"this configuration is outside it: {why}")
-        if len(forces) != 1:
-            _decline(f'{len(forces)} pair forces (need exactly 1)')
+
+        def _eval_of(g):
+            return getattr(getattr(g, '_evaluator', None), '__name__', None)
+        # charged jobs (hoomd_tpu/system.py:406-452): one pppm mesh force
+        # beside its real-space ewald pair, which fuses with at most one
+        # unshifted lj pair on the same nlist and cutoff into the lj_ewald
+        # evaluator; or a standalone ewald pair
+        mesh_list = [g for g in forces if isinstance(g, md_charge.pppm)]
+        pair_list = [g for g in forces if g not in mesh_list]
+        if len(mesh_list) > 1:
+            _decline('multiple pppm instances')
+        charged = None
+        if mesh_list:
+            mesh_f = mesh_list[0]
+            ew = mesh_f._ewald_pair
+            if ew is None or ew not in pair_list:
+                _decline('pppm without its real-space ewald pair')
+            others = [g for g in pair_list if g is not ew]
+            if len(others) > 1:
+                _decline(f'{len(others) + 1} pair forces beside pppm (need '
+                         f'at most lj + ewald)')
+            if others:
+                lj_f = others[0]
+                if _eval_of(lj_f) != 'lj':
+                    _decline('pppm + non-lj pair (need lj)')
+                if lj_f.mode != 'none':
+                    _decline('pppm + shifted lj pair')
+                if lj_f._nlist is not ew._nlist:
+                    _decline('pppm pair on a different nlist')
+                if not np.allclose(lj_f._rcut_matrix(self.particle_types),
+                                   ew._rcut_matrix(self.particle_types)):
+                    _decline('pppm lj/ewald cutoffs differ')
+                charged = {'kind': 'lj_ewald', 'lj': lj_f, 'ewald': ew,
+                           'mesh': mesh_f}
+                pair_list = [lj_f]
+            else:
+                charged = {'kind': 'ewald', 'lj': None, 'ewald': ew,
+                           'mesh': mesh_f}
+                pair_list = [ew]
+        elif len(pair_list) == 1 and getattr(
+                pair_list[0], '_evaluator', None) is pair_eval.ewald:
+            charged = {'kind': 'ewald', 'lj': None, 'ewald': pair_list[0],
+                       'mesh': None}
+        if len(pair_list) != 1:
+            _decline(f'{len(pair_list)} pair forces (need exactly 1)')
         if len(methods) != 1:
             _decline(f'{len(methods)} integration methods (need 1)')
         if self.integrator_mode is None:
@@ -196,15 +242,20 @@ class System:
                      'constraints', 'pairs'):
             if getattr(snap, name).N:
                 _decline(f'bonded topology ({name})')
-        if np.any(np.asarray(snap.particles.charge) != 0):
-            _decline('particle charges')
-        f = forces[0]
-        # any charge/diameter-free evaluator rides the stencil kernels
-        # (hoomd_tpu/system.py FAST_EVALS)
-        eval_name = getattr(getattr(f, '_evaluator', None), '__name__', None)
-        if eval_name not in pair_eval.FAST_EVALS:
-            _decline(f'pair evaluator {eval_name!r} not stencil-eligible '
-                     f'(need one of {", ".join(pair_eval.FAST_EVALS)})')
+        f = pair_list[0]
+        if charged is not None:
+            # (hoomd_tpu/system.py:477-487)
+            if real_dtype() != torch.float32:
+                _decline('charged fast path is f32-only')
+            eval_name = charged['kind']
+        else:
+            # any charge/diameter-free evaluator rides the stencil kernels
+            # (hoomd_tpu/system.py FAST_EVALS); like the JAX package it
+            # ignores the particles' charges
+            eval_name = _eval_of(f)
+            if eval_name not in pair_eval.FAST_EVALS:
+                _decline(f'pair evaluator {eval_name!r} not stencil-eligible '
+                         f'(need one of {", ".join(pair_eval.FAST_EVALS)})')
         if f.mode not in ('none', 'shift'):
             _decline(f'pair shift mode {f.mode!r} (need none/shift)')
         nl = f._nlist
@@ -232,10 +283,12 @@ class System:
         rcut = float(np.max(f._rcut_matrix(self.particle_types)))
         r_buff = nl.r_buff
         L = np.asarray(L_np, np.float64)
-        # small systems plan conservatively from the start, as the JAX
-        # package does; the planner sizes C from the real occupancy too
+        # small systems and charged jobs (their lattice starts) plan
+        # conservatively from the start, as the JAX package does
+        # (hoomd_tpu/system.py:588-594); the planner sizes C from the real
+        # occupancy too
         conservative = bool(self._grow.get('fast_plan_conservative')) \
-            or N < 4096
+            or N < 4096 or charged is not None
         pos_h = self._state_raw.pos.cpu().numpy()
         frac = (pos_h / L_np + 0.5) % 1.0
         cell_dim, ncells, C = plan_fast_lj(N, L, rcut, r_buff,
@@ -307,14 +360,23 @@ class System:
         # to 16 by the rebin-overflow retry
         rebin_E = int(self._grow.get('fast_rebin_E', 8))
         # the kernels' parameter order: the derived tables sorted, then
-        # rcut, as _fast_dyn packs them
+        # rcut, as _fast_dyn packs them; the charged evaluators' explicit
+        # order (hoomd_tpu/system.py:642-646)
         pnames = pair_eval.kernel_pnames(eval_name)
+        # a charged job's per-tag charges and its mesh hook
+        # (hoomd_tpu/system.py:735-744)
+        charges = mesh_cfg = None
+        if charged is not None:
+            charges = np.asarray(snap.particles.charge, np.float64)
+            if charged['mesh'] is not None:
+                mesh_cfg = {'fn': charged['mesh']._make_compute(self)}
         to_fast, refresh, run_chunk, to_state = build_fast_lj_chunk(
             N=N, box=box, cell_dim=tuple(cell_dim), C=C, r_buff=r_buff,
             rcut=rcut, method_kind=kind, method_seed=getattr(m, 'seed', 0),
             k_rebuild=k_rebuild, rebin_impl=rebin_impl, rebin_E=rebin_E,
             impl=impl, mega=mega, fused=fused, eval_name=eval_name,
-            pnames=pnames, ntypes=ntypes, device=self.device)
+            pnames=pnames, ntypes=ntypes, charges=charges, mesh_cfg=mesh_cfg,
+            device=self.device)
         return {'to_fast': to_fast, 'refresh': refresh,
                 'run_chunk': run_chunk, 'to_state': to_state,
                 'C': C, 'cell_dim': tuple(cell_dim), 'method': m,
@@ -322,7 +384,8 @@ class System:
                 'skin': skin, 'rebin_impl': rebin_impl, 'rebin_E': rebin_E,
                 'impl': impl, 'mega': run_chunk.mega,
                 'fused': run_chunk.fused, 'eval_name': eval_name,
-                'pnames': pnames, 'ntypes': ntypes, 'pair_force': f}
+                'pnames': pnames, 'ntypes': ntypes, 'pair_force': f,
+                'charged': charged}
 
     def _reset_cadence(self):
         for key in ('fast_m', 'fast_m_ceil', 'fast_m_pinned', 'fast_k_cap',
@@ -344,11 +407,34 @@ class System:
     def _fast_dyn(self):
         fast = self._program['fast']
         f = fast['pair_force']
-        fp = self._dyn['forces'][self._program['forces'].index(f)]
+        forces = self._program['forces']
+        fp = self._dyn['forces'][forces.index(f)]
         dev = self.device
 
         def T(x):
             return torch.as_tensor(np.float32(x), device=dev)
+        charged = fast['charged']
+        if charged is not None:
+            # (hoomd_tpu/system.py:1040-1102, without the exclusion part)
+            # the merged tables: r_cut and lj1, lj2 from the pair force (the
+            # lj pair, or the ewald pair alone), kappa from the ewald pair;
+            # no energy shift
+            ep = self._dyn['forces'][forces.index(charged['ewald'])]
+            tabs = {'kappa': ep['tables']['kappa'], 'rcut': fp['rcut']}
+            if charged['lj'] is not None:
+                tabs['lj1'] = fp['tables']['lj1']
+                tabs['lj2'] = fp['tables']['lj2']
+            if fast['ntypes'] == 1:
+                tabs = {k: v[0, 0] for k, v in tabs.items()}
+            tabs = {k: T(v) for k, v in tabs.items()}
+            rc2 = tabs['rcut'] * tabs['rcut']
+            out = {'pv': torch.stack([rc2, torch.zeros_like(rc2)]
+                                     + [tabs[k] for k in fast['pnames']]),
+                   'dt': self._dyn['dt']}
+            if charged['mesh'] is not None:
+                out['mesh'] = self._dyn['forces'][forces.index(
+                    charged['mesh'])]
+            return self._method_dyn(out)
         if fast['ntypes'] == 1:
             rc = T(fp['rcut'][0, 0])
             scal = {k: T(v[0, 0]) for k, v in fp['tables'].items()}
@@ -365,11 +451,20 @@ class System:
             e_shift = torch.zeros_like(rc2)
         # (2 + NP,) for one type, (2 + NP, T, T) for a mixture
         pv = torch.stack([rc2, e_shift] + [scal[k] for k in fast['pnames']])
-        mp = self._dyn['methods'][0]
         out = {'pv': pv, 'dt': self._dyn['dt']}
         if fast['eval_name'] == 'lj' and fast['ntypes'] == 1:
             # the LJ-only kernels' parameter order
             out['lj'] = torch.stack([scal['lj1'], scal['lj2'], rc2, e_shift])
+        return self._method_dyn(out)
+
+    def _method_dyn(self, out):
+        """The integration method's entries of the engine's dyn."""
+        fast = self._program['fast']
+        dev = self.device
+
+        def T(x):
+            return torch.as_tensor(np.float32(x), device=dev)
+        mp = self._dyn['methods'][0]
         if fast['kind'] in ('langevin', 'nvt'):
             out['kT'] = mp['kT']
         else:

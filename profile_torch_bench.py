@@ -9,6 +9,10 @@ NVIDIA GPU.
     python3 profile_torch_bench.py ka        # the Kob-Andersen mixture
     python3 profile_torch_bench.py ka-trace  # its T and PE/N from the start
     python3 profile_torch_bench.py ka-trace 16   # the same at 16^3 = 4096
+    python3 profile_torch_bench.py pppm      # the PPPM charged fluid
+    python3 profile_torch_bench.py pppm-trace    # its T and PE/N window
+    python3 profile_torch_bench.py pppm-nve 16 32 [cpu]  # its NVE drift
+    python3 profile_torch_bench.py pppm-mesh # the mesh's two formulations
 
 from the root of the repository.  It runs chip_smoke.py's bench job
 (bench.py's script: Langevin melt, Nose-Hoover NVT, cadence warmup) and
@@ -45,8 +49,22 @@ temperature and PE/N every 100 steps from the lattice start, twice: the
 ka_script's second Langevin run of 1000 steps at dt = 0.005 between
 them; a number after it is the lattice's side (by default 40, the
 job's 64 000 particles; tests/test_torch_types.py runs the same trace
-through the JAX package on the CPU).  It checks nothing; chip_smoke.py
-is the check.
+through the JAX package on the CPU).  With ``pppm`` it runs
+chip_smoke.py's config-4 job (pppm_script: 4096 ions, pair.lj and
+md.charge.pppm, every step a one_step on the charged kernel and the
+mesh) through bench_all.py's warmup and prints steps 1-3 and 5, and one
+step split between the charged kernel, the mesh and the rest, by CUDA
+events and device time; with ``pppm-trace`` the script's T and PE/N
+over chip_smoke.py's NVT window (tests/test_torch_charged.py runs the
+same trace through the JAX package on the CPU); with ``pppm-nve
+[n_side [mesh [cpu]]]`` the energy of 500 NVE steps after 300 NVT steps
+from the lattice, at n_side^3 ions on a mesh^3 mesh, on the card or with
+``cpu`` through the plain versions (tests/test_torch_charged.py
+pppm-nve runs it through the JAX package); with ``pppm-mesh`` the PPPM
+mesh (md/charge.py mesh_compute) in its dense and its scatter
+formulation on random neutral clouds at config 4's density, at config
+4's size and past the dense gate, by CUDA events.  It checks nothing;
+chip_smoke.py is the check.
 """
 
 from __future__ import annotations
@@ -57,6 +75,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 from chip_smoke import bench_job, cuda_ms
@@ -219,7 +238,201 @@ def ka_trace(settle, n_side=None, hoomd=None,
     reads('nvt', 3000)
 
 
+def profile_pppm():
+    """Config 4 (the PPPM charged fluid) after bench_all.py's warmup:
+    timed windows, the profile, and one step split by CUDA events and by
+    device time into the charged pair kernel, the PPPM mesh (as one_step
+    calls them, on the steady state) and the rest: the integrator's
+    elementwise ops, the drift monitor and the host."""
+    import hoomd_tpu_torch as hoomd
+    from chip_smoke import device_ms, pppm_script, pppm_warmup
+    from hoomd_tpu_torch.ops import cell_pair as cp
+    from hoomd_tpu_torch.ops import cell_rebin as cr
+    cp.reset_launch_counts()
+    cr.reset_launch_counts()
+    print('card:', card(), flush=True)
+    hoomd.context.initialize('--mode=gpu --notice-level=0')
+    system = pppm_script(hoomd)
+    pppm_warmup(system)
+    N = system.state.N
+    fast = system._program['fast']
+    cdim, C = fast['cell_dim'], fast['C']
+    print(f"config 4 after the warmup: plan {cdim} C={C} "
+          f"k={fast['k_rebuild']} rebin={fast['rebin_impl']} "
+          f"impl={fast['impl']} eval={fast['eval_name']}, grow "
+          f"{system._grow}, {system.fast_stats}", flush=True)
+    timed_windows(system, N, steps=1000)
+    profile_steps(system, steps=1000)
+    carry = system._fast_carry
+    dyn, run = system._dyn['fast'], fast['run_chunk']
+    dev = carry.pos.device
+    _, sh = cp.build_cell_shifts(cdim, system._state_raw.box.L.cpu().numpy())
+    sh = torch.as_tensor(sh, dtype=torch.float32, device=dev)
+    q = torch.as_tensor(system.snapshot_template.particles.charge,
+                        dtype=torch.float32, device=dev)
+    qc = torch.where(carry.tag >= 0, q[carry.tag.long().clamp(min=0)], 0.0)
+    mesh_fn = fast['charged']['mesh']._mesh_compute
+    box = system._state_raw.box
+    M = qc.numel()
+
+    def kern():
+        return cp.cell_pair_planar(
+            carry.pos, cdim, sh, dyn['pv'], C=C, cell_tag=carry.tag,
+            eval_name=fast['eval_name'], pnames=fast['pnames'],
+            ntypes=fast['ntypes'], cell_typ=carry.typ, cell_q=qc,
+            want_pv=False)
+
+    def mesh():
+        return mesh_fn(carry.pos.reshape(M, 3), qc.reshape(M), box,
+                       dyn['mesh'], want_pv=False)
+
+    def step():
+        return run.steps(carry, dyn, 1)
+    t = {n: cuda_ms(f, 100) for n, f in (('step', step), ('kernel', kern),
+                                         ('mesh', mesh))}
+    d = {n: device_ms(f, 50) for n, f in (('step', step), ('kernel', kern),
+                                          ('mesh', mesh))}
+    print(f"one step {t['step']:.4f} ms (device {d['step']:.4f}): the "
+          f"charged kernel call {t['kernel']:.4f} (device "
+          f"{d['kernel']:.4f}), the mesh {t['mesh']:.4f} (device "
+          f"{d['mesh']:.4f}), the rest "
+          f"{t['step'] - t['kernel'] - t['mesh']:.4f} (device "
+          f"{d['step'] - d['kernel'] - d['mesh']:.4f}); the device busy "
+          f"{d['step'] / t['step']:.4f} of a step (CUDA events, "
+          f"torch.profiler)", flush=True)
+    print(json.dumps({'pppm_step_ms': t, 'pppm_step_device_ms': d,
+                      'launches': {**cp.launch_counts(),
+                                   **cr.launch_counts()}}), flush=True)
+
+
+def pppm_nve(n_side, mesh, hoomd=None, args='--mode=gpu --notice-level=0',
+             nvt_steps=300):
+    """Config 4's job script at n_side^3 ions on a mesh^3 mesh through
+    ``hoomd`` (by default hoomd_tpu_torch), its context initialized with
+    ``args``: nvt_steps Nose-Hoover steps from the lattice, then 500 NVE
+    steps read every 50: KE + PE per particle and the energy the dynamics
+    conserves (chip_smoke.py nve_drift)."""
+    from chip_smoke import nve_drift, pppm_script
+    if hoomd is None:
+        import hoomd_tpu_torch as hoomd
+    hoomd.context.initialize(args)
+    system = pppm_script(hoomd, n_side, mesh)
+    system.run(nvt_steps, quiet=True)
+    for m in system.methods:
+        m.disable()
+    hoomd.md.integrate.nve(group=hoomd.group.all())
+    nve_drift(system, f'pppm-nve {hoomd.__name__} N={n_side ** 3} '
+                      f'mesh {mesh}^3')
+
+
+def pppm_trace(hoomd=None, args='--mode=gpu --notice-level=0', seed=9):
+    """Config 4's job script (chip_smoke.py pppm_script, velocities from
+    ``seed``) through ``hoomd`` (by default hoomd_tpu_torch), its context
+    initialized with ``args``: bench_all.py's warmup, its 1000-step timed
+    window, then the NVT window of chip_smoke.py's pppm_job, T and PE/N
+    every 100 steps and their means."""
+    from chip_smoke import pppm_script, pppm_warmup, pppm_window
+    if hoomd is None:
+        import hoomd_tpu_torch as hoomd
+    hoomd.context.initialize(args)
+    system = pppm_script(hoomd, seed=seed)
+    t0 = time.perf_counter()
+    pppm_warmup(system)
+    system.run(1000, quiet=True)
+    what = f'pppm-trace {hoomd.__name__} seed {seed}'
+    print(f"{what}: warmup and timed window "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    temps, pes = pppm_window(system)
+    for i, (t, pe) in enumerate(zip(temps, pes)):
+        print(f"{what}: window {100 * (i + 1)} T {t:.5f} PE/N {pe:.5f}",
+              flush=True)
+    print(f"{what}: mean T {float(np.mean(temps))!r} "
+          f"mean PE/N {float(np.mean(pes))!r}", flush=True)
+
+
+# (ions, mesh points per axis) of pppm-mesh: config 4, config 4 at the
+# dense gate's N Nx Ny = 2^25, past it on the same mesh, and past it with
+# the mesh spacing kept
+MESH_SIZES = ((4096, 32), (32768, 32), (65536, 32), (65536, 64))
+
+
+def profile_mesh(sizes=MESH_SIZES, dev=torch.device('cuda', 0)):
+    """The PPPM mesh's dense (one-hot matrix products) and scatter
+    (index_add_) formulations on one card: random neutral clouds of N
+    ions at config 4's density (4096 in 25.6^3), order 5, with and
+    without the energy and virial; each side's ms per call by CUDA
+    events, and how far apart their forces are."""
+    from hoomd_tpu_torch.box import Box
+    from hoomd_tpu_torch.md import charge
+    gate = charge.DENSE_MAX
+    res = []
+    for n, k in sizes:
+        L = 25.6 * (n / 4096) ** (1 / 3)
+        rng = np.random.RandomState(3)
+        pos = torch.as_tensor(rng.uniform(-L / 2, L / 2, (n, 3)),
+                              dtype=torch.float32, device=dev)
+        q = rng.choice([-1.0, 1.0], n)
+        q[-1] = -q[:-1].sum()
+        q = torch.as_tensor(q, dtype=torch.float32, device=dev)
+        box = Box.create(L, device=dev)
+        params = {'kappa': torch.tensor(3.2 / 2.5, dtype=torch.float32,
+                                        device=dev),
+                  'bmod': tuple(torch.as_tensor(
+                      charge._bspline_moduli(k, 5), dtype=torch.float32,
+                      device=dev) for _ in range(3)),
+                  'mvec': tuple(torch.as_tensor(
+                      np.fft.fftfreq(k) * k, dtype=torch.float32,
+                      device=dev) for _ in range(3))}
+        row = {'N': n, 'mesh': k, 'gate_side': ('dense' if n * k * k <= gate
+                                                else 'scatter')}
+        F = {}
+        for side, dmax in (('dense', 1 << 62), ('scatter', -1)):
+            charge.DENSE_MAX = dmax
+            try:
+                for pv in (False, True):
+                    def call(pv=pv):
+                        return charge.mesh_compute(pos, q, box, params,
+                                                   want_pv=pv, mesh=(k,) * 3,
+                                                   order=5)
+                    F[side] = call()[0]
+                    row[f'{side}_ms{"_pv" if pv else ""}'] = cuda_ms(call, 20)
+            finally:
+                charge.DENSE_MAX = gate
+        row['max_abs_dF'] = float((F['dense'] - F['scatter']).abs().max())
+        row['max_abs_F'] = float(F['dense'].abs().max())
+        res.append(row)
+        print(f"pppm-mesh N={n} mesh {k}^3 (the gate picks "
+              f"{row['gate_side']}): dense {row['dense_ms']:.4f} ms "
+              f"({row['dense_ms_pv']:.4f} with PE and virial), scatter "
+              f"{row['scatter_ms']:.4f} ms ({row['scatter_ms_pv']:.4f}); "
+              f"max |F_dense - F_scatter| {row['max_abs_dF']:.3e} of max "
+              f"|F| {row['max_abs_F']:.4g}", flush=True)
+    print(json.dumps({'pppm_mesh_ms': res}), flush=True)
+
+
 def main(argv):
+    if argv[1:2] == ['pppm-mesh']:
+        print('card:', card(), flush=True)
+        profile_mesh()
+        return
+    if argv[1:2] == ['pppm']:
+        profile_pppm()
+        return
+    if argv[1:2] == ['pppm-nve']:
+        # pppm-nve [n_side [mesh [cpu]]]
+        n_side = int(argv[2]) if len(argv) > 2 else 16
+        mesh = int(argv[3]) if len(argv) > 3 else 32
+        mode = 'cpu' if argv[4:5] == ['cpu'] else 'gpu'
+        if mode == 'gpu':
+            print('card:', card(), flush=True)
+        pppm_nve(n_side, mesh, args=f'--mode={mode} --notice-level=0')
+        return
+    if argv[1:2] == ['pppm-trace']:
+        # pppm-trace [seed ...]
+        print('card:', card(), flush=True)
+        for seed in argv[2:] or ['9']:
+            pppm_trace(seed=int(seed))
+        return
     if argv[1:2] == ['ka']:
         profile_ka()
         return

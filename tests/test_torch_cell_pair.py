@@ -238,10 +238,11 @@ def test_plain_megastep_danger_matches_jax():
 
 @pytest.mark.parametrize('other_name', ['zbl', 'slj', 'ewald'])
 def test_wrappers_reject_other_evaluators_and_oversized_cells(other_name):
-    """The kernels evaluate the ten stencil evaluators only: the System,
-    where the configuration is decided, declines any other pair
-    evaluator (those of the JAX package that need diameters or charges)
-    before a wrapper is reached.  The wrappers decline a cell capacity
+    """The kernels evaluate the ten stencil evaluators and, with the
+    slots' charges, the port's own ewald: the System, where the
+    configuration is decided, declines any other pair evaluator (those
+    of the JAX package that need diameters or charges, and one that is
+    only named like ewald) before a wrapper is reached.  The wrappers decline a cell capacity
     above MAX_C and a reciprocal mode other than 'div'/'approx'."""
     import types
     import hoomd_tpu_torch as th

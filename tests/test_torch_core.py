@@ -7,6 +7,7 @@ position and image, and the same overflow flag.  The rebin is compared by
 tag, not by slot: jax.lax.sort is not stable, so the order within a cell
 may differ."""
 
+import re
 import subprocess
 import sys
 
@@ -189,7 +190,7 @@ def test_port_imports_no_jax():
 
 
 def _lj_script(types=('A',), charge=0.0, mode='shift', tilt=0.0,
-               group='all', pair='lj'):
+               group='all', pair='lj', pppm=False):
     snap = th.data.make_snapshot(64, th.data.boxdim(Lx=8.0, Ly=8.0, Lz=8.0,
                                                     xy=tilt),
                                  particle_types=list(types))
@@ -203,6 +204,9 @@ def _lj_script(types=('A',), charge=0.0, mode='shift', tilt=0.0,
     lj = getattr(th.md.pair, pair)(r_cut=2.5, nlist=nl)
     lj.pair_coeff.set(list(types), list(types), epsilon=1.0, sigma=1.0)
     lj.set_params(mode=mode)
+    if pppm:
+        p = th.md.charge.pppm(group=th.group.all(), nlist=nl)
+        p.set_params(Nx=8, Ny=8, Nz=8, order=5, rcut=2.5)
     th.md.integrate.mode_standard(dt=0.005)
     grp = th.group.all() if group == 'all' else th.group.tags(0, 9)
     th.md.integrate.nve(group=grp)
@@ -210,7 +214,7 @@ def _lj_script(types=('A',), charge=0.0, mode='shift', tilt=0.0,
 
 @pytest.mark.parametrize('kw,gate', [
     (dict(types=('A', 'B'), impl='row'), '2 particle types'),
-    (dict(charge=0.5), 'particle charges'),
+    (dict(charge=0.5, pppm=True), 'pppm + shifted lj pair'),
     (dict(mode='xplor'), "shift mode 'xplor'"),
     (dict(tilt=0.1), 'non-orthorhombic'),
     (dict(group='tags'), 'group.all()'),
@@ -224,9 +228,23 @@ def test_configs_outside_the_slice_raise(torch_ctx, monkeypatch, kw, gate):
     if impl is not None:
         monkeypatch.setenv('HOOMD_TPU_FAST_IMPL', impl)
     _lj_script(**kw)
-    with pytest.raises(NotImplementedError, match=gate.replace('(', r'\(')
-                       .replace(')', r'\)')):
+    with pytest.raises(NotImplementedError, match=re.escape(gate)):
         th.run(1, quiet=True)
+
+
+def test_lj_job_with_charges_equals_the_uncharged_one(torch_ctx):
+    """The LJ engine ignores the particles' charges, as the JAX package's
+    fast engine does: the same job with and without charges gives equal
+    bits."""
+    out = []
+    for charge in (0.0, 0.5):
+        th.context.initialize('--mode=cpu --notice-level=0')
+        _lj_script(charge=charge)
+        th.run(20, quiet=True)
+        snap = th.context.current.system.take_snapshot()
+        out.append((snap.particles.position, snap.particles.velocity))
+    for a, b in zip(*out):
+        assert np.array_equal(a, b)
 
 
 def test_langevin_windows_match_single_steps(torch_ctx):

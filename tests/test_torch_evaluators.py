@@ -72,18 +72,21 @@ def test_every_fast_evaluator_has_coefficients():
     assert sorted(COEFFS) == sorted(EVALS)
     classes = {n: getattr(getattr(th.md.pair, n), '_evaluator', None)
                for n in dir(th.md.pair)}
-    assert sorted(tpe.FAST_EVALS) == sorted(
+    # the ten stencil evaluators and ewald, the charged kernel's
+    # real-space pair (lj_ewald is the fusion of pair.lj with it)
+    assert sorted(tpe.FAST_EVALS + ('ewald',)) == sorted(
         n for n, ev in classes.items() if ev is not None and ev.__name__ == n)
 
 
 def test_kernel_layout_matches_kernel_pnames():
     """csrc/cell_stencil.cuh's enum lists the evaluators in EVAL_IDS
-    order, each with the parameter order kernel_pnames gives."""
+    order, the charged ones last, each with the parameter order
+    kernel_pnames gives."""
     src = (Path(tpe.__file__).resolve().parent.parent / 'csrc'
            / 'cell_stencil.cuh').read_text()
     rows = re.findall(r'EV_\w+ = (\d+),\s*// pv (\w+): ([\w ]+)', src)
     assert [(int(i), name) for i, name, _ in rows] == [
-        (tpe.EVAL_IDS[n], n) for n in tpe.FAST_EVALS]
+        (tpe.EVAL_IDS[n], n) for n in tpe.FAST_EVALS + tpe.CHARGED_EVALS]
     for _, name, layout in rows:
         assert tuple(layout.split()) == tpe.kernel_pnames(name), name
 
