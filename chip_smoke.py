@@ -52,8 +52,15 @@ from the root of the repository.  In order it prints:
      KA start): for every evaluator the typed planar kernel (two and four
      types) and the half stencil (one, two and four types) against their
      plain versions with the evaluator's ATOL, each with its CUDA-event
-     time; for the KA table also the device time, the plain version's
-     time and the bound;
+     time; for the KA table also the device time (the half stencil's
+     fold apart), the plain version's time, the bound, and the kernels'
+     registers, spills, shared memory and blocks per SM.  Where a copy of
+     the parent's csrc lies under scratch/parent/hoomd_tpu_torch/csrc (an
+     ignored directory; a checkout has none), parent_pair_phase builds
+     its typed planar kernel and half stencil under other names, holds
+     the parent's typed planar kernel to the new one bit for bit for
+     every evaluator at two and four types, and times both designs of
+     rows 3t, 7t and 7 in turns;
   4c. the charged kernel (charged_kernel_phases) at config 4's shape
      (4096 ions of the rock-salt start jittered by 0.05 of the spacing,
      cell grid (8, 5, 4), C = 40): ewald and lj_ewald with one, two and
@@ -86,9 +93,12 @@ from the root of the repository.  In order it prints:
      Kob-Andersen 80:20 melt (ka_script: 64 000 particles, 2000 Langevin
      and 500 + 1000 Nose-Hoover steps at kT = 1) on the typed planar kernel:
      finite, T = 1 +- 0.03 over the NVT window, every tag's type kept, no
-     single-type stencil launched, the kernel's F, PE and virial on the
-     end state against its plain version's, ms per step, busy share, and a
-     1000-step NVE continuation gated on its drift; and the same script
+     single-type stencil launched, T and PE/N at the window's end equal
+     to the parent design's bit for bit (KA_PARENT_T, KA_PARENT_PE), the
+     kernel's F, PE and virial on the end state against its plain
+     version's (and the parent's kernel, where parent_pair_phase built
+     it, bit for bit), ms per step, busy share, and a 1000-step NVE
+     continuation gated on its drift; and the same script
      with HOOMD_TPU_FAST_IMPL=planar_n3l (300 NVT steps, the typed half
      stencil launched); then BASELINE config 4, the PPPM charged fluid
      (pppm_job: bench_all.py:158-217's script, 4096 ions, pair.lj and
@@ -127,6 +137,7 @@ import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace as types_ns
 
 import numpy as np
 
@@ -285,37 +296,39 @@ def lj_pair_counts(pos, tag, cdim, sh, rc):
 
 
 def lj_bounds(pos, tag, cdim, sh, N, k):
-    """Bound of each LJ kernel at this fill, counting 8 operations per
-    candidate pair (the r^2 test), 15 more per pair inside r_cut for the
-    force, 12 more for PE and virial (planar, lj), and 30 per particle
-    and step for a megastep window's kick, drift and thermostat sums.
-    The half stencil visits half the candidate pairs and puts 3 more
-    operations (the -F on j) on each pair inside r_cut."""
+    """Bound of each LJ kernel at this fill.  The function needs each
+    unordered pair once, whichever side a kernel evaluates it from: 8
+    operations per candidate pair (the r^2 test), 15 more per pair
+    inside r_cut for the force and 3 for its -F on the other particle,
+    12 more for PE and virial (half of each to each side), so (8 cand +
+    18 inr) / 2 for forces and (8 cand + 30 inr) / 2 with PE and virial
+    (cand and inr count ordered pairs); and 30 per particle and step for
+    a megastep window's or the fused step's kick, drift and thermostat
+    sums."""
     cand, inr = lj_pair_counts(pos, tag, cdim, sh, 2.5)
     slots = pos.shape[0] * pos.shape[1]
     P = slots * 4                                  # one f32 per slot
     sh_bytes = sh.numel() * 4
     adj_bytes = sh.numel() // 3 * 4
-    plane_ops = 8 * cand + 15 * inr
-    force = bound(3 * P + P + sh_bytes + 3 * P, plane_ops)
+    f_ops = (8 * cand + 18 * inr) / 2
+    pv_ops = (8 * cand + 30 * inr) / 2
+    force = bound(3 * P + P + sh_bytes + 3 * P, f_ops)
     return {
         'cell_pair_plane': force,
-        'cell_pair_planar': bound(3 * P + P + sh_bytes + 10 * P,
-                                  plane_ops + 12 * inr),
+        'cell_pair_planar': bound(3 * P + P + sh_bytes + 10 * P, pv_ops),
         # in: pos, vel, frc, ref pos (3 planes each), 1/m, m, tags;
         # out: pos, vel, frc
         'cell_megastep_planes': bound(15 * P + sh_bytes + 9 * P,
-                                      k * (plane_ops + 30 * N)),
+                                      k * (f_ops + 30 * N)),
         # in: pos, vel, frc, ref pos (3 planes each), 1/m, tags; out:
         # pos, vel, frc, and per slot the drift, kick and sums (30 ops)
         'cell_step_plane_planes': bound(14 * P + sh_bytes + 9 * P,
-                                        plane_ops + 30 * N),
+                                        f_ops + 30 * N),
         'cell_pair_lj': bound(3 * P + P + adj_bytes + sh_bytes + 10 * P,
-                              plane_ops + 12 * inr),
+                              pv_ops),
         'cell_pair_lj_pallas3d': force,
         'cell_pair_lj_row': force,
-        'cell_pair_planar_n3l': bound(3 * P + P + sh_bytes + 3 * P,
-                                      (8 * cand + 18 * inr) / 2),
+        'cell_pair_planar_n3l': force,
     }
 
 
@@ -945,6 +958,177 @@ def megastep_phases(dev):
     return row, eval_ms
 
 
+# the parent's typed planar and half-stencil libraries, where
+# parent_pair_phase built them (ka_job then holds the parent's typed
+# kernel to the new one on its end state)
+PARENT_PAIR = {}
+
+
+def parent_pair_calls(lib, new, name, T, pos, tag, typ, sh, pv, cdim, C):
+    """Direct calls of the typed planar kernel (PE and virial, or F
+    alone) and the half stencil into preallocated outputs, on the
+    parent's library (``new`` False: no tile argument) or the new one.
+    Returns {kernel: (call, outputs)}."""
+    import torch
+    from hoomd_tpu_torch.ops import cell_pair as cp
+    from hoomd_tpu_torch.ops import pair_eval
+    nx, ny, nz = cdim
+    ev, npn = pair_eval.EVAL_IDS[name], len(pair_eval.kernel_pnames(name))
+    st = torch.cuda.current_stream().cuda_stream
+    tp = (cp.pair_tile(nx, C, cp.PLANAR_TILE_SLOTS),) if new else ()
+    tn = (cp.pair_tile(nx, C, cp.N3L_TILE_SLOTS),) if new else ()
+    nc = pos.shape[0]
+    F, F2, Fn = (torch.empty_like(pos) for _ in range(3))
+    pe = torch.empty((nc, C), device=pos.device)
+    vir = torch.empty((nc, C, 6), device=pos.device)
+    part = torch.empty((13,) + tuple(pos.shape), device=pos.device)
+    typ_p = typ.data_ptr() if T > 1 else None
+
+    def planar(pvf, out):
+        err = lib.hoomd_cell_pair_planar_typed(
+            pos.data_ptr(), tag.data_ptr(), typ.data_ptr(), sh.data_ptr(),
+            pv.data_ptr(), npn, T, out[0].data_ptr(),
+            out[1].data_ptr() if pvf else None,
+            out[2].data_ptr() if pvf else None, nx, ny, nz, C, ev, pvf, *tp,
+            st)
+        if err:
+            raise RuntimeError(f"typed planar kernel: CUDA error {err}")
+
+    def n3l():
+        err = lib.hoomd_cell_pair_n3l(
+            pos.data_ptr(), tag.data_ptr(), typ_p, sh.data_ptr(),
+            pv.data_ptr(), npn, T, Fn.data_ptr(), part.data_ptr(), nx, ny,
+            nz, C, ev, *tn, st)
+        if err:
+            raise RuntimeError(f"half stencil: CUDA error {err}")
+    calls = {'cell_pair_planar_n3l': (n3l, (Fn,))}
+    if T > 1:
+        calls['cell_pair_planar_typed'] = (lambda: planar(1, (F, pe, vir)),
+                                           (F, pe, vir))
+        calls['cell_pair_planar_typed F'] = (lambda: planar(0, (F2,)), (F2,))
+    return calls
+
+
+def same_bits(a, b):
+    """Every tensor of a equal to b's, bit for bit."""
+    import torch
+    return all(torch.equal(x.contiguous().view(torch.int32),
+                           y.contiguous().view(torch.int32))
+               for x, y in zip(a, b))
+
+
+def parent_pair_phase(dev, src='scratch/parent/hoomd_tpu_torch/csrc'):
+    """Where a copy of the parent's csrc lies in ``src`` (an ignored
+    directory; the checkout has none): build its cell_pair_typed.cu and
+    cell_pair_impls.cu under other library names, hold the parent's
+    typed planar kernel to the new one bit for bit (F, PE, virial, and F
+    alone) for every pair evaluator at T = 2 and 4 on the KA shape, and
+    time both kernels of each redesigned row in turns (parent, new, new,
+    parent; direct calls into preallocated outputs, CUDA events), with
+    each one's device time and the half stencil's fold: rows 3t (with PE
+    and virial, and F alone) and 7t at the KA shape with the KA table,
+    row 7 at the bench shape.
+    Returns the rows' times."""
+    import ctypes
+    import torch
+    from pathlib import Path
+    from hoomd_tpu_torch.ops import _build
+    from hoomd_tpu_torch.ops import cell_pair as cp
+    d = Path(src)
+    if not (d / 'cell_pair_typed.cu').exists():
+        print(f"parent pair kernels: no copy of the parent's csrc under "
+              f"{src}; skipped", flush=True)
+        return None
+    t0 = time.perf_counter()
+    P, I = ctypes.c_void_p, ctypes.c_int
+    procs = {stem: subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, '-I', str(d), '-o',
+         str(d / f'libparent_{stem}.so'), str(d / f'{stem}.cu')],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for stem in ('cell_pair_typed', 'cell_pair_impls')}
+    for stem, proc in procs.items():
+        out, _ = proc.communicate(timeout=600)
+        if proc.returncode:
+            raise RuntimeError(f"parent {stem}.cu: nvcc failed\n"
+                               f"{out.decode()[-2000:]}")
+    typed = ctypes.CDLL(str(d / 'libparent_cell_pair_typed.so'))
+    impls = ctypes.CDLL(str(d / 'libparent_cell_pair_impls.so'))
+    typed.hoomd_cell_pair_planar_typed.argtypes = [P] * 5 + [I] * 2 + \
+        [P] * 3 + [I] * 6 + [P]
+    impls.hoomd_cell_pair_n3l.argtypes = [P] * 5 + [I] * 2 + [P] * 2 + \
+        [I] * 5 + [P]
+    parent = types_ns(hoomd_cell_pair_planar_typed=
+                      typed.hoomd_cell_pair_planar_typed,
+                      hoomd_cell_pair_n3l=impls.hoomd_cell_pair_n3l)
+    PARENT_PAIR['lib'] = parent
+    new = cp._kernel_lib().lib
+    print(f"parent pair kernels built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    same, differ = 0, []
+    res = {}
+    for T in (2, 4):
+        carry, L, N, cdim, C = ka_cells(dev, T)
+        _, sh = cp.build_cell_shifts(cdim, L)
+        sh = torch.as_tensor(sh, dtype=torch.float32, device=dev)
+        args = (carry.pos.contiguous(), carry.tag.to(torch.int32).contiguous(),
+                carry.typ.to(torch.int32).contiguous(), sh)
+        for name in ['lj'] + list(EVAL_JOBS):
+            pv = typed_table(name, T, dev)[0].contiguous()
+            cp_ = parent_pair_calls(parent, False, name, T, *args, pv, cdim, C)
+            cn = parent_pair_calls(new, True, name, T, *args, pv, cdim, C)
+            for key in ('cell_pair_planar_typed', 'cell_pair_planar_typed F'):
+                cp_[key][0]()
+                cn[key][0]()
+                torch.cuda.synchronize()
+                if same_bits(cp_[key][1], cn[key][1]):
+                    same += 1
+                else:
+                    differ.append(f'{key}[{name}, T={T}]')
+            if name == 'lj' and T == 2:
+                res['ka'] = (cp_, cn, cdim, C)
+    print(f"parent typed planar kernel against the new one at the KA shape: "
+          f"{same} of {same + len(differ)} outputs equal bit for bit "
+          f"(F, PE and virial, and F alone; every evaluator, T = 2 and 4)",
+          flush=True)
+    if differ:
+        raise RuntimeError(f"the new typed planar kernel differs from the "
+                           f"parent's in bits: {differ}")
+    dims, cdim_b, C_b = SHAPES['bench']
+    carry, L, N, _ = lattice_cells(dims, cdim_b, C_b, 0.1, 3, dev)
+    _, sh = cp.build_cell_shifts(cdim_b, L)
+    sh = torch.as_tensor(sh, dtype=torch.float32, device=dev)
+    args = (carry.pos.contiguous(), carry.tag.to(torch.int32).contiguous(),
+            carry.typ.to(torch.int32).contiguous(), sh)
+    pv1 = lj_params(dev)[0]
+    bench = (parent_pair_calls(parent, False, 'lj', 1, *args, pv1, cdim_b,
+                               C_b),
+             parent_pair_calls(new, True, 'lj', 1, *args, pv1, cdim_b, C_b),
+             cdim_b, C_b)
+    out = {}
+    for row, (kname, (cp_, cn, cdim, C)) in {
+            '3t': ('cell_pair_planar_typed', res['ka']),
+            '3t F': ('cell_pair_planar_typed F', res['ka']),
+            '7t': ('cell_pair_planar_n3l', res['ka']),
+            '7': ('cell_pair_planar_n3l', bench)}.items():
+        fp, fn = cp_[kname][0], cn[kname][0]
+        turns = [cuda_ms(f, 50) for f in (fp, fn, fn, fp)]
+        r = dict(parent_ms=turns[::3], ms=turns[1:3],
+                 parent_device_ms=device_ms(fp, 10),
+                 device_ms=device_ms(fn, 10))
+        if kname == 'cell_pair_planar_n3l':
+            r['parent_fold_ms'] = device_ms(fp, 10, only='n3l_fold')
+            r['fold_ms'] = device_ms(fn, 10, only='n3l_fold')
+        out[row] = r
+        print(f"row {row} ({kname}, cell_dim={cdim} C={C}) in turns parent, "
+              f"new, new, parent: {', '.join(f'{t:.4f}' for t in turns)} ms "
+              f"per call (CUDA events); device {r['parent_device_ms']:.4f} "
+              f"-> {r['device_ms']:.4f} ms"
+              + (f", of it the fold {r['parent_fold_ms']:.4f} -> "
+                 f"{r['fold_ms']:.4f}" if 'fold_ms' in r else ''), flush=True)
+    print(json.dumps({"parent_pair_ms": out}), flush=True)
+    return out
+
+
 def engine_window_ms(s, gt, cand, ws, k):
     """The main path's call of one megastep window (megastep_window on
     the engine's prepared planes, workspace and candidate set) from the
@@ -1402,11 +1586,19 @@ def impl_kernel_phases(dev):
                        plain_ms=cuda_ms(lambda: plain(*args, cell_tag=tag),
                                         3 if tag_name == 'bench' else 1))
             row['bound_ms'], row['bound_by'] = bounds[name]
+            extra = ''
+            if name == 'cell_pair_planar_n3l' and tag_name == 'bench':
+                call = lambda: kern(*args, C=C, cell_tag=tag, **kw)
+                row['device_ms'] = device_ms(call, 10)
+                row['fold_ms'] = device_ms(call, 10, only='n3l_fold')
+                row['build'] = tile_build(name, 'lj', C, cdim[0], 1)
+                extra = (f" device_ms={row['device_ms']:.4f}, the fold "
+                         f"{row['fold_ms']:.4f}; {build_line(row['build'])}")
             print(f"phase {name} [{tag_name} cell_dim={cdim} C={C} N={N}]: "
                   f"max_abs_err={ea:.3e} bound_share={er:.3f} "
                   f"kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-                  f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']})",
-                  flush=True)
+                  f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']})"
+                  + extra, flush=True)
             if tag_name == 'bench':
                 out[name] = row
         if tag_name == 'bench':
@@ -1999,6 +2191,14 @@ KA_PAIRS = {('A', 'A'): (1.0, 1.0), ('A', 'B'): (1.5, 0.8),
             ('B', 'B'): (0.5, 0.88)}
 KA_N_SIDE, KA_A, KA_NB = 40, 0.94104, 12800
 KA_TEMP, KA_TEMP_TOL = 1.0, 0.03
+# the KA job's T and PE/N at the end of its NVT window with the typed
+# planar kernel of the parent design (a block per cell walking all 27 C
+# slots), from `python3 profile_torch_bench.py ka-bits TREE` on the
+# parent's tree (NVIDIA H100 80GB HBM3, 700 W).  The tile design sums
+# every slot's pairs in the same order with the same arithmetic, and the
+# job's trajectory depends on the data alone, so the job must give them
+# bit for bit
+KA_PARENT_T, KA_PARENT_PE = 0.9968360608824806, -6.018988774813159
 
 
 def ka_snapshot(data, n_side=KA_N_SIDE, seed=4):
@@ -2135,7 +2335,7 @@ def ka_job(card):
     ms = (time.perf_counter() - t0) * 2.0
     busy, k_dev = device_profile(lambda: system.run(50, quiet=True),
                                  f'50 steps of the {what}', top=6,
-                                 per_launch='cell_pair_typed_kernel')
+                                 per_launch='planar_typed_kernel')
     # the typed kernel on the end state, against its plain version
     c = system._fast_carry
     _, sh = cp.build_cell_shifts(fast['cell_dim'],
@@ -2153,6 +2353,34 @@ def ka_job(card):
                     [(lab, g, w, RTOL, ATOL) for lab, g, w in
                      zip(('F', 'pe', 'virial'), kern(), want)])
     k_ms = cuda_ms(kern, 20)
+    t_end, pe_end = q['temperature'], q['potential_energy'] / N
+    print(f"{what}: end of the NVT window T={t_end!r} PE/N={pe_end!r}; the "
+          f"parent design's T={KA_PARENT_T!r} PE/N={KA_PARENT_PE!r}",
+          flush=True)
+    if (t_end, pe_end) != (KA_PARENT_T, KA_PARENT_PE):
+        raise RuntimeError(f"{what}: T and PE/N at the end of the window are "
+                           f"not the parent design's bits")
+    if PARENT_PAIR:
+        # the parent's typed kernel on the job's end state, bit for bit
+        args = (c.pos.contiguous(), c.tag.to(torch.int32).contiguous(),
+                c.typ.to(torch.int32).contiguous(), sh.contiguous())
+        pvc = pv.contiguous()
+        old = parent_pair_calls(PARENT_PAIR['lib'], False, 'lj', 2, *args, pvc,
+                                fast['cell_dim'], fast['C'])
+        new = parent_pair_calls(cp._kernel_lib().lib, True, 'lj', 2, *args,
+                                pvc, fast['cell_dim'], fast['C'])
+        for key in ('cell_pair_planar_typed', 'cell_pair_planar_typed F'):
+            old[key][0]()
+            new[key][0]()
+        torch.cuda.synchronize()
+        equal = same_bits(old['cell_pair_planar_typed'][1],
+                          new['cell_pair_planar_typed'][1])
+        print(f"{what}: the parent's typed planar kernel and the new one on "
+              f"the end state: F, PE and virial "
+              f"{'equal' if equal else 'differ'} bit for bit", flush=True)
+        if not equal:
+            raise RuntimeError(f"{what}: the typed planar kernel differs from "
+                               f"the parent's in bits on the end state")
     print(f"{what}: plan cell_dim={fast['cell_dim']} C={fast['C']} "
           f"k={fast['k_rebuild']} rebin={fast['rebin_impl']} "
           f"impl={fast['impl']}; NVT T over the window {np.mean(temps):.5f} "
@@ -2828,8 +3056,8 @@ def typed_bounds(pos, tag, typ, cdim, sh, pv):
     per candidate, 15 more per pair inside its r_cut for the force and
     3 for the -F on j; the planar kernel's PE and virial 12 more per
     pair (half of each to each side).  The kernels' own work (the full
-    stencil evaluates each pair from both sides) does not count; rows 2
-    and 3 of lj_bounds still count ordered pairs."""
+    stencil evaluates each pair from both sides) does not count, as in
+    lj_bounds."""
     cand, inr = typed_pair_counts(pos, tag, typ, cdim, sh, pv[0])
     slots = pos.shape[0] * pos.shape[1]
     P = slots * 4
@@ -2840,6 +3068,40 @@ def typed_bounds(pos, tag, typ, cdim, sh, pv):
         'cell_pair_planar_n3l_typed': bound(inb + 3 * P,
                                             (8 * cand + 18 * inr) / 2),
     }, cand, inr
+
+
+def tile_build(kname, name, C, nx, ntypes):
+    """What the build gave the tile kernel of ``kname`` (cell_pair_planar,
+    typed with PE and virial, or cell_pair_planar_n3l) for evaluator
+    ``name`` and ntypes types at capacity C on an x-row of nx cells, and
+    its occupancy (cudaFuncGetAttributes,
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor): registers per
+    thread, spilled bytes per thread, shared memory per block, blocks
+    per SM, and the tile's cells."""
+    import ctypes
+    from hoomd_tpu_torch.ops import _build, pair_eval
+    from hoomd_tpu_torch.ops import cell_pair as cp
+    lib = _build.load()
+    out = (ctypes.c_int * 5)()
+    ntab = (2 + len(pair_eval.kernel_pnames(name))) * ntypes ** 2
+    tx = cp.pair_tile(nx, C, cp.PLANAR_TILE_SLOTS if kname == 'cell_pair_planar'
+                      else cp.N3L_TILE_SLOTS)
+    if kname == 'cell_pair_planar':
+        err = lib.lib.hoomd_planar_typed_occupancy(
+            pair_eval.EVAL_IDS[name], 1, C, tx, ntab, out)
+    else:
+        err = lib.lib.hoomd_n3l_occupancy(pair_eval.EVAL_IDS[name],
+                                          int(ntypes > 1), C, tx,
+                                          ntab if ntypes > 1 else 0, out)
+    lib.check(err, f'{kname} occupancy')
+    return dict(registers=out[0], spill_bytes=out[1],
+                smem_bytes=out[2] + out[3], blocks_per_sm=out[4], tile=tx)
+
+
+def build_line(b):
+    return (f"{b['registers']} registers, {b['spill_bytes']} B spilled per "
+            f"thread, {b['smem_bytes']} B shared memory per block, "
+            f"{b['blocks_per_sm']} blocks per SM, tiles of {b['tile']} cells")
 
 
 def typed_kernel_phases(dev):
@@ -2893,7 +3155,12 @@ def typed_kernel_phases(dev):
                     key = kname + '_typed'
                     rows[key] = dict(max_abs_err=ea, bound_share=er, ms=ms,
                                      plain_ms=cuda_ms(plain, 3),
-                                     device_ms=device_ms(kern, 10))
+                                     device_ms=device_ms(kern, 10),
+                                     build=tile_build(kname, name, C,
+                                                      cdim[0], T))
+                    if kname == 'cell_pair_planar_n3l':
+                        rows[key]['fold_ms'] = device_ms(kern, 10,
+                                                         only='n3l_fold')
         if T == 2:
             b, cand, inr = typed_bounds(pos, tag, typ, cdim, sh,
                                         typed_table('lj', 2, dev)[0])
@@ -2906,7 +3173,11 @@ def typed_kernel_phases(dev):
                       f"kernel_ms={r['ms']:.4f} "
                       f"device_ms={r['device_ms']:.4f} "
                       f"plain_ms={r['plain_ms']:.4f} bound_ms={b_ms:.6f} "
-                      f"({b_by})", flush=True)
+                      f"({b_by}), {b_ms / max(r['device_ms'], 1e-9):.4f} of "
+                      f"the device time"
+                      + (f", the fold {r['fold_ms']:.4f} ms on the device"
+                         if 'fold_ms' in r else '') + f"; "
+                      f"{build_line(r['build'])}", flush=True)
         print(f"phase typed kernels T={T} [KA shape cell_dim={cdim} C={C}]: "
               + ', '.join(f"{k}[{n}] {t[n][T]:.4f} ms" for k, t in
                           times.items() for n in t if T in t[n]), flush=True)
@@ -3239,6 +3510,7 @@ def main():
     rows.update(impl_kernel_phases(dev))
     typed_rows, typed_ms = typed_kernel_phases(dev)
     rows.update(typed_rows)
+    parent_pair_phase(dev)
     charged_rows, charged_ms = charged_kernel_phases(dev)
     rows.update(charged_rows)
     rows.update(rebin_kernel_phases(dev))

@@ -30,8 +30,8 @@
 // What bounds them on this card: as for cell_pair.cu, the pair loop.  At
 // the 64k bench plan (2352 cells, C = 40) the full stencil visits 102M
 // candidate pairs of ~20 flops against a few MB of state, so the fp32
-// issue rate bounds them; the half stencil visits half the pairs.  What
-// each design does:
+// issue rate bounds them; the half stencil's function needs half the
+// pairs.  What each design does:
 //   * lj: one block per cell stages the 27 listed cells (27*C*13 bytes of
 //     shared memory, 14 KB at C = 40), a thread per slot.
 //   * lj3d: one block per cell stages one neighbour at a time into a
@@ -42,31 +42,29 @@
 //     TX + 2 cells once, image shifts applied, and every thread reads it
 //     for its dx = -1, 0, +1 neighbours: 9 stagings of (TX+2)*C slots
 //     instead of 27 of C per cell.
-//   * n3l: one block per cell walks the 14 entries of the half stencil
-//     (own cell with i < j, then (0,0,+1), the (0,+1) row, the (+1,-1),
-//     (+1,0), (+1,+1) rows).  The lanes of a warp take the candidates of a
-//     32-slot tile in rotated order, so in one step no two lanes touch the
-//     same j, and each warp sums -F per j into its own shared row without
-//     atomics; the warps' rows are added in warp order.  The own cell's
-//     j side goes to this block's own slots; the j side of each other
-//     entry e goes to the neighbour's slots in partial plane e - 1 of a
-//     (13, M, 3) buffer (each (neighbour, e) has one source cell, so no
-//     two blocks write one entry), and a second launch adds the 13 planes
-//     to the forces in plane order.  The sums are deterministic: the same
-//     inputs give the same bits, run after run.  A mixture's variant
-//     stages each candidate's type in its validity byte and the table in
-//     shared memory, and each thread keeps the row of its own type in
-//     registers; the single-type variants read [rc2, e_shift, *pnames]
-//     as before.
+//   * n3l: a block takes a tile of TX cells of an x-row and packs their
+//     live particles (cell_tile.cuh); it stages the half stencil's two dz
+//     planes once each, compacted to the live slots, and a warp keeps 32
+//     candidates j in registers, their -F included, while the tile's
+//     homes pass by in 32 rotated steps: cut tests first, then the pairs
+//     inside the cut with the warp converged, then each home's sum passed
+//     one lane on per step with __shfl_sync.  No candidate costs a shared
+//     read-modify-write.  The j side of the own row's tile cells joins the
+//     homes' sums in the block; the rest goes to 13 partial planes (a
+//     (13, M, 3) buffer, one source block per entry), and a second launch
+//     adds each particle's planes in a fixed order.  The sums are
+//     deterministic: the same inputs give the same bits, run after run.
+//     A mixture's variant stages each candidate's type in its meta word
+//     and the table in shared memory, and each lane keeps the column of
+//     its candidate's type in registers; the single-type variants read
+//     [rc2, e_shift, *pnames].
 // Every C entry point returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
-#include "cell_stencil.cuh"
+#include "cell_tile.cuh"
 
 namespace hoomd_torch {
-
-__device__ __forceinline__ int wrap(const int i, const int n) { return (i + n) % n; }
 
 // ---------------------------------------------------------------------------
 // lj: the adjacency-listed stencil.  lj = [lj1, lj2, rc2, e_shift].
@@ -237,147 +235,253 @@ __global__ void lj_row_kernel(const float* __restrict__ pos, const int* __restri
 // ---------------------------------------------------------------------------
 // n3l: the half stencil.  par = [rc2, e_shift, *pnames] of one type, or the
 // (2 + np, T, T) table of a mixture (TYPED).
+//
+// A block takes a tile of TX cells of an x-row (cell_tile.cuh).  The half
+// stencil of a home of cell lc is, in union cells of the tile: the own
+// row's lc + 1 (its own cell, pairs i < j) and lc + 2 (dx = +1), then
+// lc .. lc + 2 of the rows (dz, dy) = (0, +1), (+1, -1), (+1, 0), (+1, +1).
+// The block stages the dz = 0 plane (the own row and (0, +1)) and then
+// the dz = +1 plane, compacted to the live slots; a warp takes 32
+// consecutive entries of one row, one candidate j per lane, and keeps j in
+// registers, its -F included, while it meets each group of 32 homes that
+// reaches the tile's cells.  Per (home group, tile):
+//   1. in 32 steps lane l tests home (l + s) mod 32 against its j (the
+//      half-stencil relation, then r^2 < rc2 rounded as the plain version
+//      rounds it) and keeps a bit per pair inside the cut (a group of
+//      fewer homes rotates within segments of the warp, in fewer steps);
+//   2. the lanes evaluate their in-cut pairs with the warp converged, up to
+//      kN3lChunk each, in ascending step: -F on j in registers, F into the
+//      lane's own column of the warp's shared buffer;
+//   3. the home sums pass one lane on per step with __shfl_sync (the steps
+//      at which no lane has a pair in one shuffle), so that lane l adds
+//      its pair of step s to home (l + s) mod 32; after them lane l holds
+//      home l - 1's sum and adds it to the warp's own row of home sums.
+// So no shared location is written by two lanes at once and no candidate
+// costs a shared read-modify-write.  After each tile, j's -F goes out:
+// to the home's sum for the own row's tile cells, else to a partial plane
+// of the (13, M, 3) buffer: plane 0 the own row's right halo (the cell
+// after the tile); for the other four rows rho = 1 .. 4, plane
+// 3 rho - 2 the tile's own x-range, 3 rho - 1 the right halo, 3 rho the
+// left halo (the cell before it).  Each (plane, particle) has one source
+// block, and a second launch adds to each particle its planes in a fixed
+// order, so the same inputs give the same bits without atomics.
 
-// Entry e of the half stencil: the own cell, (0,0,+1), the (dz, dy) = (0,+1)
-// row, then the (+1,-1), (+1,0) and (+1,+1) rows, dx = -1, 0, +1 in each.
-__device__ __forceinline__ void n3l_offset(const int e, int& dz, int& dy, int& dx) {
-    if (e < 2) {
-        dz = 0;
-        dy = 0;
-        dx = e;
-    } else if (e < 5) {
-        dz = 0;
-        dy = 1;
-        dx = e - 3;
-    } else {
-        dz = 1;
-        dy = (e - 5) / 3 - 1;
-        dx = (e - 5) % 3 - 1;
-    }
+constexpr int kN3lThreads = 128;
+constexpr int kN3lChunk = 8;
+
+// Shared memory of one block: a staged plane (3 rows of TX + 2 cells), the
+// homes (coordinates and meta), the warps' home sums, the warps' step
+// buffers, the own row's j sums, the table, the homes' slots and the
+// offsets.
+static inline size_t n3l_smem_bytes(const int C, const int TX, const int ntab) {
+    const int nw = kN3lThreads / 32;
+    return (size_t)(3 * (TX + 2) * C + TX * C) * sizeof(float4) +
+           (size_t)(nw * TX * C * 3 + nw * kN3lChunk * 32 * 3 + TX * C * 3 + ntab) *
+               sizeof(float) +
+           (size_t)(TX * C + TX + 1 + 3 * (TX + 2) + 1) * sizeof(int);
 }
 
-constexpr int kN3lEntries = 14;
-
-// Shared memory of one block: a staged cell, the warps' j-side rows, the
-// table of a mixture (ntab floats, 0 for one type) and the validity bytes.
-static inline size_t n3l_smem_bytes(const int C, const int threads, const int ntab) {
-    return (size_t)3 * C * sizeof(float) + (size_t)(threads / 32) * 3 * C * sizeof(float) +
-           (size_t)ntab * sizeof(float) + C;
-}
-
+// Register caps, chosen by timing on the card: a mixture's variant (it
+// holds its candidates' column of the table) runs faster held to 64
+// registers (8 blocks of kN3lThreads per SM) than with the compiler's own
+// choice; the one-type variants take 51 (10 blocks).
 template <int EV, bool TYPED>
-__global__ void n3l_kernel(const float* __restrict__ pos, const int* __restrict__ tag,
-                           const int* __restrict__ typ, const float* __restrict__ shifts,
-                           const float* __restrict__ par, const int np, const int T,
-                           const Geom g, float* __restrict__ frc, float* __restrict__ part) {
-    extern __shared__ float smem[];
-    const int C = g.C;
-    const int nw = blockDim.x >> 5;
+__global__ void __launch_bounds__(kN3lThreads, TYPED ? 8 : 10)
+    n3l_kernel(const float* __restrict__ pos, const int* __restrict__ tag,
+               const int* __restrict__ typ, const float* __restrict__ shifts,
+               const float* __restrict__ par, const int np, const int T, const Geom g,
+               const int TX, float* __restrict__ frc, float* __restrict__ part) {
+    extern __shared__ float4 smem4[];
+    const int C = g.C, HC = TX * C;
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, nw = blockDim.x >> 5;
     const int ntab = TYPED ? (2 + np) * T * T : 0;
-    float* sx = smem;
-    float* sy = sx + C;
-    float* sz = sy + C;
-    float* accj = sz + C;                       // [warp][axis][C]
-    float* tab = accj + nw * 3 * C;
-    unsigned char* sv = reinterpret_cast<unsigned char*>(tab + ntab);
-    const int cell = blockIdx.x;
-    const int ix = cell % g.nx, iy = (cell / g.nx) % g.ny, iz = cell / (g.nx * g.ny);
+    float4* ent = smem4;                        // a staged plane
+    float4* hpos = ent + 3 * (TX + 2) * C;      // homes: coordinates, type | cell << 8
+    float* acch = reinterpret_cast<float*>(hpos + HC);   // [warp][home][axis]
+    float* hf = acch + nw * HC * 3;             // [warp][chunk][lane][axis]
+    float* jown = hf + nw * kN3lChunk * 32 * 3; // [home][axis]
+    float* tab = jown + HC * 3;
+    int* hslot = reinterpret_cast<int*>(tab + ntab);
+    int* hstart = hslot + HC;
+    int* off = hstart + TX + 1;
+    const Tile t = tile_of_block(g, TX);
     const long long M = (long long)g.nx * g.ny * g.nz * C;
-    const float* shc = shifts + (long long)cell * 27 * 3;
-    const int i = threadIdx.x, lane = i & 31, w = i >> 5;
-    const long long slot = (long long)cell * C + i;
-    const bool vi = i < C && tag[slot] >= 0;
-    float xi = 0.f, yi = 0.f, zi = 0.f;
-    if (vi) {
-        xi = pos[slot * 3];
-        yi = pos[slot * 3 + 1];
-        zi = pos[slot * 3 + 2];
+    if constexpr (TYPED) stage_table(par, ntab, tab);
+    const PairPar P = load_pair_par(par, np);   // one type's parameters
+    for (int q = threadIdx.x; q < nw * HC * 3; q += blockDim.x) acch[q] = 0.0f;
+    const long long cell0 = (long long)t.x0 + g.nx * (t.iy + (long long)g.ny * t.iz);
+    for (int q = threadIdx.x; q < t.tx * C; q += blockDim.x)
+        if (tag[cell0 * C + q] < 0)
+            for (int a = 0; a < 3; ++a) frc[(cell0 * C + q) * 3 + a] = 0.0f;
+    pack_homes(tag, g, t, hslot, hstart);
+    const int nh = hstart[t.tx];
+    for (int p = threadIdx.x; p < nh; p += blockDim.x) {
+        const long long slot = hslot[p];
+        const float* s13 = shifts + ((slot / C) * 27 + 13) * 3;
+        const int ty = TYPED ? min(max(typ[slot], 0), T - 1) : 0;
+        hpos[p] = make_float4(pos[slot * 3 + 0] + s13[0], pos[slot * 3 + 1] + s13[1],
+                              pos[slot * 3 + 2] + s13[2],
+                              __int_as_float(ty | home_cell(hstart, t.tx, p) << 8));
     }
-    PairPar P;
-    TypedRow R;
-    if constexpr (TYPED) {
-        stage_table(par, ntab, tab);
-        __syncthreads();
-        R = load_typed_row(tab, np, T, vi ? min(max(typ[slot], 0), T - 1) : 0);
-    } else {
-        P = load_pair_par(par, np);
-    }
-    float acc[3] = {0.f, 0.f, 0.f};
-    for (int e = 0; e < kN3lEntries; ++e) {
-        int dz, dy, dx;
-        n3l_offset(e, dz, dy, dx);
-        const int k = (dz + 1) * 9 + (dy + 1) * 3 + (dx + 1);
-        const int jc = wrap(ix + dx, g.nx) + g.nx * (wrap(iy + dy, g.ny) + g.ny * wrap(iz + dz, g.nz));
-        for (int t = threadIdx.x; t < C; t += blockDim.x) {
-            const long long js = (long long)jc * C + t;
-            sx[t] = pos[js * 3 + 0] + shc[3 * k + 0];
-            sy[t] = pos[js * 3 + 1] + shc[3 * k + 1];
-            sz[t] = pos[js * 3 + 2] + shc[3 * k + 2];
-            if constexpr (TYPED)
-                sv[t] = type_byte(tag[js], typ[js], T);
-            else
-                sv[t] = tag[js] >= 0;
-        }
-        for (int t = threadIdx.x; t < nw * 3 * C; t += blockDim.x) accj[t] = 0.0f;
-        __syncthreads();
-        float* aj = accj + w * 3 * C;
-        for (int jt = 0; jt < C; jt += 32) {
-            for (int s = 0; s < 32; ++s) {
-                // lane l takes slot jt + (l + s) mod 32: distinct in a step
-                const int j = jt + ((lane + s) & 31);
-                if (vi && j < C && sv[j] && (e != 0 || j > i)) {
-                    float f[3] = {0.f, 0.f, 0.f};
-                    if constexpr (TYPED)
-                        typed_pair_acc<EV, false>(xi - sx[j], yi - sy[j], zi - sz[j], R,
-                                                  sv[j] - 1, f);
-                    else
-                        pair_acc<EV, false, false>(xi - sx[j], yi - sy[j], zi - sz[j], P, f);
-                    for (int a = 0; a < 3; ++a) {
-                        acc[a] += f[a];
-                        aj[a * C + j] -= f[a];
-                    }
+    float* hfw = hf + w * kN3lChunk * 32 * 3;
+    for (int dz = 0; dz <= 1; ++dz) {
+        const int nr = dz ? 3 : 2, dy0 = dz ? -1 : 0;
+        stage_rows<TYPED>(pos, tag, typ, T, shifts, g, t, dz, dy0, nr, ent, off);
+        int ntile = 0;
+        for (int q = 0; q < nr; ++q) ntile += (off[(q + 1) * t.W] - off[q * t.W] + 31) / 32;
+        for (int tau = w; tau < ntile; tau += nw) {
+            int q = 0, r = tau, nt;
+            while (r >= (nt = (off[(q + 1) * t.W] - off[q * t.W] + 31) / 32)) {
+                r -= nt;
+                ++q;
+            }
+            const int rho = dz ? 2 + q : q;     // 0 the own row
+            const int start = off[q * t.W] + 32 * r, end = off[(q + 1) * t.W];
+            const int j = start + lane;
+            const bool jv = j < end;
+            const float4 ej = ent[jv ? j : start];
+            const int ulj = meta_ul(ej);
+            TypedRow Rc;                        // column tj of the table
+            if constexpr (TYPED) Rc = load_typed_col(tab, np, T, meta_type(ej));
+            float fj[3] = {0.f, 0.f, 0.f};
+            // the homes whose half stencil reaches the tile's cells
+            const int ula = meta_ul(ent[start]), ulb = meta_ul(ent[min(start + 31, end - 1)]);
+            const int lc_lo = max(0, ula - 2), lc_hi = min(t.tx - 1, rho == 0 ? ulb - 1 : ulb);
+            const int h0 = lc_lo <= lc_hi ? hstart[lc_lo] : 0;
+            const int h1 = lc_lo <= lc_hi ? hstart[lc_hi + 1] : 0;
+            for (int hb = h0; hb < h1; hb += 32) {
+                // a group of the homes hb .. he - 1 rotates among gw lanes
+                // (the power of 2 that holds them): the warp's 32 / gw
+                // segments each meet all of them in gw steps
+                const int he = min(hb + 32, h1), r = he - hb;
+                const int gw = r <= 1 ? 1 : 1 << (32 - __clz(r - 1));
+                const int sl = lane & (gw - 1);
+                // 1. the cut test of each of this lane's gw pairs
+                unsigned mask = 0;
+                for (int s = 0; s < gw; ++s) {
+                    const int hp = hb + ((sl + s) & (gw - 1));
+                    if (!jv || hp >= he) continue;
+                    const float4 h = hpos[hp];
+                    const int lch = __float_as_int(h.w) >> 8;
+                    const bool rel = rho == 0
+                                         ? (ulj == lch + 2 || (ulj == lch + 1 && j > off[1] + hp))
+                                         : (unsigned)(ulj - lch) <= 2u;
+                    if (!rel) continue;
+                    const float rc2 = TYPED ? pick(Rc.v[0], __float_as_int(h.w) & 15) : P.rc2;
+                    if (r2_rn(h.x - ej.x, h.y - ej.y, h.z - ej.z) < rc2) mask |= 1u << s;
                 }
-                __syncwarp();
+                while (__any_sync(0xffffffffu, mask)) {
+                    // 2. evaluate up to kN3lChunk pairs per lane, in step order
+                    unsigned done = 0;
+                    for (int k = 0; k < kN3lChunk; ++k) {
+                        if (!__any_sync(0xffffffffu, mask)) break;
+                        if (!mask) continue;
+                        const int s = __ffs(mask) - 1;
+                        mask &= mask - 1;
+                        done |= 1u << s;
+                        const float4 h = hpos[hb + ((sl + s) & (gw - 1))];
+                        float f[3] = {0.f, 0.f, 0.f};
+                        if constexpr (TYPED)
+                            pair_acc<EV, false, false>(h.x - ej.x, h.y - ej.y, h.z - ej.z,
+                                                       typed_par(Rc, __float_as_int(h.w) & 15),
+                                                       f);
+                        else
+                            pair_acc<EV, false, false>(h.x - ej.x, h.y - ej.y, h.z - ej.z, P, f);
+                        for (int a = 0; a < 3; ++a) {
+                            fj[a] -= f[a];
+                            hfw[(k * 32 + lane) * 3 + a] = f[a];
+                        }
+                    }
+                    // 3. each home's sum passes one lane on per step within
+                    // its segment (the steps where no lane has a pair in
+                    // one shuffle), then the segments' sums add up in
+                    // lanes 0 .. gw - 1
+                    float hs[3] = {0.f, 0.f, 0.f};  // home (sl + at) mod gw's
+                    int k = 0, at = 0;
+                    for (unsigned u = __reduce_or_sync(0xffffffffu, done); u; u &= u - 1) {
+                        const int s = __ffs(u) - 1;
+                        if (s != at)
+                            for (int a = 0; a < 3; ++a)
+                                hs[a] = __shfl_sync(0xffffffffu, hs[a], sl + s - at, gw);
+                        at = s;
+                        if (done >> s & 1) {
+                            for (int a = 0; a < 3; ++a) hs[a] += hfw[(k * 32 + lane) * 3 + a];
+                            ++k;
+                        }
+                    }
+                    if (at != gw - 1)
+                        for (int a = 0; a < 3; ++a)
+                            hs[a] = __shfl_sync(0xffffffffu, hs[a], sl + gw - 1 - at, gw);
+                    for (int o = gw; o < 32; o <<= 1)
+                        for (int a = 0; a < 3; ++a)
+                            hs[a] += __shfl_down_sync(0xffffffffu, hs[a], o);
+                    const int hp = hb + ((sl + gw - 1) & (gw - 1));
+                    if (lane < gw && hp < he)
+                        for (int a = 0; a < 3; ++a) acch[(w * HC + hp) * 3 + a] += hs[a];
+                }
             }
-        }
-        __syncthreads();
-        if (i < C) {
-            float gj[3] = {0.f, 0.f, 0.f};
-            for (int ww = 0; ww < nw; ++ww)
-                for (int a = 0; a < 3; ++a) gj[a] += accj[(ww * 3 + a) * C + i];
-            if (e == 0) {
-                for (int a = 0; a < 3; ++a) acc[a] += gj[a];
-            } else {
-                float* dst = part + ((e - 1) * M + (long long)jc * C + i) * 3;
-                for (int a = 0; a < 3; ++a) dst[a] = gj[a];
+            if (!jv) continue;
+            if (rho == 0) {
+                if (ulj >= 1 && ulj <= t.tx) {
+                    for (int a = 0; a < 3; ++a) jown[(j - off[1]) * 3 + a] = fj[a];
+                    continue;
+                }
+                if (ulj == 0) continue;         // no home reaches the cell before the tile
             }
+            const float* sh;
+            const long long jc = union_cell(g, t, dz, dy0 + q, ulj, shifts, sh);
+            const int pl = rho == 0 ? 0 : 3 * rho - 2 + (ulj == t.tx + 1 ? 1 : ulj == 0 ? 2 : 0);
+            float* dst = part + (pl * M + jc * C + meta_slot(ej)) * 3;
+            for (int a = 0; a < 3; ++a) dst[a] = fj[a];
         }
-        __syncthreads();                        // before accj is zeroed again
+        __syncthreads();                        // before the next plane is staged
     }
-    if (i < C)
-        for (int a = 0; a < 3; ++a) frc[slot * 3 + a] = acc[a];
+    // each home: its warps' sums in warp order, then its own row's j side
+    for (int p = threadIdx.x; p < nh; p += blockDim.x) {
+        float f[3] = {0.f, 0.f, 0.f};
+        for (int ww = 0; ww < nw; ++ww)
+            for (int a = 0; a < 3; ++a) f[a] += acch[(ww * HC + p) * 3 + a];
+        for (int a = 0; a < 3; ++a) frc[(long long)hslot[p] * 3 + a] = f[a] + jown[p * 3 + a];
+    }
 }
 
-// frc += the 13 partial planes, in plane order.
+// Each live particle: frc += its partial planes, in a fixed order: the
+// four rows' own x-range, then, for the first cell of a tile, the own
+// row's and the four rows' right halo of the tile before, then, for the
+// last cell, the four rows' left halo of the tile after.
 __global__ void n3l_fold_kernel(float* __restrict__ frc, const float* __restrict__ part,
-                                const long long n3) {
+                                const int* __restrict__ tag, const Geom g, const int TX) {
+    const long long M = (long long)g.nx * g.ny * g.nz * g.C;
     const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (q >= n3) return;
-    float f = frc[q];
-    for (int o = 0; o < kN3lEntries - 1; ++o) f += part[o * n3 + q];
-    frc[q] = f;
+    if (q >= M || tag[q] < 0) return;
+    const int cx = (int)((q / g.C) % g.nx);
+    const bool first = cx % TX == 0, last = cx % TX == TX - 1 || cx == g.nx - 1;
+    float f[3];
+    for (int a = 0; a < 3; ++a) f[a] = frc[q * 3 + a];
+    auto add = [&](const int pl) {
+        for (int a = 0; a < 3; ++a) f[a] += part[(pl * M + q) * 3 + a];
+    };
+    for (int rho = 1; rho <= 4; ++rho) add(3 * rho - 2);
+    if (first) {
+        add(0);
+        for (int rho = 1; rho <= 4; ++rho) add(3 * rho - 1);
+    }
+    if (last)
+        for (int rho = 1; rho <= 4; ++rho) add(3 * rho);
+    for (int a = 0; a < 3; ++a) frc[q * 3 + a] = f[a];
 }
 
 template <int EV, bool TYPED>
 static cudaError_t launch_n3l(const float* pos, const int* tag, const int* typ,
                               const float* shifts, const float* par, const int np, const int T,
-                              float* frc, float* part, const Geom g, cudaStream_t st) {
-    const int threads = threads_for(g.C);
-    const size_t smem = n3l_smem_bytes(g.C, threads, TYPED ? (2 + np) * T * T : 0);
+                              float* frc, float* part, const Geom g, const int TX,
+                              cudaStream_t st) {
+    const size_t smem = n3l_smem_bytes(g.C, TX, TYPED ? (2 + np) * T * T : 0);
     cudaError_t e = set_smem(n3l_kernel<EV, TYPED>, smem);
     if (e != cudaSuccess) return e;
-    n3l_kernel<EV, TYPED><<<g.nx * g.ny * g.nz, threads, smem, st>>>(pos, tag, typ, shifts, par,
-                                                                     np, T, g, frc, part);
+    const dim3 grid((g.nx + TX - 1) / TX, g.ny, g.nz);
+    n3l_kernel<EV, TYPED><<<grid, kN3lThreads, smem, st>>>(pos, tag, typ, shifts, par, np, T,
+                                                            g, TX, frc, part);
     return cudaGetLastError();
 }
 
@@ -429,24 +533,39 @@ int hoomd_cell_pair_lj_row(const float* pos, const int* tag, const float* shifts
 // pos, tag, shifts as above, typ (nc, C) (a mixture only, else null), par
 // [rc2, e_shift, *pnames] of evaluator ev, or with ntypes > 1 the
 // (2 + np, ntypes, ntypes) table; frc (nc, C, 3); part a (13, nc * C, 3)
-// scratch buffer.  Two launches.
+// scratch buffer; tiles of tx cells of an x-row.  Two launches.
 int hoomd_cell_pair_n3l(const float* pos, const int* tag, const int* typ, const float* shifts,
                         const float* par, int np, int ntypes, float* frc, float* part, int nx,
-                        int ny, int nz, int C, int ev, void* stream) {
-    if (ntypes < 1 || ntypes > kMaxTypes || np < 0 || np > kMaxPnames)
+                        int ny, int nz, int C, int ev, int tx, void* stream) {
+    if (ntypes < 1 || ntypes > kMaxTypes || np < 0 || np > kMaxPnames || tx < 1 || tx > 64)
         return cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const Geom g{nx, ny, nz, C};
     cudaError_t e = dispatch_eval(ev, [&](auto t) {
         constexpr int EV = decltype(t)::value;
         return ntypes > 1
-                   ? launch_n3l<EV, true>(pos, tag, typ, shifts, par, np, ntypes, frc, part, g, st)
-                   : launch_n3l<EV, false>(pos, tag, typ, shifts, par, np, 1, frc, part, g, st);
+                   ? launch_n3l<EV, true>(pos, tag, typ, shifts, par, np, ntypes, frc, part, g,
+                                          tx, st)
+                   : launch_n3l<EV, false>(pos, tag, typ, shifts, par, np, 1, frc, part, g, tx,
+                                           st);
     });
     if (e != cudaSuccess) return e;
-    const long long n3 = (long long)nx * ny * nz * C * 3;
-    n3l_fold_kernel<<<(unsigned)((n3 + 255) / 256), 256, 0, st>>>(frc, part, n3);
+    const long long m = (long long)nx * ny * nz * C;
+    n3l_fold_kernel<<<(unsigned)((m + 255) / 256), 256, 0, st>>>(frc, part, tag, g, tx);
     return cudaGetLastError();
+}
+
+// The build and occupancy of the half stencil's kernel of evaluator ev
+// (kernel_occupancy's out[5]), one type or a mixture (typed, a table of
+// ntab floats), at capacity C and tiles of tx cells.
+int hoomd_n3l_occupancy(int ev, int typed, int C, int tx, int ntab, int* out) {
+    return dispatch_eval(ev, [&](auto t) {
+        constexpr int EV = decltype(t)::value;
+        return typed ? kernel_occupancy(n3l_kernel<EV, true>, kN3lThreads,
+                                        n3l_smem_bytes(C, tx, ntab), out)
+                     : kernel_occupancy(n3l_kernel<EV, false>, kN3lThreads,
+                                        n3l_smem_bytes(C, tx, 0), out);
+    });
 }
 
 }  // extern "C"

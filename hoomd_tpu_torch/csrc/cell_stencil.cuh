@@ -366,20 +366,6 @@ __device__ __forceinline__ void typed_pair_acc(const float dx, const float dy, c
     pair_acc<EV, false, PV>(dx, dy, dz, P, acc, qiqj);
 }
 
-// stencil_sum over typed candidates.
-template <int EV, bool PV>
-__device__ inline void typed_stencil_sum(const float xi, const float yi, const float zi,
-                                         const int self, const int n, const float* sx,
-                                         const float* sy, const float* sz,
-                                         const unsigned char* sv, const TypedRow& R,
-                                         float* acc) {
-    for (int t = 0; t < n; ++t) {
-        const int b = sv[t];
-        if (!b || t == self) continue;
-        typed_pair_acc<EV, PV>(xi - sx[t], yi - sy[t], zi - sz[t], R, b - 1, acc);
-    }
-}
-
 // Each staged candidate's charge into sq (27 C floats), in the order of
 // stage_stencil; padding slots hold q = 0 in the engine's charge planes.
 __device__ inline void stage_charges(const float* __restrict__ q, const Geom g, const int cell,

@@ -45,9 +45,11 @@ _SIGNATURES = {
     'hoomd_cell_pair_lj': [P, P, P, P, P, P, P, P, I, I, P],
     'hoomd_cell_pair_lj3d': [P, P, P, P, P, I, I, I, I, P],
     'hoomd_cell_pair_lj_row': [P, P, P, P, P, I, I, I, I, I, P],
-    'hoomd_cell_pair_n3l': [P, P, P, P, P, I, I, P, P, I, I, I, I, I, P],
+    'hoomd_cell_pair_n3l': [P, P, P, P, P, I, I, P, P, I, I, I, I, I, I, P],
     'hoomd_cell_pair_planar_typed': [P, P, P, P, P, I, I, P, P, P, I, I, I,
-                                     I, I, I, P],
+                                     I, I, I, I, P],
+    'hoomd_planar_typed_occupancy': [I, I, I, I, I, P],
+    'hoomd_n3l_occupancy': [I, I, I, I, I, P],
     'hoomd_cell_pair_planar_q': [P, P, P, P, P, P, I, I, P, P, P, I, I, I, I,
                                  I, I, P],
     'hoomd_hpmc_sphere_sweep': [P, P, P, P, P, P, P, P, I, P,

@@ -741,6 +741,23 @@ def cell_pair_planar(cell_pos, cell_dim, cell_shift, params_vec, *, C,
     return (F, pe, vir) if want_pv else F
 
 
+# slots of the cells of one tile, at most, of the typed planar kernel and
+# of the half stencil (csrc/cell_tile.cuh): a block takes a tile of an
+# x-row of cells and packs their live particles into its warps.  Timed on
+# the card at the Kob-Andersen and bench shapes (profile_torch_bench.py
+# tiles): the planar kernel is fastest on tiles of two cells of C = 56-72,
+# the half stencil on single cells
+PLANAR_TILE_SLOTS = 160
+N3L_TILE_SLOTS = 48
+
+
+def pair_tile(nx, C, slots):
+    """Cells per tile: the x-row in equal tiles of at most slots // C
+    cells (one from C > slots)."""
+    tiles = -(-nx // max(1, slots // C))
+    return -(-nx // tiles)
+
+
 def _cell_pair_planar_typed(cell_pos, cell_dim, cell_shift, params_vec, C,
                             cell_tag, cell_typ, ntypes, ev, eval_name, pnames,
                             want_pv):
@@ -766,7 +783,7 @@ def _cell_pair_planar_typed(cell_pos, cell_dim, cell_shift, params_vec, C,
         par.data_ptr(), len(pnames), ntypes, F.data_ptr(),
         pe.data_ptr() if want_pv else None,
         vir.data_ptr() if want_pv else None, nx, ny, nz, C, ev, int(want_pv),
-        _stream(pos))
+        pair_tile(nx, C, PLANAR_TILE_SLOTS), _stream(pos))
     lib.check(err, 'cell_pair_planar (typed)')
     cell_pair_planar.typed_launches += 1
     return (F, pe, vir) if want_pv else F
@@ -1213,7 +1230,8 @@ def cell_pair_planar_n3l(cell_pos, cell_dim, cell_shift, params_vec, *, C,
     err = lib.lib.hoomd_cell_pair_n3l(
         pos.data_ptr(), tag.data_ptr(), typ.data_ptr() if typed else None,
         sh.data_ptr(), par.data_ptr(), len(pnames), ntypes, F.data_ptr(),
-        part.data_ptr(), nx, ny, nz, C, ev, _stream(pos))
+        part.data_ptr(), nx, ny, nz, C, ev, pair_tile(nx, C, N3L_TILE_SLOTS),
+        _stream(pos))
     lib.check(err, 'cell_pair_planar_n3l')
     if typed:
         cell_pair_planar_n3l.typed_launches += 1

@@ -13,6 +13,8 @@ NVIDIA GPU.
     python3 profile_torch_bench.py pppm-trace    # its T and PE/N window
     python3 profile_torch_bench.py pppm-nve 16 32 [cpu]  # its NVE drift
     python3 profile_torch_bench.py pppm-mesh # the mesh's two formulations
+    python3 profile_torch_bench.py tiles     # the tile kernels' tile widths
+    python3 profile_torch_bench.py ka-bits [TREE]  # the KA job's end bits
 
 from the root of the repository.  It runs chip_smoke.py's bench job
 (bench.py's script: Langevin melt, Nose-Hoover NVT, cadence warmup) and
@@ -63,8 +65,15 @@ from the lattice, at n_side^3 ions on a mesh^3 mesh, on the card or with
 pppm-nve runs it through the JAX package); with ``pppm-mesh`` the PPPM
 mesh (md/charge.py mesh_compute) in its dense and its scatter
 formulation on random neutral clouds at config 4's density, at config
-4's size and past the dense gate, by CUDA events.  It checks nothing;
-chip_smoke.py is the check.
+4's size and past the dense gate, by CUDA events.  With ``tiles`` it
+times the typed planar kernel and the half stencil (csrc/cell_tile.cuh)
+at tile widths of 1 to 6 cells: rows 3t and 7t at the KA shape with the
+KA table, row 7 at the bench shape.  With ``ka-bits [TREE]`` it runs
+chip_smoke.py's KA job script through the hoomd_tpu_torch of TREE (by
+default this checkout) and prints T and PE/N at the end of its NVT
+window exactly; chip_smoke.py's KA_PARENT_T and KA_PARENT_PE come from
+it on the tree of the parent design.  It checks nothing; chip_smoke.py
+is the check.
 """
 
 from __future__ import annotations
@@ -410,7 +419,74 @@ def profile_mesh(sizes=MESH_SIZES, dev=torch.device('cuda', 0)):
     print(json.dumps({'pppm_mesh_ms': res}), flush=True)
 
 
+def profile_tiles(widths=(1, 2, 3, 4, 5, 6), dev=torch.device('cuda', 0)):
+    """The typed planar kernel and the half stencil (csrc/cell_tile.cuh)
+    at each tile width: rows 3t and 7t at the KA shape with the KA table,
+    row 7 at the bench shape, ms per wrapper call by CUDA events; the
+    width the wrappers take (cell_pair.pair_tile) marked."""
+    from chip_smoke import (SHAPES, ka_cells, lattice_cells, lj_params,
+                            typed_table)
+    from hoomd_tpu_torch.ops import cell_pair as cp
+    chosen = cp.pair_tile
+    carry, L, _, cdim, C = ka_cells(dev, 2)
+    sh = torch.as_tensor(cp.build_cell_shifts(cdim, L)[1], dtype=torch.float32,
+                         device=dev)
+    tab, pn = typed_table('lj', 2, dev)
+    kw = dict(C=C, cell_tag=carry.tag, pnames=pn, ntypes=2,
+              cell_typ=carry.typ)
+    dims, cdim_b, C_b = SHAPES['bench']
+    bench, L_b, _, _ = lattice_cells(dims, cdim_b, C_b, 0.1, 3, dev)
+    sh_b = torch.as_tensor(cp.build_cell_shifts(cdim_b, L_b)[1],
+                           dtype=torch.float32, device=dev)
+    pv = lj_params(dev)[0]
+    rows = {'3t': (cdim, C, cp.PLANAR_TILE_SLOTS, lambda: cp.cell_pair_planar(
+                carry.pos, cdim, sh, tab, **kw)),
+            '7t': (cdim, C, cp.N3L_TILE_SLOTS, lambda: cp.cell_pair_planar_n3l(
+                carry.pos, cdim, sh, tab, **kw)),
+            '7': (cdim_b, C_b, cp.N3L_TILE_SLOTS, lambda: cp.cell_pair_planar_n3l(
+                bench.pos, cdim_b, sh_b, pv, C=C_b, cell_tag=bench.tag))}
+    res = {}
+    try:
+        for row, (cd, c, slots, call) in rows.items():
+            res[row] = {}
+            for tx in widths:
+                cp.pair_tile = lambda nx, C, slots, tx=tx: min(tx, nx)
+                res[row][tx] = cuda_ms(call, 50)
+            mark = chosen(cd[0], c, slots)
+            print(f"row {row} (cell_dim={cd} C={c}): "
+                  + ', '.join(f"{tx} cells {t:.4f} ms"
+                              + (' (taken)' if tx == mark else '')
+                              for tx, t in res[row].items()), flush=True)
+    finally:
+        cp.pair_tile = chosen
+    print(json.dumps({'tile_ms': res}), flush=True)
+
+
+def ka_bits(tree=None):
+    """The KA job script (chip_smoke.py ka_script, a 1000-step NVT window)
+    through the hoomd_tpu_torch of ``tree`` (by default this checkout):
+    T and PE/N at the end of the window, exactly."""
+    if tree:
+        sys.path.insert(0, os.path.abspath(tree))
+    import hoomd_tpu_torch as hoomd
+    from chip_smoke import ka_script
+    hoomd.context.initialize('--mode=gpu --notice-level=0')
+    system, _, _ = ka_script(hoomd, nvt_steps=1000)
+    q = system.thermo_quantities()
+    print(json.dumps({'ka_bits': {
+        'package': os.path.dirname(hoomd.__file__), 'T': q['temperature'],
+        'PE_N': q['potential_energy'] / system.state.N}}), flush=True)
+
+
 def main(argv):
+    if argv[1:2] == ['tiles']:
+        print('card:', card(), flush=True)
+        profile_tiles()
+        return
+    if argv[1:2] == ['ka-bits']:
+        print('card:', card(), flush=True)
+        ka_bits(argv[2] if len(argv) > 2 else None)
+        return
     if argv[1:2] == ['pppm-mesh']:
         print('card:', card(), flush=True)
         profile_mesh()

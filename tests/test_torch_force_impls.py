@@ -21,8 +21,15 @@ plain version is also held to the full stencil's (cell_pair_plane_plain)
 at 1e-5 max|F|.
 
 The cases marked ``gpu`` hold each CUDA kernel against its plain version
-on the card; they skip where torch sees no CUDA device.  JAX is imported
-only inside the JAX-side helpers, so they also run where it is missing:
+on the card; they skip where torch sees no CUDA device.  The half
+stencil's (and, in tests/test_torch_types.py, the typed planar kernel's)
+also run on the edge fills of ``_edge_fill`` (EDGE: C = 33, 56, 72 and
+MAX_C, a cell filled to C, an empty cell, a cell of one particle, live
+slots scattered among padding) for lj, mie and moliere, on a pair one
+ulp inside r_cut and one a ulp outside (``_cut_pairs``, r^2 rounded as
+the plain version's torch ops), and give equal bits in two calls.  JAX
+is imported only inside the JAX-side helpers, so they also run where it
+is missing:
 
     python -m pytest tests/test_torch_force_impls.py -m gpu --noconftest
 """
@@ -67,6 +74,84 @@ def _fill(n, a, cell_dim, C, seed, jitter):
     assert (fill < C).all(), "want padding slots in every cell"
     adj, shifts = tcp.build_cell_shifts(cell_dim, (L, L, L))
     return cell_pos, cell_tag, L, shifts.astype(np.float32), adj
+
+
+# the edge fills of the tile kernels: (cell_dim, C), from the narrowest
+# capacity the engine plans to the kernels' limit
+EDGE = {'C33': ((4, 3, 3), 33), 'C56': ((3, 4, 3), 56),
+        'C72': ((3, 3, 4), 72), 'MAX_C': ((2, 2, 2), tcp.MAX_C)}
+
+
+def _edge_fill(cell_dim, C, seed, ntypes=1):
+    """A cell-major fill of cubic cells, each holding its particles on the
+    sites of a sub-lattice of spacing ~1.05 (jittered by 5%): cell 0
+    filled to C, cell 1 empty, cell 2 a single particle, the last cell
+    filled to C, the others 40-80% of C, every partly filled cell's live
+    slots scattered among its padding slots; with ntypes a random type
+    per live slot (0 on padding).  numpy; returns (cell_pos, cell_tag,
+    typ, shifts)."""
+    rng = np.random.RandomState(seed)
+    m = int(np.ceil(C ** (1.0 / 3.0) - 1e-9))
+    h = 1.05
+    w = m * h
+    cd = np.asarray(cell_dim)
+    L = cd * w
+    nc = int(np.prod(cd))
+    counts = rng.randint(int(0.4 * C), int(0.8 * C) + 1, nc)
+    counts[[0, -1]] = C
+    counts[1], counts[2] = 0, 1
+    sites = (np.stack(np.meshgrid(*[np.arange(m)] * 3, indexing='ij'), -1)
+             .reshape(-1, 3) + 0.5) * h
+    cell_pos = np.full((nc, C, 3), PAD, np.float32)
+    cell_tag = np.full((nc, C), -1, np.int32)
+    t = 0
+    for c in range(nc):
+        c3 = np.array([c % cd[0], (c // cd[0]) % cd[1], c // (cd[0] * cd[1])])
+        pick = rng.choice(len(sites), counts[c], replace=False)
+        xyz = (c3 * w + sites[pick] + rng.uniform(-0.05, 0.05, (counts[c], 3)) * h
+               - L / 2)
+        slots = rng.choice(C, counts[c], replace=False)
+        cell_pos[c, slots] = xyz
+        cell_tag[c, slots] = t + np.arange(counts[c])
+        t += counts[c]
+    typ = np.where(cell_tag >= 0, rng.randint(0, ntypes, cell_tag.shape),
+                   0).astype(np.int32)
+    _, shifts = tcp.build_cell_shifts(cell_dim, tuple(L))
+    return cell_pos, cell_tag, typ, shifts.astype(np.float32)
+
+
+def _cut_pairs(rc2, ti=0, tj=0):
+    """Two pairs on the x axis of a (4, 3, 3) grid of 2.6-wide cells, i
+    at x = 0 and j at x = -d: the first with the largest float32 d whose
+    rounded d * d is below rc2 (inside the cut by one ulp of d), the
+    second with the next d (outside).  The pairs lie 2.6 apart in y.
+    Returns (cell_pos, cell_tag, typ, shifts, cell_dim, C)."""
+    rc2 = np.float32(rc2)
+    d = np.float32(np.sqrt(rc2))
+    while d * d >= rc2:
+        d = np.nextafter(d, np.float32(0))
+    while np.nextafter(d, np.float32(9)) * np.nextafter(d, np.float32(9)) < rc2:
+        d = np.nextafter(d, np.float32(9))
+    d_out = np.nextafter(d, np.float32(9))
+    assert d * d < rc2 <= d_out * d_out
+    cd, C, w = (4, 3, 3), 4, 2.6
+    L = np.asarray(cd) * w
+    pts = [((0.0, 0.0, 0.0), ti), ((-d, 0.0, 0.0), tj),
+           ((0.0, 2.6, 0.0), ti), ((-d_out, 2.6, 0.0), tj)]
+    nc = int(np.prod(cd))
+    cell_pos = np.full((nc, C, 3), PAD, np.float32)
+    cell_tag = np.full((nc, C), -1, np.int32)
+    typ = np.zeros((nc, C), np.int32)
+    fill = np.zeros(nc, int)
+    for t, (x, ty) in enumerate(pts):
+        x = np.asarray(x, np.float32)
+        c3 = np.minimum(((x + L / 2) // w).astype(int), np.asarray(cd) - 1)
+        c = c3[0] + cd[0] * (c3[1] + cd[1] * c3[2])
+        cell_pos[c, fill[c]], cell_tag[c, fill[c]] = x, t
+        typ[c, fill[c]] = ty
+        fill[c] += 1
+    _, shifts = tcp.build_cell_shifts(cd, tuple(L))
+    return cell_pos, cell_tag, typ, shifts.astype(np.float32), cd, C
 
 
 def _lj(rc):
@@ -246,6 +331,42 @@ def test_cuda_force_kernels_match_plain(cuda, case):
     a1 = tcp.cell_pair_planar_n3l(pos, cd, sh, pvt, C=C, cell_tag=tag)
     a2 = tcp.cell_pair_planar_n3l(pos, cd, sh, pvt, C=C, cell_tag=tag)
     assert torch.equal(a1, a2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('eval_name', ['lj', 'mie', 'moliere'])
+@pytest.mark.parametrize('fill', list(EDGE))
+def test_cuda_n3l_edge_fills_match_plain(cuda, fill, eval_name):
+    from test_torch_types import _typed_table
+    cd, C = EDGE[fill]
+    cell_pos, cell_tag, _, shifts = _edge_fill(cd, C, 21)
+    pv, pn = _typed_table(eval_name, 1)
+    pos, tag, sh, pvt = (torch.as_tensor(x, device=cuda) for x in
+                         (cell_pos, cell_tag, shifts, pv[:, 0, 0]))
+    kw = dict(eval_name=eval_name, pnames=pn)
+    got = tcp.cell_pair_planar_n3l(pos, cd, sh, pvt, C=C, cell_tag=tag, **kw)
+    again = tcp.cell_pair_planar_n3l(pos, cd, sh, pvt, C=C, cell_tag=tag,
+                                     **kw)
+    want = tcp.cell_pair_planar_n3l_plain(pos, cd, sh, pvt, cell_tag=tag,
+                                          **kw)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, again)
+    assert float(want.abs().max()) > 1.0      # the fill has pairs in the cut
+
+
+@pytest.mark.gpu
+def test_cuda_n3l_cuts_at_the_rounded_r2(cuda):
+    ljp, pv = _lj(2.5)
+    cell_pos, cell_tag, _, shifts, cd, C = _cut_pairs(pv[0])
+    pos, tag, sh, pvt = (torch.as_tensor(x, device=cuda) for x in
+                         (cell_pos, cell_tag, shifts, pv))
+    got = tcp.cell_pair_planar_n3l(pos, cd, sh, pvt, C=C, cell_tag=tag)
+    want = tcp.cell_pair_planar_n3l_plain(pos, cd, sh, pvt, cell_tag=tag)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    f = got[tag >= 0]                        # tags 0, 1 inside; 2, 3 out
+    order = torch.argsort(tag[tag >= 0])
+    assert float(f[order][0].abs().max()) > 1e-2
+    assert not f[order][2:].any()
 
 
 @pytest.mark.gpu

@@ -49,7 +49,11 @@ inputs made from a seed:
 The cases marked ``gpu`` hold the typed planar kernel (T = 2, 4) and the
 half-stencil kernel (T = 1, 2) against their plain versions for every
 evaluator on the card (python -m pytest tests/test_torch_types.py -m gpu
---noconftest); they skip where torch sees no CUDA device.
+--noconftest), and both (T = 2, 4) for lj, mie and moliere on
+tests/test_torch_force_impls.py's edge fills (C = 33, 56, 72 and MAX_C,
+full, empty and one-particle cells) and on its pair one ulp inside
+r_cut beside one a ulp outside, each giving equal bits in two calls;
+they skip where torch sees no CUDA device.
 """
 
 import functools
@@ -63,7 +67,7 @@ from hoomd_tpu_torch import interop
 from hoomd_tpu_torch.ops import cell_pair as tcp
 from hoomd_tpu_torch.ops import pair_eval as tpe
 from test_torch_evaluators import COEFFS
-from test_torch_force_impls import N3L, _fill
+from test_torch_force_impls import EDGE, N3L, _cut_pairs, _edge_fill, _fill
 
 # the suite runs several pytest workers at once; one intra-op thread
 # each keeps the port's small CPU tensors from oversubscribing cores
@@ -561,6 +565,58 @@ def test_cuda_n3l_matches_plain(cuda, eval_name, ntypes):
                                           **kw)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('ntypes', [2, 4])
+@pytest.mark.parametrize('eval_name', ['lj', 'mie', 'moliere'])
+@pytest.mark.parametrize('fill', list(EDGE))
+def test_cuda_typed_edge_fills_match_plain(cuda, fill, eval_name, ntypes):
+    cd, C = EDGE[fill]
+    cell_pos, cell_tag, typ, shifts = _edge_fill(cd, C, 22, ntypes)
+    pv, pn = _typed_table(eval_name, ntypes)
+    pos, tag, ty, sh, pvt = _torch(cell_pos, cell_tag, typ, shifts, pv,
+                                   device=cuda)
+    kw = dict(eval_name=eval_name, pnames=pn, ntypes=ntypes, cell_typ=ty)
+    got = tcp.cell_pair_planar(pos, cd, sh, pvt, C=C, cell_tag=tag, **kw)
+    again = tcp.cell_pair_planar(pos, cd, sh, pvt, C=C, cell_tag=tag, **kw)
+    F = tcp.cell_pair_planar(pos, cd, sh, pvt, C=C, cell_tag=tag,
+                             want_pv=False, **kw)
+    want = tcp.cell_pair_planar_plain(pos, cd, sh, pvt, cell_tag=tag, **kw)
+    for g, a, w in zip(got, again, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+        assert torch.equal(g, a)
+    torch.testing.assert_close(F, want[0], rtol=1e-4, atol=1e-4)
+    assert float(want[0].abs().max()) > 1.0   # the fill has pairs in the cut
+    n3l = tcp.cell_pair_planar_n3l(pos, cd, sh, pvt, C=C, cell_tag=tag, **kw)
+    n3l_again = tcp.cell_pair_planar_n3l(pos, cd, sh, pvt, C=C, cell_tag=tag,
+                                         **kw)
+    torch.testing.assert_close(
+        n3l, tcp.cell_pair_planar_n3l_plain(pos, cd, sh, pvt, cell_tag=tag,
+                                            **kw), rtol=1e-4, atol=1e-4)
+    assert torch.equal(n3l, n3l_again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('ntypes', [2, 4])
+def test_cuda_typed_kernels_cut_at_the_rounded_r2(cuda, ntypes):
+    pv, pn = _typed_table('lj', ntypes)
+    cell_pos, cell_tag, typ, shifts, cd, C = _cut_pairs(pv[0, 0, 1], 0, 1)
+    pos, tag, ty, sh, pvt = _torch(cell_pos, cell_tag, typ, shifts, pv,
+                                   device=cuda)
+    kw = dict(pnames=pn, ntypes=ntypes, cell_typ=ty)
+    order = torch.argsort(tag[tag >= 0])     # tags 0, 1 inside; 2, 3 out
+    for fn in (tcp.cell_pair_planar, tcp.cell_pair_planar_n3l):
+        plain = getattr(tcp, fn.__name__ + '_plain')
+        got = fn(pos, cd, sh, pvt, C=C, cell_tag=tag, **kw)
+        want = plain(pos, cd, sh, pvt, cell_tag=tag, **kw)
+        if fn is tcp.cell_pair_planar:
+            for g, w in zip(got[1:], want[1:]):
+                torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+            got, want = got[0], want[0]
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        f = got[tag >= 0][order]
+        assert float(f[0].abs().max()) > 1e-2 and not f[2:].any()
 
 
 if __name__ == '__main__':
