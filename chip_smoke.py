@@ -39,7 +39,13 @@ from the root of the repository.  In order it prints:
      script's plan, a 32^3-lattice fill, a ragged grid), with equal try
      counts, every slot within 1e-5 (positions) and 1e-6 (quaternions)
      but for at most 1 flipped decision per 10^4 trials (each printed
-     with its cell), and CUDA-event times;
+     with its cell), CUDA-event times and the device time.  Where a copy
+     of the parent's csrc lies under scratch/parent/hoomd_tpu_torch/csrc,
+     parent_q_sweep_phase builds its cell_pair_charged.cu and
+     hpmc_sweep.cu under other names and times both designs of rows 3q
+     (config 4's shape and the Madelung plan, the two designs held to
+     each other) and 14 (config 5's plan, equal counts on three seeds)
+     in turns, as wrapper calls and device time;
   4a. one phase per force kernel of the other HOOMD_TPU_FAST_IMPL paths
      (cell_pair_lj, cell_pair_lj_pallas3d, cell_pair_lj_row,
      cell_pair_planar_n3l): the kernel against its plain torch version at
@@ -66,7 +72,9 @@ from the root of the repository.  In order it prints:
      cell grid (8, 5, 4), C = 40): ewald and lj_ewald with one, two and
      four types, cell_pair_planar with cell_q against its plain version
      (RTOL, ATOL), with the wrapper call's CUDA-event time, the device
-     time, the plain version's time and the bound;
+     time, the plain version's time, the bound, and the kernel's
+     registers, spills, shared memory, blocks per SM and warps per
+     block;
   6. the bench.py job script (64k LJ, Langevin melt then Nose-Hoover NVT)
      through ``import hoomd_tpu_torch as hoomd`` on --mode=gpu, on its
      default rebin (xsel at this N), with all three launch counters > 0
@@ -1128,6 +1136,157 @@ def parent_pair_phase(dev, src='scratch/parent/hoomd_tpu_torch/csrc'):
     print(json.dumps({"parent_pair_ms": out}), flush=True)
     return out
 
+
+def parent_poly_call(lib, args, perms, randu, mp, kw):
+    """The parent design's fused_poly_sweep wrapper on its library (the
+    C signature of that design: the planes updated in place, 8R
+    launches): the 7 input planes cloned, the counts zeroed, the call.
+    Returns (7 planes, counts)."""
+    import ctypes
+    import torch
+    from hoomd_tpu_torch.hpmc import sweep as tsw
+    (nv, nf, ne), tab = tsw._poly_table_buffer(kw['tables'])
+    planes = tsw._device_args(args[:7], args[7], randu)
+    out = [a.clone() for a in planes[:7]]
+    lv, u = planes[7], planes[8]
+    cnt = torch.zeros((4,), dtype=torch.int32, device=lv.device)
+    pm = tsw._perms_host(perms, kw['R'])
+    nx, ny, nz = kw['cell_dim']
+    err = lib.hoomd_hpmc_poly_sweep(
+        *[o.data_ptr() for o in out], lv.data_ptr(), u.data_ptr(),
+        pm.data_ptr(), 8 * kw['R'], cnt.data_ptr(),
+        tab.ctypes.data_as(ctypes.c_void_p), nv, nf, ne, *tsw._f32s(mp),
+        nx, ny, nz, kw['C'], *(float(np.float32(v)) for v in kw['box_L']),
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"parent poly sweep: CUDA error {err}")
+    return tuple(out) + (cnt,)
+
+
+def parent_q_sweep_phase(dev, src='scratch/parent/hoomd_tpu_torch/csrc'):
+    """Where a copy of the parent's csrc lies in ``src`` (an ignored
+    directory; the checkout has none): build its cell_pair_charged.cu and
+    hpmc_sweep.cu under other library names and time both designs of
+    rows 3q and 14 in turns (parent, new, new, parent; CUDA events), each
+    as the wrapper's call and as device time (torch.profiler, the whole
+    call and its kernels alone).  Row 3q: the wrapper cell_pair_planar
+    with cell_q on either library (the wrapper is the same code) at
+    config 4's shape (lj_ewald, two types) and at the Madelung job's plan
+    (ewald, one type, jittered); the two designs held to each other at
+    RTOL and the evaluator's ATOL.  Row 14: fused_poly_sweep against the
+    parent's wrapper (parent_poly_call) at config 5's plan on the same
+    inputs; the two designs must take the same decisions (equal counts)
+    on three seeds.  Returns the rows' times."""
+    import ctypes
+    import torch
+    from pathlib import Path
+    from hoomd_tpu_torch.hpmc import sweep as tsw
+    from hoomd_tpu_torch.ops import _build
+    from hoomd_tpu_torch.ops import cell_pair as cp
+    d = Path(src)
+    if not (d / 'cell_pair_charged.cu').exists():
+        print(f"parent charged and sweep kernels: no copy of the parent's "
+              f"csrc under {src}; skipped", flush=True)
+        return None
+    t0 = time.perf_counter()
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    procs = {stem: subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, '-I', str(d), '-o',
+         str(d / f'libparent_{stem}.so'), str(d / f'{stem}.cu')],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for stem in ('cell_pair_charged', 'hpmc_sweep')}
+    for stem, proc in procs.items():
+        out, _ = proc.communicate(timeout=600)
+        if proc.returncode:
+            raise RuntimeError(f"parent {stem}.cu: nvcc failed\n"
+                               f"{out.decode()[-2000:]}")
+    charged = ctypes.CDLL(str(d / 'libparent_cell_pair_charged.so'))
+    hpmc = ctypes.CDLL(str(d / 'libparent_hpmc_sweep.so'))
+    charged.hoomd_cell_pair_planar_q.argtypes = \
+        _build._SIGNATURES['hoomd_cell_pair_planar_q']
+    charged.hoomd_cell_pair_planar_q.restype = I
+    hpmc.hoomd_hpmc_poly_sweep.argtypes = [P] * 10 + [I, P, P] + [I] * 3 + \
+        [F] * 3 + [I] * 4 + [F] * 3 + [P]
+    hpmc.hoomd_hpmc_poly_sweep.restype = I
+    print(f"parent charged and sweep kernels built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    new_lib = cp._kernel_lib()
+    parent_lib = _build.KernelLibrary(
+        types_ns(**{**vars(new_lib.lib), 'hoomd_cell_pair_planar_q':
+                    charged.hoomd_cell_pair_planar_q}),
+        new_lib.paths, 0.0, '')
+    out = {}
+
+    def on(lib, fn):
+        def call():
+            cp._LIB[0] = lib
+            try:
+                return fn()
+            finally:
+                cp._LIB[0] = new_lib
+        return call
+
+    cases = {}
+    carry, qc, L, N, cdim, C = pppm_cells(dev, 2)
+    cases['3q config 4'] = ('lj_ewald', 2, carry, qc, L, cdim, C, 2.5)
+    carry, qc, L, N, cdim, C = madelung_cells(dev)
+    cases['3q Madelung'] = ('ewald', 1, carry, qc, L, cdim, C, 3.0)
+    for row, (name, T, carry, qc, L, cdim, C, rc) in cases.items():
+        _, sh = cp.build_cell_shifts(cdim, L)
+        sh = torch.as_tensor(sh, dtype=torch.float32, device=dev)
+        pv, pn = charged_table(name, T, dev, rc)
+        kw = dict(eval_name=name, pnames=pn, ntypes=T, cell_q=qc,
+                  cell_typ=carry.typ if T > 1 else None, C=C,
+                  cell_tag=carry.tag)
+
+        def kern(pos=carry.pos, sh=sh, pv=pv, cdim=cdim, kw=kw):
+            return cp.cell_pair_planar(pos, cdim, sh, pv, **kw)
+        fp, fn = on(parent_lib, kern), kern
+        compare(f'row {row}: new design against the parent\'s',
+                [(lab, g, w, RTOL, EVAL_ATOL.get(name, ATOL))
+                 for lab, g, w in zip(('F', 'pe', 'virial'), fn(), fp())])
+        turns = [cuda_ms(f, 50) for f in (fp, fn, fn, fp)]
+        r = dict(parent_ms=turns[::3], ms=turns[1:3],
+                 parent_device_ms=device_ms(fp, 20),
+                 device_ms=device_ms(fn, 20))
+        out[row] = r
+        print(f"row {row} (cell_pair_planar_q{'_typed' if T > 1 else ''}, "
+              f"{name}, cell_dim={cdim} C={C}) in turns parent, new, new, "
+              f"parent: {', '.join(f'{t:.4f}' for t in turns)} ms per "
+              f"wrapper call (CUDA events); device {r['parent_device_ms']:.4f}"
+              f" -> {r['device_ms']:.4f} ms", flush=True)
+    system, mc = mc_system('cube')
+    same = 0
+    for seed in (1, 2, 3):
+        args, perms, randu, extra, kw, _ = mc_inputs(system, mc, seed)
+        got = tsw.fused_poly_sweep(*args, perms, randu, *extra, **kw)
+        want = parent_poly_call(hpmc, args, perms, randu, *extra, kw)
+        if not torch.equal(got[7], want[7]):
+            raise RuntimeError(f"row 14: the new sweep's counts "
+                               f"{got[7].tolist()} differ from the parent's "
+                               f"{want[7].tolist()} (seed {seed})")
+        same += all(torch.equal(g, w) for g, w in zip(got[:7], want[:7]))
+
+    def fn():
+        return tsw.fused_poly_sweep(*args, perms, randu, *extra, **kw)
+
+    def fp():
+        return parent_poly_call(hpmc, args, perms, randu, *extra, kw)
+    turns = [cuda_ms(f, 50) for f in (fp, fn, fn, fp)]
+    r = dict(parent_ms=turns[::3], ms=turns[1:3],
+             parent_device_ms=device_ms(fp, 20), device_ms=device_ms(fn, 20),
+             parent_kernel_ms=device_ms(fp, 20, only='poly_subsweep'),
+             kernel_ms=device_ms(fn, 20, only='poly_sweep_kernel'))
+    out['14 config 5'] = r
+    print(f"row 14 (fused_poly_sweep, config 5's plan cell_dim="
+          f"{kw['cell_dim']} C={kw['C']}): equal counts on 3 seeds, planes "
+          f"equal bit for bit on {same}; in turns parent, new, new, parent: "
+          f"{', '.join(f'{t:.4f}' for t in turns)} ms per wrapper call "
+          f"(CUDA events); device {r['parent_device_ms']:.4f} -> "
+          f"{r['device_ms']:.4f} ms per call, of it the kernels "
+          f"{r['parent_kernel_ms']:.4f} -> {r['kernel_ms']:.4f}", flush=True)
+    print(json.dumps({"parent_q_sweep_ms": out}), flush=True)
+    return out
 
 def engine_window_ms(s, gt, cand, ws, k):
     """The main path's call of one megastep window (megastep_window on
@@ -2578,9 +2737,9 @@ def pppm_cells(dev, ntypes, jitter=0.05, seed=5):
     return carry, qc, L, N, cdim, C
 
 
-def charged_table(name, ntypes, dev):
+def charged_table(name, ntypes, dev, rc=2.5):
     """[rc2, 0, *pnames] of a charged evaluator as a charged job packs it
-    (r_cut 2.5, kappa 3.2 / 2.5, no shift); for ntypes > 1 the (2 + NP,
+    (r_cut rc, kappa 3.2 / 2.5, no shift); for ntypes > 1 the (2 + NP,
     T, T) table with lj1 = lj2 = 4 scaled per pair (a, b) by
     0.95 + 0.1 (a + b) / (2 T - 2).  Returns (table, pnames)."""
     import torch
@@ -2590,7 +2749,7 @@ def charged_table(name, ntypes, dev):
          if ntypes > 1 else np.ones((1, 1)))
     tab = {'kappa': np.full((ntypes, ntypes), PPPM_KAPPA),
            'lj1': 4.0 * f, 'lj2': 4.0 * f,
-           'rcut': np.full((ntypes, ntypes), 2.5)}
+           'rcut': np.full((ntypes, ntypes), rc)}
     tab = {k: torch.as_tensor(np.asarray(v, np.float32), device=dev)
            for k, v in tab.items()}
     rc2 = tab['rcut'] * tab['rcut']
@@ -2612,6 +2771,70 @@ def charged_bounds(name, pos, tag, typ, cdim, sh, pv, ntypes):
     inb = (3 + 1 + 1 + (ntypes > 1)) * P + sh.numel() * 4 + pv.numel() * 4
     per_pair = 1 + CHARGED_EVAL_OPS[name] + 6 + 3 + 12
     return bound(inb + 10 * P, (8 * cand + per_pair * inr) / 2), cand, inr
+
+
+# the Madelung job's plan (madelung_job: 512 ions in a box of 8, r_cut 3)
+MADELUNG_SHAPE = ((2, 2, 2), 88)
+
+
+def madelung_cells(dev, jitter=0.2, seed=3):
+    """The cell-major carry of the Madelung job's rock-salt lattice (512
+    ions of one type, charges +-1, spacing 1, box 8) jittered by up to
+    ``jitter``, at MADELUNG_SHAPE, and its slots' charges.  Returns
+    (carry, q_cells, L, N, cell_dim, C)."""
+    import torch
+    from hoomd_tpu_torch import data
+    from hoomd_tpu_torch.ops.fast_lj import build_fast_lj_chunk
+    from hoomd_tpu_torch.state import state_from_snapshot
+    n = 4
+    N = (2 * n) ** 3
+    snap = data.make_snapshot(N, data.boxdim(L=2.0 * n))
+    ijk = np.stack(np.meshgrid(*[np.arange(2 * n)] * 3, indexing='ij'),
+                   -1).reshape(-1, 3)
+    rng = np.random.RandomState(seed)
+    snap.particles.position[:] = (ijk - n + 0.5
+                                  + rng.uniform(-jitter, jitter, (N, 3)))
+    snap.particles.charge[:] = (-1.0) ** ijk.sum(1)
+    st = state_from_snapshot(snap, dev)
+    L = st.box.L.cpu().numpy().astype(np.float64)
+    cdim, C = MADELUNG_SHAPE
+    to_fast = build_fast_lj_chunk(
+        N=N, box=st.box, cell_dim=cdim, C=C, r_buff=0.4, rcut=3.0,
+        method_kind='nvt', method_seed=0, ntypes=1, device=dev)[0]
+    carry = to_fast(st, {})
+    if bool(carry.overflow):
+        raise RuntimeError(f"the Madelung fill overflows C={C} on {cdim}")
+    q = torch.as_tensor(snap.particles.charge, dtype=torch.float32,
+                        device=dev)
+    qc = torch.where(carry.tag >= 0, q[carry.tag.long().clamp(min=0)], 0.0)
+    return carry, qc, L, N, cdim, C
+
+
+def q_build(name, ntypes, nc, C):
+    """What the build gave the charged kernel of evaluator ``name`` (PE
+    and virial) for ntypes types on nc cells of capacity C, and its
+    occupancy: registers and spilled bytes per thread, shared memory per
+    block, blocks per SM, and the warps (homes) per block and dz planes
+    staged at once it launches with."""
+    import ctypes
+    from hoomd_tpu_torch.ops import _build, pair_eval
+    lib = _build.load()
+    out = (ctypes.c_int * 7)()
+    ntab = (2 + len(pair_eval.kernel_pnames(name))) * ntypes ** 2
+    err = lib.lib.hoomd_planar_q_occupancy(
+        pair_eval.EVAL_IDS[name], 1, int(ntypes > 1), nc, C,
+        ntab if ntypes > 1 else 0, out)
+    lib.check(err, 'charged kernel occupancy')
+    return dict(registers=out[0], spill_bytes=out[1],
+                smem_bytes=out[2] + out[3], blocks_per_sm=out[4],
+                warps=out[5], planes=out[6])
+
+
+def q_build_line(b):
+    return (f"{b['registers']} registers, {b['spill_bytes']} B spilled per "
+            f"thread, {b['smem_bytes']} B shared memory per block, "
+            f"{b['blocks_per_sm']} blocks per SM, {b['warps']} warps "
+            f"(homes) per block, {b['planes']} dz planes staged at once")
 
 
 def charged_kernel_phases(dev):
@@ -2653,13 +2876,15 @@ def charged_kernel_phases(dev):
             r = dict(max_abs_err=ea, bound_share=er, ms=cuda_ms(kern, 50),
                      plain_ms=cuda_ms(plain, 3), device_ms=device_ms(kern, 10),
                      bound_ms=b_ms, bound_by=b_by)
+            r['build'] = q_build(name, T, pos.shape[0], C)
             times.setdefault(name, {})[T] = r
             print(f"phase charged kernel [{name}, T={T}, cell_dim={cdim} "
                   f"C={C} N={N}, {cand} candidate pairs, {inr} inside "
                   f"r_cut]: max_abs_err={ea:.3e} kernel_ms={r['ms']:.4f} "
                   f"device_ms={r['device_ms']:.4f} "
                   f"plain_ms={r['plain_ms']:.4f} bound_ms={b_ms:.6f} "
-                  f"({b_by})", flush=True)
+                  f"({b_by}), {b_ms / max(r['device_ms'], 1e-9):.5f} of "
+                  f"the device time; {q_build_line(r['build'])}", flush=True)
     rows['cell_pair_planar_q_typed'] = times['lj_ewald'][2]
     return rows, times
 
@@ -2950,15 +3175,16 @@ def madelung_job():
                                              cdim, sh, pv, 1)
     row = dict(max_abs_err=ea, bound_share=er, ms=cuda_ms(kern, 50),
                plain_ms=cuda_ms(plain, 3), device_ms=device_ms(kern, 10),
-               bound_ms=b_ms, bound_by=b_by)
+               bound_ms=b_ms, bound_by=b_by,
+               build=q_build('ewald', 1, c.pos.shape[0], C))
     dev_ms = (f"{row['device_ms']:.4f}" if row['device_ms'] > 0 else
               "not measured (the profiler saw no device events)")
     print(f"phase charged kernel [ewald, T=1, the Madelung job's plan "
           f"cell_dim={cdim} C={C} N={N}, jittered, {cand} candidate pairs, "
           f"{inr} inside r_cut]: max_abs_err={ea:.3e} "
           f"kernel_ms={row['ms']:.4f} device_ms={dev_ms} "
-          f"plain_ms={row['plain_ms']:.4f} bound_ms={b_ms:.6f} ({b_by})",
-          flush=True)
+          f"plain_ms={row['plain_ms']:.4f} bound_ms={b_ms:.6f} ({b_by}); "
+          f"{q_build_line(row['build'])}", flush=True)
     return counts, row
 
 
@@ -3370,6 +3596,7 @@ def hpmc_kernel_phases():
             def p_fn():
                 return plain(*args, perms, randu, *extra, **kw)
             row = dict(max_abs_err=worst, ms=cuda_ms(k_fn, iters),
+                       device_ms=device_ms(k_fn, iters),
                        plain_ms=cuda_ms(p_fn, 2))
             # the bound of one call, from the work of the three calls
             per_call = {k: v / 3 for k, v in stats.items()}
@@ -3379,12 +3606,38 @@ def hpmc_kernel_phases():
             print(f"phase {kname} [{tag_name} cell_dim={cd} C={C} N={N}]: "
                   f"max_abs_err={worst:.3e} trials={trials} "
                   f"pairs/call={per_call['pairs']:.0f} "
-                  f"kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-                  f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']})",
-                  flush=True)
+                  f"kernel_ms={row['ms']:.4f} "
+                  f"device_ms={row['device_ms']:.4f} "
+                  f"plain_ms={row['plain_ms']:.4f} "
+                  f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}), "
+                  f"{row['bound_ms'] / max(row['device_ms'], 1e-9):.5f} "
+                  f"of the device time", flush=True)
             if tag_name == 'job':
                 out[kname] = row
+                if poly:
+                    row['build'] = poly_build(C)
+                    print(f"  {kname} build at C={C}: "
+                          f"{row['build']['registers']} registers, "
+                          f"{row['build']['spill_bytes']} B spilled per "
+                          f"thread, {row['build']['smem_bytes']} B shared "
+                          f"memory per block, {row['build']['blocks_per_sm']} "
+                          f"blocks per SM, {row['build']['threads']} threads "
+                          f"per block", flush=True)
     return out
+
+
+def poly_build(C):
+    """What the build gave the polyhedron sweep at capacity C, and its
+    occupancy: registers and spilled bytes per thread, shared memory and
+    threads per block, blocks per SM."""
+    import ctypes
+    from hoomd_tpu_torch.ops import _build
+    lib = _build.load()
+    out = (ctypes.c_int * 6)()
+    lib.check(lib.lib.hoomd_hpmc_poly_occupancy(C, out), 'poly sweep occupancy')
+    return dict(registers=out[0], spill_bytes=out[1],
+                smem_bytes=out[2] + out[3], blocks_per_sm=out[4],
+                threads=out[5])
 
 
 def device_profile(run, what, top=8, per_launch=None):
@@ -3515,6 +3768,7 @@ def main():
     rows.update(charged_rows)
     rows.update(rebin_kernel_phases(dev))
     rows.update(hpmc_kernel_phases())
+    parent_q_sweep_phase(dev)
     print(f"kernel phases done at {time.perf_counter() - t0:.1f} s",
           flush=True)
     # each path's own launches, read just after it ran

@@ -290,38 +290,13 @@ __device__ inline void stencil_sum(const float xi, const float yi, const float z
 // (k * T + ti) * T + tj.  The TPU mixes it per pair with one-hot sums (its
 // kernels have no gather); here a block copies the table into shared
 // memory once, each thread keeps the row of its own type ti in registers,
-// and a candidate of type tj selects column tj.  A staged candidate's
-// byte holds its type plus one, 0 for an invalid slot.
+// and a candidate of type tj selects column tj.
 constexpr int kMaxTypes = 4;
 constexpr int kParRows = 2 + kMaxPnames;
-
-// The staging byte of a slot: 0 for padding, else its type plus one, the
-// type clamped to [0, T) so that no lookup leaves the table.
-__device__ __forceinline__ unsigned char type_byte(const int tag, const int typ, const int T) {
-    return tag >= 0 ? (unsigned char)(min(max(typ, 0), T - 1) + 1) : (unsigned char)0;
-}
 
 // The table into shared memory, block-wide (the caller synchronises).
 __device__ inline void stage_table(const float* __restrict__ par, const int n, float* tab) {
     for (int t = threadIdx.x; t < n; t += blockDim.x) tab[t] = par[t];
-}
-
-// As stage_stencil, with each candidate's type byte.
-__device__ inline void stage_stencil_typed(const Vec3 pos, const int* __restrict__ tag,
-                                           const int* __restrict__ typ, const int T,
-                                           const float* __restrict__ shifts, const Geom g,
-                                           const int cell, float* sx, float* sy, float* sz,
-                                           unsigned char* sv) {
-    const int n = 27 * g.C;
-    for (int t = threadIdx.x; t < n; t += blockDim.x) {
-        const int k = t / g.C;
-        const long long slot = stencil_slot(g, cell, k, t - k * g.C);
-        const float* sh = shifts + ((long long)cell * 27 + k) * 3;
-        sx[t] = pos.at(slot, 0) + sh[0];
-        sy[t] = pos.at(slot, 1) + sh[1];
-        sz[t] = pos.at(slot, 2) + sh[2];
-        sv[t] = type_byte(tag[slot], typ[slot], T);
-    }
 }
 
 // Row ti of every parameter of the table in shared memory.
@@ -364,17 +339,6 @@ __device__ __forceinline__ void typed_pair_acc(const float dx, const float dy, c
 #pragma unroll
     for (int k = 0; k < kMaxPnames; ++k) P.q[k] = pick(R.v[2 + k], tj);
     pair_acc<EV, false, PV>(dx, dy, dz, P, acc, qiqj);
-}
-
-// Each staged candidate's charge into sq (27 C floats), in the order of
-// stage_stencil; padding slots hold q = 0 in the engine's charge planes.
-__device__ inline void stage_charges(const float* __restrict__ q, const Geom g, const int cell,
-                                     float* sq) {
-    const int n = 27 * g.C;
-    for (int t = threadIdx.x; t < n; t += blockDim.x) {
-        const int k = t / g.C;
-        sq[t] = q[stencil_slot(g, cell, k, t - k * g.C)];
-    }
 }
 
 // ---------------------------------------------------------------------------

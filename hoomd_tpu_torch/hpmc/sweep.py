@@ -21,10 +21,13 @@ float32 round-off on the same ``perms`` and ``randu``.
 pick the cells it launches.  ``randu`` lies with the planes.
 
 On a CUDA tensor a wrapper launches its hand-written kernel
-(csrc/hpmc_sweep.cu, one launch per sub-sweep, one block per active
-cell) or raises; on a CPU tensor it runs the plain version.  Nothing
-falls back from one to the other.  Each wrapper counts its calls in
-``<wrapper>.launches`` (one call = 8R sub-sweep launches).
+(csrc/hpmc_sweep.cu) or raises; on a CPU tensor it runs the plain
+version.  Nothing falls back from one to the other.  The sphere sweep
+makes one launch per sub-sweep, one block per active cell (8R per
+call); the polyhedron sweep one cooperative launch per call, a block
+per active cell, which writes new planes and counts: the wrapper clones
+nothing, and reads strided planes (cell_planes's views) in place.  Each
+wrapper counts its calls in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ TWO_PI = float(F32(2.0 * np.pi))
 THIRD = float(F32(1.0 / 3.0))
 CENTER = 13                     # (0, 0, 0) in the (dz, dy, dx) window order
 MAX_V, MAX_F, MAX_E = 8, 8, 6   # the kernel's table bounds (the JAX gate)
+POLY_PROP = 25                  # floats of the poly kernel's proposal per cell
 
 
 @functools.lru_cache(maxsize=64)
@@ -393,6 +397,35 @@ def _device_args(planes, live, randu):
     return [t.contiguous().float() for t in ts]
 
 
+def _flat_stride(t):
+    """The stride s at which flattened element i of t lies (i * s from its
+    first element), or None where no single stride does."""
+    want = s = t.stride(-1)
+    for n, st in zip(reversed(t.shape), reversed(t.stride())):
+        if n != 1 and st != want:
+            return None
+        want *= n
+    return s if s > 0 else None
+
+
+def _strided_planes(planes):
+    """The planes as the polyhedron kernel reads them, with their strides
+    (a host int32 array): a float32 view on the card whose elements lie
+    one stride apart as it is (the planes of hpmc/integrate.py
+    cell_planes read every third or fourth float of their gather), any
+    other as a contiguous float32 copy."""
+    if any(p.device.type != 'cuda' for p in planes):
+        raise ValueError("kernel inputs must all lie on the CUDA device")
+    out, strides = [], []
+    for p in planes:
+        s = _flat_stride(p) if p.dtype == torch.float32 else None
+        if s is None:
+            p, s = p.contiguous().float(), 1
+        out.append(p)
+        strides.append(s)
+    return out, np.asarray(strides, np.int32)
+
+
 def _perms_host(perms, R):
     p = torch.as_tensor(perms).reshape(-1)[:8 * R]
     if p.device.type != 'cpu':
@@ -469,22 +502,26 @@ def fused_poly_sweep(px, py, pz, qw, qx, qy, qz, live, perms, randu, mp, *,
                                       box_L=box_L, tables=tables)
     lib = _kernel_lib()
     (nv, nf, ne), tab = _poly_table_buffer(tables)
-    args = _device_args(planes, live, randu)
-    out = [a.clone() for a in args[:7]]
-    lv, u = args[7], args[8]
-    cnt = torch.zeros((4,), dtype=torch.int32, device=lv.device)
+    ins, strides = _strided_planes(planes)
+    lv, u = _device_args((), live, randu)
+    nx, ny, nz = cell_dim
+    nslots = nx * ny * nz * C
+    # the 7 new planes, then the kernel's scratch (a proposal per cell)
+    buf = torch.empty(7 * nslots + POLY_PROP * nx * ny * nz,
+                      dtype=torch.float32, device=lv.device)
+    cnt = torch.empty((4,), dtype=torch.int32, device=lv.device)
     pm = _perms_host(perms, R)
     d_mv, a_mv, m_ratio = _f32s(mp)
-    nx, ny, nz = cell_dim
     Lx, Ly, Lz = (float(F32(v)) for v in box_L)
     err = lib.lib.hoomd_hpmc_poly_sweep(
-        *[o.data_ptr() for o in out], lv.data_ptr(), u.data_ptr(),
-        pm.data_ptr(), 8 * R, cnt.data_ptr(),
+        *[a.data_ptr() for a in ins], strides.ctypes.data_as(ctypes.c_void_p),
+        lv.data_ptr(), u.data_ptr(),
+        pm.data_ptr(), 8 * R, buf.data_ptr(), cnt.data_ptr(),
         tab.ctypes.data_as(ctypes.c_void_p), nv, nf, ne, d_mv, a_mv, m_ratio,
         nx, ny, nz, C, Lx, Ly, Lz, _stream(lv))
     lib.check(err, 'fused_poly_sweep')
     fused_poly_sweep.launches += 1
-    return tuple(out) + (cnt,)
+    return buf[:7 * nslots].view((7,) + tuple(px.shape)).unbind(0) + (cnt,)
 
 
 fused_poly_sweep.launches = 0

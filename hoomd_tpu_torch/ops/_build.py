@@ -52,11 +52,13 @@ _SIGNATURES = {
     'hoomd_n3l_occupancy': [I, I, I, I, I, P],
     'hoomd_cell_pair_planar_q': [P, P, P, P, P, P, I, I, P, P, P, I, I, I, I,
                                  I, I, P],
+    'hoomd_planar_q_occupancy': [I, I, I, I, I, I, P],
     'hoomd_hpmc_sphere_sweep': [P, P, P, P, P, P, P, P, I, P,
                                 I, I, I, I, F, F, F, P],
-    'hoomd_hpmc_poly_sweep': [P, P, P, P, P, P, P, P, P, P, I, P,
+    'hoomd_hpmc_poly_sweep': [P, P, P, P, P, P, P, P, P, P, P, I, P, P,
                               P, I, I, I, F, F, F,
                               I, I, I, I, F, F, F, P],
+    'hoomd_hpmc_poly_occupancy': [I, P],
     'hoomd_rebin_select': [P, P, P, P, F, F, F, F, F, F, I, I, I, I, P],
     'hoomd_rebin_sweep': [P, P, P, P, P, P, F, F, F, F, F, F,
                           I, I, I, I, I, P],

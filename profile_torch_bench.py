@@ -15,6 +15,8 @@ NVIDIA GPU.
     python3 profile_torch_bench.py pppm-mesh # the mesh's two formulations
     python3 profile_torch_bench.py tiles     # the tile kernels' tile widths
     python3 profile_torch_bench.py ka-bits [TREE]  # the KA job's end bits
+    python3 profile_torch_bench.py sweeps [TREE]   # the HPMC sweeps' times
+    python3 profile_torch_bench.py sweep-parts     # a poly sweep's parts
 
 from the root of the repository.  It runs chip_smoke.py's bench job
 (bench.py's script: Langevin melt, Nose-Hoover NVT, cadence warmup) and
@@ -72,8 +74,14 @@ KA table, row 7 at the bench shape.  With ``ka-bits [TREE]`` it runs
 chip_smoke.py's KA job script through the hoomd_tpu_torch of TREE (by
 default this checkout) and prints T and PE/N at the end of its NVT
 window exactly; chip_smoke.py's KA_PARENT_T and KA_PARENT_PE come from
-it on the tree of the parent design.  It checks nothing; chip_smoke.py
-is the check.
+it on the tree of the parent design.  With ``sweeps [TREE]`` it times
+each HPMC sweep (fused_sphere_sweep, fused_poly_sweep) at its job
+script's plan through the hoomd_tpu_torch of TREE: ms per wrapper call
+by CUDA events and device ms per call by torch.profiler; with
+``sweep-parts`` the polyhedron sweep built as it is, without its overlap
+tests and without any per-cell work (csrc/hpmc_sweep.cu's profiling
+switches), each timed the same way.  It checks nothing; chip_smoke.py is
+the check.
 """
 
 from __future__ import annotations
@@ -478,7 +486,96 @@ def ka_bits(tree=None):
         'PE_N': q['potential_energy'] / system.state.N}}), flush=True)
 
 
+def sweep_times(tree=None, iters=50):
+    """Each HPMC sweep kernel (rows 13 and 14) at its job script's plan,
+    through the hoomd_tpu_torch of ``tree`` (by default this checkout):
+    ms per wrapper call by CUDA events and device ms per call by
+    torch.profiler, on chip_smoke.py's seeded inputs (mc_inputs)."""
+    if tree:
+        sys.path.insert(0, os.path.abspath(tree))
+    from chip_smoke import device_ms, mc_inputs, mc_system
+    from hoomd_tpu_torch.hpmc import sweep as tsw
+    out = {}
+    for kind, kname in (('sphere', 'fused_sphere_sweep'),
+                        ('cube', 'fused_poly_sweep')):
+        system, mc = mc_system(kind)
+        args, perms, randu, extra, kw, _ = mc_inputs(system, mc, 1)
+        kern = getattr(tsw, kname)
+
+        def call():
+            return kern(*args, perms, randu, *extra, **kw)
+        out[kname] = dict(ms=cuda_ms(call, iters),
+                          device_ms=device_ms(call, iters))
+        print(f"{kname} [{kind} job plan cell_dim={kw['cell_dim']} "
+              f"C={kw['C']}]: {out[kname]['ms']:.4f} ms per call, device "
+              f"{out[kname]['device_ms']:.4f}", flush=True)
+    import hoomd_tpu_torch
+    print(json.dumps({'sweep_ms': out, 'package': os.path.dirname(
+        hoomd_tpu_torch.__file__)}), flush=True)
+
+
+def sweep_parts(iters=50):
+    """Where a polyhedron sweep call's device time goes at config 5's
+    plan: csrc/hpmc_sweep.cu built as it is, with POLY_SWEEP_NO_SAT (no
+    overlap tests: every trial accepted) and with POLY_SWEEP_NO_CELLS too
+    (no draws, trials or commits: the prologue, the barriers and the
+    tallies alone), each timed through the fused_poly_sweep wrapper on
+    chip_smoke.py's seeded inputs (ms per call by CUDA events, device ms
+    by torch.profiler)."""
+    import ctypes
+    from types import SimpleNamespace
+    from chip_smoke import device_ms, mc_inputs, mc_system
+    from hoomd_tpu_torch.hpmc import sweep as tsw
+    from hoomd_tpu_torch.ops import _build
+    variants = {'as built': [], 'no SAT': ['-DPOLY_SWEEP_NO_SAT'],
+                'no cells': ['-DPOLY_SWEEP_NO_SAT', '-DPOLY_SWEEP_NO_CELLS']}
+    out_dir = _build.BUILD_DIR / 'sweep_parts'
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src = _build.SRC_DIR / 'hpmc_sweep.cu'
+    procs = {k: subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, *flags, '-o',
+         str(out_dir / f'lib{i}.so'), str(src)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT) for i, (k, flags) in
+        enumerate(variants.items())}
+    for k, p in procs.items():
+        text, _ = p.communicate()
+        if p.returncode:
+            raise RuntimeError(f"nvcc failed for {k}:\n{text.decode()}")
+    lib = tsw._kernel_lib()
+    system, mc = mc_system('cube')
+    args, perms, randu, extra, kw, _ = mc_inputs(system, mc, 1)
+    res = {}
+    try:
+        for i, k in enumerate(variants):
+            fn = ctypes.CDLL(str(out_dir / f'lib{i}.so')).hoomd_hpmc_poly_sweep
+            fn.argtypes = _build._SIGNATURES['hoomd_hpmc_poly_sweep']
+            fn.restype = ctypes.c_int
+            tsw._LIB[0] = _build.KernelLibrary(
+                SimpleNamespace(**{**vars(lib.lib),
+                                   'hoomd_hpmc_poly_sweep': fn}),
+                lib.paths, 0.0, '')
+
+            def call():
+                return tsw.fused_poly_sweep(*args, perms, randu, *extra, **kw)
+            res[k] = dict(ms=cuda_ms(call, iters),
+                          device_ms=device_ms(call, iters))
+            print(f"fused_poly_sweep {k} [cube job plan cell_dim="
+                  f"{kw['cell_dim']} C={kw['C']}]: {res[k]['ms']:.4f} ms "
+                  f"per call, device {res[k]['device_ms']:.4f}", flush=True)
+    finally:
+        tsw._LIB[0] = lib
+    print(json.dumps({'sweep_parts_ms': res}), flush=True)
+
+
 def main(argv):
+    if argv[1:2] == ['sweep-parts']:
+        print('card:', card(), flush=True)
+        sweep_parts()
+        return
+    if argv[1:2] == ['sweeps']:
+        print('card:', card(), flush=True)
+        sweep_times(argv[2] if len(argv) > 2 else None)
+        return
     if argv[1:2] == ['tiles']:
         print('card:', card(), flush=True)
         profile_tiles()

@@ -52,8 +52,12 @@ from a seed:
 
 The file takes about 35 s serial on the CPU.  The cases marked ``gpu``
 hold the charged kernel against its plain version on the card for both
-evaluators at T = 1, 2, 4, with its launch counters (python -m pytest
-tests/test_torch_charged.py -m gpu --noconftest); they skip where torch
+evaluators at T = 1, 2, 4, with its launch counters; on the tile kernels'
+edge fills (a cell filled to C, an empty cell, a one-particle cell, live
+slots among padding, C up to MAX_C) and the Madelung job's plan ((2, 2,
+2), C = 88), with equal bits from two calls; and on a pair one float32
+step inside r_cut beside one a step outside (python -m pytest
+tests/test_torch_charged.py -m gpu --noconftest).  They skip where torch
 sees no CUDA device.
 """
 
@@ -70,7 +74,7 @@ from hoomd_tpu_torch.box import Box as TBox
 from hoomd_tpu_torch.md import charge as tch
 from hoomd_tpu_torch.ops import cell_pair as tcp
 from hoomd_tpu_torch.ops import pair_eval as tpe
-from test_torch_force_impls import N3L, _fill
+from test_torch_force_impls import EDGE, N3L, _cut_pairs, _edge_fill, _fill
 
 # the suite runs several pytest workers at once; one intra-op thread
 # each keeps the port's small CPU tensors from oversubscribing cores
@@ -630,6 +634,102 @@ def test_cuda_charged_planar_matches_plain(cuda, name, ntypes):
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(F, want[0], rtol=1e-4, atol=1e-4)
+
+
+def _madelung_fill(seed):
+    """The Madelung job's plan: 512 ions of charge +-1 on a rock-salt
+    lattice of spacing 1 in a box of 8, jittered by up to 0.05, in (2, 2,
+    2) cells of C = 88 (64 ions each), with random types; numpy.  Returns
+    (cell_pos, cell_tag, typ, q, shifts, cell_dim, C)."""
+    rng = np.random.RandomState(seed)
+    cd, C, L = (2, 2, 2), 88, 8.0
+    ijk = np.stack(np.meshgrid(*[np.arange(8)] * 3, indexing='ij'),
+                   -1).reshape(-1, 3)
+    pos = ijk - 4.0 + 0.5 + rng.uniform(-0.05, 0.05, ijk.shape)
+    c3 = (pos >= 0).astype(int)
+    cid = c3[:, 0] + 2 * (c3[:, 1] + 2 * c3[:, 2])
+    cell_pos = np.full((8, C, 3), 1.0e9, np.float32)
+    cell_tag = np.full((8, C), -1, np.int32)
+    q = np.zeros((8, C), np.float32)
+    fill = np.zeros(8, int)
+    for t, c in enumerate(cid):
+        cell_pos[c, fill[c]], cell_tag[c, fill[c]] = pos[t], t
+        q[c, fill[c]] = (-1.0) ** ijk[t].sum()
+        fill[c] += 1
+    typ = np.where(cell_tag >= 0, rng.randint(0, 4, cell_tag.shape), 0)
+    _, shifts = tcp.build_cell_shifts(cd, (L, L, L))
+    return (cell_pos, cell_tag, typ.astype(np.int32), q,
+            shifts.astype(np.float32), cd, C)
+
+
+def _charged_edge_fill(fill, ntypes, seed):
+    """The edge fills of the tile kernels (EDGE: a cell filled to C, an
+    empty cell, a one-particle cell, live slots among padding) with
+    charges +-1 on the live slots, or the Madelung job's plan; types
+    folded into [0, ntypes).  Returns (cell_pos, cell_tag, typ, q,
+    shifts, cell_dim, C, r_cut)."""
+    if fill == 'madelung':
+        cell_pos, cell_tag, typ, q, shifts, cd, C = _madelung_fill(seed)
+        return cell_pos, cell_tag, typ % ntypes, q, shifts, cd, C, 3.0
+    cd, C = EDGE[fill]
+    cell_pos, cell_tag, typ, shifts = _edge_fill(cd, C, seed, ntypes)
+    rng = np.random.RandomState(seed + 100)
+    q = np.where(cell_tag >= 0, rng.choice([-1.0, 1.0], cell_tag.shape),
+                 0.0).astype(np.float32)
+    return cell_pos, cell_tag, typ, q, shifts, cd, C, 2.5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('ntypes', [1, 2, 4])
+@pytest.mark.parametrize('name', CHARGED)
+@pytest.mark.parametrize('fill', list(EDGE) + ['madelung'])
+def test_cuda_charged_edge_fills_match_plain(cuda, fill, name, ntypes):
+    """The charged kernel on the edge fills and the Madelung plan: F, PE
+    and virial, and F alone, against the plain version at rtol = atol =
+    1e-4, and equal bits from two calls."""
+    cell_pos, cell_tag, typ, q, shifts, cd, C, rc = _charged_edge_fill(
+        fill, ntypes, 23)
+    pv = _charged_table(name, ntypes, rc)
+    pos, tag, ty, sh, pvt, qt = (torch.as_tensor(x, device=cuda) for x in
+                                 (cell_pos, cell_tag, typ, shifts, pv, q))
+    kw = dict(eval_name=name, pnames=tpe.kernel_pnames(name), ntypes=ntypes,
+              cell_typ=ty if ntypes > 1 else None, cell_q=qt)
+    fn = tcp.cell_pair_planar
+    got = fn(pos, cd, sh, pvt, C=C, cell_tag=tag, **kw)
+    again = fn(pos, cd, sh, pvt, C=C, cell_tag=tag, **kw)
+    F = fn(pos, cd, sh, pvt, C=C, cell_tag=tag, want_pv=False, **kw)
+    want = tcp.cell_pair_planar_plain(pos, cd, sh, pvt, cell_tag=tag, **kw)
+    for g, a, w in zip(got, again, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+        assert torch.equal(g, a)
+    torch.testing.assert_close(F, want[0], rtol=1e-4, atol=1e-4)
+    assert float(want[0].abs().max()) > 0.1   # the fill has pairs in the cut
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('ntypes', [1, 2])
+@pytest.mark.parametrize('name', CHARGED)
+def test_cuda_charged_cuts_at_the_rounded_r2(cuda, name, ntypes):
+    """A pair one float32 step inside r_cut (r^2 rounded as torch's) pairs,
+    the one a step outside does not, in the kernel as in the plain
+    version; a mixture's pair (0, 1) at its own cut."""
+    pv = _charged_table(name, ntypes, 2.5)
+    rc2 = pv[0] if ntypes == 1 else pv[0, 0, 1]
+    cell_pos, cell_tag, typ, shifts, cd, C = _cut_pairs(
+        rc2, 0, 1 if ntypes > 1 else 0)
+    q = np.where(cell_tag >= 0, np.where(cell_tag % 2, -1.0, 1.0),
+                 0.0).astype(np.float32)
+    pos, tag, ty, sh, pvt, qt = (torch.as_tensor(x, device=cuda) for x in
+                                 (cell_pos, cell_tag, typ, shifts, pv, q))
+    kw = dict(eval_name=name, pnames=tpe.kernel_pnames(name), ntypes=ntypes,
+              cell_typ=ty if ntypes > 1 else None, cell_q=qt)
+    got = tcp.cell_pair_planar(pos, cd, sh, pvt, C=C, cell_tag=tag, **kw)
+    want = tcp.cell_pair_planar_plain(pos, cd, sh, pvt, cell_tag=tag, **kw)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    order = torch.argsort(tag[tag >= 0])     # tags 0, 1 inside; 2, 3 out
+    f = got[0][tag >= 0][order]
+    assert float(f[0].abs().max()) > 0.0 and not f[2:].any()
 
 
 if __name__ == '__main__':

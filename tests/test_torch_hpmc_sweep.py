@@ -19,7 +19,11 @@ order; what differs is the last ulp of the transcendental functions
 (log, sin, cos, exp, rsqrt) between XLA's CPU kernels and torch's.
 
 The cases marked ``gpu`` hold each CUDA kernel against its plain version
-on the card and skip where torch sees no CUDA device.  The file imports
+on the card and skip where torch sees no CUDA device; the polyhedron
+sweep also on the fills of POLY_FILLS (two rounds per call, a ragged
+grid, class orders that repeat a class within a round, a 32^3 grid),
+with one launch counted per call and equal bits from two calls.  The
+file imports
 jax only inside the JAX-side helpers, so they also run where jax is not
 installed:
 
@@ -370,3 +374,73 @@ def test_cuda_sphere_sweep_matches_plain(cuda, case):
     assert tsw.fused_sphere_sweep.launches == n0 + 1
     want = tsw.fused_sphere_sweep_plain(*planes, perms, randu, **kw)
     _assert_kernel_matches_plain(got, want, 3)
+
+
+def _poly_fill(cell_dim, width, spacing, keep, C, seed, R, repeats, device):
+    """Cubes on an sc lattice of ``spacing`` in a box of cell_dim cells of
+    ``width``, each site kept with probability ``keep`` (a ragged fill),
+    jittered by 0.05 and rotated by up to 0.1 about a random axis, binned
+    into the planes of capacity C; class orders of R rounds (each a
+    permutation of the 8 classes, or with ``repeats`` drawn with
+    replacement, so a class may come twice in a round) and uniforms from
+    numpy.  Returns (planes, live, perms, randu, box_L)."""
+    rng = np.random.RandomState(seed)
+    L = np.asarray(cell_dim, float) * width
+    nl = np.floor(L / spacing).astype(int)
+    g = [(np.arange(m) + 0.5) * (L[i] / m) - L[i] / 2 for i, m in enumerate(nl)]
+    pos = np.stack(np.meshgrid(*g, indexing='ij'), -1).reshape(-1, 3)
+    pos = pos[rng.uniform(size=len(pos)) < keep]
+    pos = pos + rng.uniform(-0.05, 0.05, pos.shape)
+    axis = rng.normal(size=pos.shape)
+    axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+    half = 0.5 * rng.uniform(-0.2, 0.2, len(pos))[:, None]
+    quat = np.concatenate([np.cos(half), np.sin(half) * axis], 1)
+    box = Box.create(*L, device=device)
+    pos_t, quat_t = interop.planes_from_numpy([pos, quat], device)
+    _, live, planes, ovf = tint.cell_planes(pos_t, box, cell_dim, C, quat_t)
+    assert not bool(ovf)
+    nx, ny, nz = cell_dim
+    perms = np.concatenate([rng.randint(0, 8, 8) if repeats
+                            else rng.permutation(8) for _ in range(R)])
+    randu = torch.as_tensor(rng.uniform(size=(8 * R, 12, nz, ny, nx)),
+                            dtype=torch.float32, device=device)
+    box_L = tuple(float(v) for v in box.L.cpu().numpy())
+    return (planes, live, torch.as_tensor(perms, dtype=torch.int32), randu,
+            box_L)
+
+
+# (cell_dim, cell width, lattice spacing, share of sites kept, C, R, class
+# orders with repeats): two rounds per call; a ragged grid; two rounds
+# whose class orders repeat classes; a 32^3 grid, whose 4096 active cells
+# per sub-sweep outnumber the kernel's co-resident blocks
+POLY_FILLS = {
+    'R2': ((4, 4, 4), 2.2, 1.45, 1.0, 12, 2, False),
+    'ragged': ((4, 6, 8), 2.1, 1.4, 0.6, 12, 1, False),
+    'repeats': ((4, 4, 4), 2.2, 1.45, 0.8, 12, 2, True),
+    'grid32': ((32, 32, 32), 2.1, 1.4, 0.8, 12, 1, False),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('case', list(MP_CASES))
+@pytest.mark.parametrize('fill', list(POLY_FILLS))
+def test_cuda_poly_sweep_fills_match_plain(cuda, cube, fill, case):
+    """The one-launch polyhedron sweep on the fills of POLY_FILLS: equal
+    counts, planes within POS_TOL / QUAT_TOL of the plain version, one
+    launch counted per call, and equal bits from two calls."""
+    cell_dim, width, spacing, keep, C, R, repeats = POLY_FILLS[fill]
+    planes, live, perms, randu, box_L = _poly_fill(
+        cell_dim, width, spacing, keep, C, 7, R, repeats, cuda)
+    kw = dict(cell_dim=cell_dim, C=C, R=R, box_L=box_L,
+              tables=cube['tables'])
+    mp = MP_CASES[case]
+    n0 = tsw.fused_poly_sweep.launches
+    got = tsw.fused_poly_sweep(*planes, live, perms, randu, mp, **kw)
+    assert tsw.fused_poly_sweep.launches == n0 + 1
+    again = tsw.fused_poly_sweep(*planes, live, perms, randu, mp, **kw)
+    want = tsw.fused_poly_sweep_plain(*planes, live, perms, randu, mp, **kw)
+    _assert_kernel_matches_plain(got, want, 7)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    tries, accepts = int(want[7][1] + want[7][3]), int(want[7][0] + want[7][2])
+    assert 0 < accepts <= tries
