@@ -39,13 +39,18 @@ from the root of the repository.  In order it prints:
      script's plan, a 32^3-lattice fill, a ragged grid), with equal try
      counts, every slot within 1e-5 (positions) and 1e-6 (quaternions)
      but for at most 1 flipped decision per 10^4 trials (each printed
-     with its cell), CUDA-event times and the device time.  Where a copy
-     of the parent's csrc lies under scratch/parent/hoomd_tpu_torch/csrc,
-     parent_q_sweep_phase builds its cell_pair_charged.cu and
-     hpmc_sweep.cu under other names and times both designs of rows 3q
-     (config 4's shape and the Madelung plan, the two designs held to
-     each other) and 14 (config 5's plan, equal counts on three seeds)
-     in turns, as wrapper calls and device time;
+     with its cell), CUDA-event times, the device time and each
+     kernel's build (registers, spills, shared memory, blocks per SM).
+     Where a copy of the parent's csrc lies under
+     scratch/parent/hoomd_tpu_torch/csrc, parent_sweep_lj_phase builds
+     its hpmc_sweep.cu and cell_pair_impls.cu under other names and times
+     both designs of rows 13 (the sphere job's plan and the ragged
+     mixture) and 14 (the cube job's plan), planes and counts equal bit
+     for bit on three seeds, and 4 (the bench shape, the two designs
+     held to each other) in turns, as
+     wrapper calls and device time.  A device time the profiler could not
+     read (device_ms: no device kernel listed in three tries) prints as
+     "not measured", with no share of the bound;
   4a. one phase per force kernel of the other HOOMD_TPU_FAST_IMPL paths
      (cell_pair_lj, cell_pair_lj_pallas3d, cell_pair_lj_row,
      cell_pair_planar_n3l): the kernel against its plain torch version at
@@ -60,13 +65,7 @@ from the root of the repository.  In order it prints:
      plain versions with the evaluator's ATOL, each with its CUDA-event
      time; for the KA table also the device time (the half stencil's
      fold apart), the plain version's time, the bound, and the kernels'
-     registers, spills, shared memory and blocks per SM.  Where a copy of
-     the parent's csrc lies under scratch/parent/hoomd_tpu_torch/csrc (an
-     ignored directory; a checkout has none), parent_pair_phase builds
-     its typed planar kernel and half stencil under other names, holds
-     the parent's typed planar kernel to the new one bit for bit for
-     every evaluator at two and four types, and times both designs of
-     rows 3t, 7t and 7 in turns;
+     registers, spills, shared memory and blocks per SM;
   4c. the charged kernel (charged_kernel_phases) at config 4's shape
      (4096 ions of the rock-salt start jittered by 0.05 of the spacing,
      cell grid (8, 5, 4), C = 40): ewald and lj_ewald with one, two and
@@ -104,8 +103,7 @@ from the root of the repository.  In order it prints:
      single-type stencil launched, T and PE/N at the window's end equal
      to the parent design's bit for bit (KA_PARENT_T, KA_PARENT_PE), the
      kernel's F, PE and virial on the end state against its plain
-     version's (and the parent's kernel, where parent_pair_phase built
-     it, bit for bit), ms per step, busy share, and a 1000-step NVE
+     version's, ms per step, busy share, and a 1000-step NVE
      continuation gated on its drift; and the same script
      with HOOMD_TPU_FAST_IMPL=planar_n3l (300 NVT steps, the typed half
      stencil launched); then BASELINE config 4, the PPPM charged fluid
@@ -959,62 +957,11 @@ def megastep_phases(dev):
                 wrapper_ms=row['ms'], bound_ms=row['bound_ms'], **eng)),
                 flush=True)
             print(f"mega_candidates at the bench fill: {cand_ms['ms']:.4f} ms "
-                  f"per build (CUDA events), device {cand_ms['device_ms']:.4f} "
+                  f"per build (CUDA events), device {dev_fmt(cand_ms['device_ms'])} "
                   f"ms, bound {cand_ms['bound_ms']:.6f} ms "
                   f"({cand_ms['bound_by']}), {cand_ms['per_slot']:.1f} "
                   f"candidates per live slot", flush=True)
     return row, eval_ms
-
-
-# the parent's typed planar and half-stencil libraries, where
-# parent_pair_phase built them (ka_job then holds the parent's typed
-# kernel to the new one on its end state)
-PARENT_PAIR = {}
-
-
-def parent_pair_calls(lib, new, name, T, pos, tag, typ, sh, pv, cdim, C):
-    """Direct calls of the typed planar kernel (PE and virial, or F
-    alone) and the half stencil into preallocated outputs, on the
-    parent's library (``new`` False: no tile argument) or the new one.
-    Returns {kernel: (call, outputs)}."""
-    import torch
-    from hoomd_tpu_torch.ops import cell_pair as cp
-    from hoomd_tpu_torch.ops import pair_eval
-    nx, ny, nz = cdim
-    ev, npn = pair_eval.EVAL_IDS[name], len(pair_eval.kernel_pnames(name))
-    st = torch.cuda.current_stream().cuda_stream
-    tp = (cp.pair_tile(nx, C, cp.PLANAR_TILE_SLOTS),) if new else ()
-    tn = (cp.pair_tile(nx, C, cp.N3L_TILE_SLOTS),) if new else ()
-    nc = pos.shape[0]
-    F, F2, Fn = (torch.empty_like(pos) for _ in range(3))
-    pe = torch.empty((nc, C), device=pos.device)
-    vir = torch.empty((nc, C, 6), device=pos.device)
-    part = torch.empty((13,) + tuple(pos.shape), device=pos.device)
-    typ_p = typ.data_ptr() if T > 1 else None
-
-    def planar(pvf, out):
-        err = lib.hoomd_cell_pair_planar_typed(
-            pos.data_ptr(), tag.data_ptr(), typ.data_ptr(), sh.data_ptr(),
-            pv.data_ptr(), npn, T, out[0].data_ptr(),
-            out[1].data_ptr() if pvf else None,
-            out[2].data_ptr() if pvf else None, nx, ny, nz, C, ev, pvf, *tp,
-            st)
-        if err:
-            raise RuntimeError(f"typed planar kernel: CUDA error {err}")
-
-    def n3l():
-        err = lib.hoomd_cell_pair_n3l(
-            pos.data_ptr(), tag.data_ptr(), typ_p, sh.data_ptr(),
-            pv.data_ptr(), npn, T, Fn.data_ptr(), part.data_ptr(), nx, ny,
-            nz, C, ev, *tn, st)
-        if err:
-            raise RuntimeError(f"half stencil: CUDA error {err}")
-    calls = {'cell_pair_planar_n3l': (n3l, (Fn,))}
-    if T > 1:
-        calls['cell_pair_planar_typed'] = (lambda: planar(1, (F, pe, vir)),
-                                           (F, pe, vir))
-        calls['cell_pair_planar_typed F'] = (lambda: planar(0, (F2,)), (F2,))
-    return calls
 
 
 def same_bits(a, b):
@@ -1025,158 +972,44 @@ def same_bits(a, b):
                for x, y in zip(a, b))
 
 
-def parent_pair_phase(dev, src='scratch/parent/hoomd_tpu_torch/csrc'):
-    """Where a copy of the parent's csrc lies in ``src`` (an ignored
-    directory; the checkout has none): build its cell_pair_typed.cu and
-    cell_pair_impls.cu under other library names, hold the parent's
-    typed planar kernel to the new one bit for bit (F, PE, virial, and F
-    alone) for every pair evaluator at T = 2 and 4 on the KA shape, and
-    time both kernels of each redesigned row in turns (parent, new, new,
-    parent; direct calls into preallocated outputs, CUDA events), with
-    each one's device time and the half stencil's fold: rows 3t (with PE
-    and virial, and F alone) and 7t at the KA shape with the KA table,
-    row 7 at the bench shape.
-    Returns the rows' times."""
-    import ctypes
-    import torch
-    from pathlib import Path
-    from hoomd_tpu_torch.ops import _build
-    from hoomd_tpu_torch.ops import cell_pair as cp
-    d = Path(src)
-    if not (d / 'cell_pair_typed.cu').exists():
-        print(f"parent pair kernels: no copy of the parent's csrc under "
-              f"{src}; skipped", flush=True)
-        return None
-    t0 = time.perf_counter()
-    P, I = ctypes.c_void_p, ctypes.c_int
-    procs = {stem: subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS, '-I', str(d), '-o',
-         str(d / f'libparent_{stem}.so'), str(d / f'{stem}.cu')],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        for stem in ('cell_pair_typed', 'cell_pair_impls')}
-    for stem, proc in procs.items():
-        out, _ = proc.communicate(timeout=600)
-        if proc.returncode:
-            raise RuntimeError(f"parent {stem}.cu: nvcc failed\n"
-                               f"{out.decode()[-2000:]}")
-    typed = ctypes.CDLL(str(d / 'libparent_cell_pair_typed.so'))
-    impls = ctypes.CDLL(str(d / 'libparent_cell_pair_impls.so'))
-    typed.hoomd_cell_pair_planar_typed.argtypes = [P] * 5 + [I] * 2 + \
-        [P] * 3 + [I] * 6 + [P]
-    impls.hoomd_cell_pair_n3l.argtypes = [P] * 5 + [I] * 2 + [P] * 2 + \
-        [I] * 5 + [P]
-    parent = types_ns(hoomd_cell_pair_planar_typed=
-                      typed.hoomd_cell_pair_planar_typed,
-                      hoomd_cell_pair_n3l=impls.hoomd_cell_pair_n3l)
-    PARENT_PAIR['lib'] = parent
-    new = cp._kernel_lib().lib
-    print(f"parent pair kernels built in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    same, differ = 0, []
-    res = {}
-    for T in (2, 4):
-        carry, L, N, cdim, C = ka_cells(dev, T)
-        _, sh = cp.build_cell_shifts(cdim, L)
-        sh = torch.as_tensor(sh, dtype=torch.float32, device=dev)
-        args = (carry.pos.contiguous(), carry.tag.to(torch.int32).contiguous(),
-                carry.typ.to(torch.int32).contiguous(), sh)
-        for name in ['lj'] + list(EVAL_JOBS):
-            pv = typed_table(name, T, dev)[0].contiguous()
-            cp_ = parent_pair_calls(parent, False, name, T, *args, pv, cdim, C)
-            cn = parent_pair_calls(new, True, name, T, *args, pv, cdim, C)
-            for key in ('cell_pair_planar_typed', 'cell_pair_planar_typed F'):
-                cp_[key][0]()
-                cn[key][0]()
-                torch.cuda.synchronize()
-                if same_bits(cp_[key][1], cn[key][1]):
-                    same += 1
-                else:
-                    differ.append(f'{key}[{name}, T={T}]')
-            if name == 'lj' and T == 2:
-                res['ka'] = (cp_, cn, cdim, C)
-    print(f"parent typed planar kernel against the new one at the KA shape: "
-          f"{same} of {same + len(differ)} outputs equal bit for bit "
-          f"(F, PE and virial, and F alone; every evaluator, T = 2 and 4)",
-          flush=True)
-    if differ:
-        raise RuntimeError(f"the new typed planar kernel differs from the "
-                           f"parent's in bits: {differ}")
-    dims, cdim_b, C_b = SHAPES['bench']
-    carry, L, N, _ = lattice_cells(dims, cdim_b, C_b, 0.1, 3, dev)
-    _, sh = cp.build_cell_shifts(cdim_b, L)
-    sh = torch.as_tensor(sh, dtype=torch.float32, device=dev)
-    args = (carry.pos.contiguous(), carry.tag.to(torch.int32).contiguous(),
-            carry.typ.to(torch.int32).contiguous(), sh)
-    pv1 = lj_params(dev)[0]
-    bench = (parent_pair_calls(parent, False, 'lj', 1, *args, pv1, cdim_b,
-                               C_b),
-             parent_pair_calls(new, True, 'lj', 1, *args, pv1, cdim_b, C_b),
-             cdim_b, C_b)
-    out = {}
-    for row, (kname, (cp_, cn, cdim, C)) in {
-            '3t': ('cell_pair_planar_typed', res['ka']),
-            '3t F': ('cell_pair_planar_typed F', res['ka']),
-            '7t': ('cell_pair_planar_n3l', res['ka']),
-            '7': ('cell_pair_planar_n3l', bench)}.items():
-        fp, fn = cp_[kname][0], cn[kname][0]
-        turns = [cuda_ms(f, 50) for f in (fp, fn, fn, fp)]
-        r = dict(parent_ms=turns[::3], ms=turns[1:3],
-                 parent_device_ms=device_ms(fp, 10),
-                 device_ms=device_ms(fn, 10))
-        if kname == 'cell_pair_planar_n3l':
-            r['parent_fold_ms'] = device_ms(fp, 10, only='n3l_fold')
-            r['fold_ms'] = device_ms(fn, 10, only='n3l_fold')
-        out[row] = r
-        print(f"row {row} ({kname}, cell_dim={cdim} C={C}) in turns parent, "
-              f"new, new, parent: {', '.join(f'{t:.4f}' for t in turns)} ms "
-              f"per call (CUDA events); device {r['parent_device_ms']:.4f} "
-              f"-> {r['device_ms']:.4f} ms"
-              + (f", of it the fold {r['parent_fold_ms']:.4f} -> "
-                 f"{r['fold_ms']:.4f}" if 'fold_ms' in r else ''), flush=True)
-    print(json.dumps({"parent_pair_ms": out}), flush=True)
-    return out
-
-
-def parent_poly_call(lib, args, perms, randu, mp, kw):
-    """The parent design's fused_poly_sweep wrapper on its library (the
+def parent_sphere_call(lib, args, perms, randu, kw):
+    """The parent design's fused_sphere_sweep wrapper on its library (the
     C signature of that design: the planes updated in place, 8R
-    launches): the 7 input planes cloned, the counts zeroed, the call.
-    Returns (7 planes, counts)."""
-    import ctypes
+    launches): x, y and z cloned, the counts zeroed, the call.  Returns
+    (x', y', z', accepts, tries)."""
     import torch
     from hoomd_tpu_torch.hpmc import sweep as tsw
-    (nv, nf, ne), tab = tsw._poly_table_buffer(kw['tables'])
-    planes = tsw._device_args(args[:7], args[7], randu)
-    out = [a.clone() for a in planes[:7]]
-    lv, u = planes[7], planes[8]
-    cnt = torch.zeros((4,), dtype=torch.int32, device=lv.device)
+    x, y, z, r, d, lv, u = tsw._device_args(args[:5], args[5], randu)
+    x, y, z = x.clone(), y.clone(), z.clone()
+    cnt = torch.zeros((2,), dtype=torch.int32, device=lv.device)
     pm = tsw._perms_host(perms, kw['R'])
     nx, ny, nz = kw['cell_dim']
-    err = lib.hoomd_hpmc_poly_sweep(
-        *[o.data_ptr() for o in out], lv.data_ptr(), u.data_ptr(),
-        pm.data_ptr(), 8 * kw['R'], cnt.data_ptr(),
-        tab.ctypes.data_as(ctypes.c_void_p), nv, nf, ne, *tsw._f32s(mp),
-        nx, ny, nz, kw['C'], *(float(np.float32(v)) for v in kw['box_L']),
+    err = lib.hoomd_hpmc_sphere_sweep(
+        x.data_ptr(), y.data_ptr(), z.data_ptr(), r.data_ptr(), d.data_ptr(),
+        lv.data_ptr(), u.data_ptr(), pm.data_ptr(), 8 * kw['R'],
+        cnt.data_ptr(), nx, ny, nz, kw['C'],
+        *(float(np.float32(v)) for v in kw['box_L']),
         torch.cuda.current_stream().cuda_stream)
     if err:
-        raise RuntimeError(f"parent poly sweep: CUDA error {err}")
-    return tuple(out) + (cnt,)
+        raise RuntimeError(f"parent sphere sweep: CUDA error {err}")
+    return x, y, z, cnt[0], cnt[1]
 
 
-def parent_q_sweep_phase(dev, src='scratch/parent/hoomd_tpu_torch/csrc'):
+def parent_sweep_lj_phase(dev, src='scratch/parent/hoomd_tpu_torch/csrc'):
     """Where a copy of the parent's csrc lies in ``src`` (an ignored
-    directory; the checkout has none): build its cell_pair_charged.cu and
-    hpmc_sweep.cu under other library names and time both designs of
-    rows 3q and 14 in turns (parent, new, new, parent; CUDA events), each
-    as the wrapper's call and as device time (torch.profiler, the whole
-    call and its kernels alone).  Row 3q: the wrapper cell_pair_planar
-    with cell_q on either library (the wrapper is the same code) at
-    config 4's shape (lj_ewald, two types) and at the Madelung job's plan
-    (ewald, one type, jittered); the two designs held to each other at
-    RTOL and the evaluator's ATOL.  Row 14: fused_poly_sweep against the
-    parent's wrapper (parent_poly_call) at config 5's plan on the same
-    inputs; the two designs must take the same decisions (equal counts)
-    on three seeds.  Returns the rows' times."""
+    directory; the checkout has none): build its hpmc_sweep.cu and
+    cell_pair_impls.cu under other library names and time both designs
+    of rows 13, 14 and 4 in turns (parent, new, new, parent; CUDA
+    events), each as the wrapper's call (row 13: the parent's wrapper
+    re-created as parent_sphere_call, whose C signature is the parent
+    design's; rows 14 and 4: the wrapper run on either library) and as
+    device time (torch.profiler).  Row 13: fused_sphere_sweep at the
+    sphere job's plan and at the ragged two-radius mixture; row 14:
+    fused_poly_sweep at the cube job's plan; the two designs must give
+    equal planes and counts bit for bit on three seeds.  Row 4:
+    cell_pair_lj at the bench shape; the two designs held to each other
+    at RTOL and ATOL.  Returns
+    the rows' times."""
     import ctypes
     import torch
     from pathlib import Path
@@ -1184,9 +1017,9 @@ def parent_q_sweep_phase(dev, src='scratch/parent/hoomd_tpu_torch/csrc'):
     from hoomd_tpu_torch.ops import _build
     from hoomd_tpu_torch.ops import cell_pair as cp
     d = Path(src)
-    if not (d / 'cell_pair_charged.cu').exists():
-        print(f"parent charged and sweep kernels: no copy of the parent's "
-              f"csrc under {src}; skipped", flush=True)
+    if not (d / 'hpmc_sweep.cu').exists():
+        print(f"parent sweep and LJ kernels: no copy of the parent's csrc "
+              f"under {src}; skipped", flush=True)
         return None
     t0 = time.perf_counter()
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -1194,99 +1027,127 @@ def parent_q_sweep_phase(dev, src='scratch/parent/hoomd_tpu_torch/csrc'):
         [_build._nvcc(), *_build.NVCC_FLAGS, '-I', str(d), '-o',
          str(d / f'libparent_{stem}.so'), str(d / f'{stem}.cu')],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        for stem in ('cell_pair_charged', 'hpmc_sweep')}
+        for stem in ('hpmc_sweep', 'cell_pair_impls')}
     for stem, proc in procs.items():
         out, _ = proc.communicate(timeout=600)
         if proc.returncode:
             raise RuntimeError(f"parent {stem}.cu: nvcc failed\n"
                                f"{out.decode()[-2000:]}")
-    charged = ctypes.CDLL(str(d / 'libparent_cell_pair_charged.so'))
     hpmc = ctypes.CDLL(str(d / 'libparent_hpmc_sweep.so'))
-    charged.hoomd_cell_pair_planar_q.argtypes = \
-        _build._SIGNATURES['hoomd_cell_pair_planar_q']
-    charged.hoomd_cell_pair_planar_q.restype = I
-    hpmc.hoomd_hpmc_poly_sweep.argtypes = [P] * 10 + [I, P, P] + [I] * 3 + \
-        [F] * 3 + [I] * 4 + [F] * 3 + [P]
+    impls = ctypes.CDLL(str(d / 'libparent_cell_pair_impls.so'))
+    hpmc.hoomd_hpmc_sphere_sweep.argtypes = [P] * 8 + [I, P] + [I] * 4 + \
+        [F] * 3 + [P]
+    hpmc.hoomd_hpmc_sphere_sweep.restype = I
+    hpmc.hoomd_hpmc_poly_sweep.argtypes = \
+        _build._SIGNATURES['hoomd_hpmc_poly_sweep']
     hpmc.hoomd_hpmc_poly_sweep.restype = I
-    print(f"parent charged and sweep kernels built in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    impls.hoomd_cell_pair_lj.argtypes = _build._SIGNATURES['hoomd_cell_pair_lj']
+    impls.hoomd_cell_pair_lj.restype = I
     new_lib = cp._kernel_lib()
     parent_lib = _build.KernelLibrary(
-        types_ns(**{**vars(new_lib.lib), 'hoomd_cell_pair_planar_q':
-                    charged.hoomd_cell_pair_planar_q}),
+        types_ns(**{**vars(new_lib.lib),
+                    'hoomd_cell_pair_lj': impls.hoomd_cell_pair_lj,
+                    'hoomd_hpmc_poly_sweep': hpmc.hoomd_hpmc_poly_sweep}),
         new_lib.paths, 0.0, '')
-    out = {}
 
-    def on(lib, fn):
-        def call():
-            cp._LIB[0] = lib
+    def on_parent(mod, call):
+        def run():
+            mod._LIB[0] = parent_lib
             try:
-                return fn()
+                return call()
             finally:
-                cp._LIB[0] = new_lib
-        return call
+                mod._LIB[0] = new_lib
+        return run
+    tsw._kernel_lib()
+    print(f"parent sweep and LJ kernels built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    out = {}
+    specs = {'job': dict(kind='sphere'),
+             'ragged': dict(kind='mixture', dims=(4 * 1.45, 6 * 1.45,
+                                                  8 * 1.45),
+                            spacing=1.05, jitter=0.01, seed=2)}
+    for tag, spec in specs.items():
+        system, mc = mc_system(**spec)
+        for seed in (1, 2, 3):
+            args, perms, randu, extra, kw, _ = mc_inputs(system, mc, seed)
+            got = tsw.fused_sphere_sweep(*args, perms, randu, **kw)
+            want = parent_sphere_call(hpmc, args, perms, randu, kw)
+            if not same_bits(got, want):
+                raise RuntimeError(
+                    f"row 13 [{tag}]: the new sweep differs from the "
+                    f"parent's (seed {seed}; counts {int(got[3])}, "
+                    f"{int(got[4])} against {int(want[3])}, "
+                    f"{int(want[4])})")
 
-    cases = {}
-    carry, qc, L, N, cdim, C = pppm_cells(dev, 2)
-    cases['3q config 4'] = ('lj_ewald', 2, carry, qc, L, cdim, C, 2.5)
-    carry, qc, L, N, cdim, C = madelung_cells(dev)
-    cases['3q Madelung'] = ('ewald', 1, carry, qc, L, cdim, C, 3.0)
-    for row, (name, T, carry, qc, L, cdim, C, rc) in cases.items():
-        _, sh = cp.build_cell_shifts(cdim, L)
-        sh = torch.as_tensor(sh, dtype=torch.float32, device=dev)
-        pv, pn = charged_table(name, T, dev, rc)
-        kw = dict(eval_name=name, pnames=pn, ntypes=T, cell_q=qc,
-                  cell_typ=carry.typ if T > 1 else None, C=C,
-                  cell_tag=carry.tag)
+        def fn():
+            return tsw.fused_sphere_sweep(*args, perms, randu, **kw)
 
-        def kern(pos=carry.pos, sh=sh, pv=pv, cdim=cdim, kw=kw):
-            return cp.cell_pair_planar(pos, cdim, sh, pv, **kw)
-        fp, fn = on(parent_lib, kern), kern
-        compare(f'row {row}: new design against the parent\'s',
-                [(lab, g, w, RTOL, EVAL_ATOL.get(name, ATOL))
-                 for lab, g, w in zip(('F', 'pe', 'virial'), fn(), fp())])
+        def fp():
+            return parent_sphere_call(hpmc, args, perms, randu, kw)
         turns = [cuda_ms(f, 50) for f in (fp, fn, fn, fp)]
         r = dict(parent_ms=turns[::3], ms=turns[1:3],
                  parent_device_ms=device_ms(fp, 20),
                  device_ms=device_ms(fn, 20))
-        out[row] = r
-        print(f"row {row} (cell_pair_planar_q{'_typed' if T > 1 else ''}, "
-              f"{name}, cell_dim={cdim} C={C}) in turns parent, new, new, "
-              f"parent: {', '.join(f'{t:.4f}' for t in turns)} ms per "
-              f"wrapper call (CUDA events); device {r['parent_device_ms']:.4f}"
-              f" -> {r['device_ms']:.4f} ms", flush=True)
+        out[f'13 {tag}'] = r
+        print(f"row 13 (fused_sphere_sweep, {tag} plan cell_dim="
+              f"{kw['cell_dim']} C={kw['C']}): planes and counts equal to "
+              f"the parent's bit for bit on 3 seeds; in turns parent, new, "
+              f"new, parent: {', '.join(f'{t:.4f}' for t in turns)} ms per "
+              f"wrapper call (CUDA events); device "
+              f"{dev_fmt(r['parent_device_ms'])} -> {dev_fmt(r['device_ms'])}"
+              f" ms per call", flush=True)
+    # row 14, whose kernel shares pick_mover and the launch helpers with
+    # row 13: the same C signature, so the wrapper runs on either library
     system, mc = mc_system('cube')
-    same = 0
     for seed in (1, 2, 3):
         args, perms, randu, extra, kw, _ = mc_inputs(system, mc, seed)
-        got = tsw.fused_poly_sweep(*args, perms, randu, *extra, **kw)
-        want = parent_poly_call(hpmc, args, perms, randu, *extra, kw)
-        if not torch.equal(got[7], want[7]):
-            raise RuntimeError(f"row 14: the new sweep's counts "
-                               f"{got[7].tolist()} differ from the parent's "
-                               f"{want[7].tolist()} (seed {seed})")
-        same += all(torch.equal(g, w) for g, w in zip(got[:7], want[:7]))
 
-    def fn():
-        return tsw.fused_poly_sweep(*args, perms, randu, *extra, **kw)
-
-    def fp():
-        return parent_poly_call(hpmc, args, perms, randu, *extra, kw)
+        def fn():
+            return tsw.fused_poly_sweep(*args, perms, randu, *extra, **kw)
+        fp = on_parent(tsw, fn)
+        got, want = fn(), fp()
+        if not same_bits(got, want):
+            raise RuntimeError(
+                f"row 14 [job]: the new sweep differs from the parent's "
+                f"(seed {seed}; counts {got[-1].tolist()} against "
+                f"{want[-1].tolist()})")
     turns = [cuda_ms(f, 50) for f in (fp, fn, fn, fp)]
     r = dict(parent_ms=turns[::3], ms=turns[1:3],
-             parent_device_ms=device_ms(fp, 20), device_ms=device_ms(fn, 20),
-             parent_kernel_ms=device_ms(fp, 20, only='poly_subsweep'),
-             kernel_ms=device_ms(fn, 20, only='poly_sweep_kernel'))
-    out['14 config 5'] = r
-    print(f"row 14 (fused_poly_sweep, config 5's plan cell_dim="
-          f"{kw['cell_dim']} C={kw['C']}): equal counts on 3 seeds, planes "
-          f"equal bit for bit on {same}; in turns parent, new, new, parent: "
-          f"{', '.join(f'{t:.4f}' for t in turns)} ms per wrapper call "
-          f"(CUDA events); device {r['parent_device_ms']:.4f} -> "
-          f"{r['device_ms']:.4f} ms per call, of it the kernels "
-          f"{r['parent_kernel_ms']:.4f} -> {r['kernel_ms']:.4f}", flush=True)
-    print(json.dumps({"parent_q_sweep_ms": out}), flush=True)
+             parent_device_ms=device_ms(fp, 20), device_ms=device_ms(fn, 20))
+    out['14 job'] = r
+    print(f"row 14 (fused_poly_sweep, cube job plan cell_dim="
+          f"{kw['cell_dim']} C={kw['C']}): planes and counts equal to the "
+          f"parent's bit for bit on 3 seeds; in turns parent, new, new, "
+          f"parent: {', '.join(f'{t:.4f}' for t in turns)} ms per wrapper "
+          f"call (CUDA events); device {dev_fmt(r['parent_device_ms'])} -> "
+          f"{dev_fmt(r['device_ms'])} ms per call", flush=True)
+    dims, cdim, C = SHAPES['bench']
+    carry, L, N, _ = lattice_cells(dims, cdim, C, 0.1, 3, dev)
+    adj, sh = cp.build_cell_shifts(cdim, L)
+    adj = torch.as_tensor(adj, dtype=torch.int32, device=dev)
+    sh = torch.as_tensor(sh, dtype=torch.float32, device=dev)
+    ljv = lj_params(dev)[1]
+    pos, tag = carry.pos, carry.tag
+
+    def fn():
+        return cp.cell_pair_lj(pos, adj, sh, ljv, ncells=pos.shape[0], C=C,
+                               cell_tag=tag)
+    fp = on_parent(cp, fn)
+    compare("row 4: new design against the parent's",
+            [(lab, g, w, RTOL, ATOL)
+             for lab, g, w in zip(('F', 'pe', 'virial'), fn(), fp())])
+    turns = [cuda_ms(f, 50) for f in (fp, fn, fn, fp)]
+    r = dict(parent_ms=turns[::3], ms=turns[1:3],
+             parent_device_ms=device_ms(fp, 10), device_ms=device_ms(fn, 10))
+    out['4 bench'] = r
+    print(f"row 4 (cell_pair_lj, bench cell_dim={cdim} C={C}) in turns "
+          f"parent, new, new, parent: {', '.join(f'{t:.4f}' for t in turns)}"
+          f" ms per wrapper call (CUDA events); device "
+          f"{dev_fmt(r['parent_device_ms'])} -> {dev_fmt(r['device_ms'])} ms",
+          flush=True)
+    print(json.dumps({"parent_sweep_lj_ms": out}), flush=True)
     return out
+
 
 def engine_window_ms(s, gt, cand, ws, k):
     """The main path's call of one megastep window (megastep_window on
@@ -1746,13 +1607,21 @@ def impl_kernel_phases(dev):
                                         3 if tag_name == 'bench' else 1))
             row['bound_ms'], row['bound_by'] = bounds[name]
             extra = ''
+            if name == 'cell_pair_lj' and tag_name == 'bench':
+                call = lambda: kern(*args, C=C, cell_tag=tag, **kw)
+                row['device_ms'] = device_ms(call, 10)
+                row['build'] = lj_build(C)
+                extra = (f" device_ms={dev_fmt(row['device_ms'])}, "
+                         f"{share_fmt(row['bound_ms'], row['device_ms'])}; "
+                         f"{sweep_build_line(row['build'])}")
             if name == 'cell_pair_planar_n3l' and tag_name == 'bench':
                 call = lambda: kern(*args, C=C, cell_tag=tag, **kw)
                 row['device_ms'] = device_ms(call, 10)
                 row['fold_ms'] = device_ms(call, 10, only='n3l_fold')
                 row['build'] = tile_build(name, 'lj', C, cdim[0], 1)
-                extra = (f" device_ms={row['device_ms']:.4f}, the fold "
-                         f"{row['fold_ms']:.4f}; {build_line(row['build'])}")
+                extra = (f" device_ms={dev_fmt(row['device_ms'])}, the fold "
+                         f"{dev_fmt(row['fold_ms'])}; "
+                         f"{build_line(row['build'])}")
             print(f"phase {name} [{tag_name} cell_dim={cdim} C={C} N={N}]: "
                   f"max_abs_err={ea:.3e} bound_share={er:.3f} "
                   f"kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
@@ -1960,27 +1829,49 @@ def binned_apart(name, a, b):
     return n
 
 
-def device_ms(fn, iters, only=None):
+def device_ms(fn, iters, only=None, attempts=3):
     """Summed device kernel time per call of fn, by torch.profiler; with
-    ``only``, of the kernels whose name holds it."""
+    ``only``, of the kernels whose name holds it.  A profile that lists
+    no device kernel at all is taken again, up to ``attempts`` times;
+    None if none did (see dev_fmt), never 0."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or (only and only not in e.key):
-            continue
-        t = getattr(e, 'self_device_time_total', None)
-        total += t if t is not None else getattr(e, 'self_cuda_time_total',
-                                                  0.0)
-    return total / 1e3 / iters
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total, seen = 0.0, False
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            seen = True
+            if only and only not in e.key:
+                continue
+            t = getattr(e, 'self_device_time_total', None)
+            total += t if t is not None else getattr(
+                e, 'self_cuda_time_total', 0.0)
+        if seen:
+            return total / 1e3 / iters
+    return None
+
+
+def dev_fmt(ms):
+    """A device time as printed: 'not measured' where the profiler listed
+    no device kernel (device_ms gave None)."""
+    return 'not measured' if ms is None else f'{ms:.4f}'
+
+
+def share_fmt(bound_ms, ms, digits=5):
+    """The bound's share of a device time, as printed; none where the
+    device time was not measured."""
+    if ms is None:
+        return 'no share (device time not measured)'
+    return f'{bound_ms / ms:.{digits}f} of the device time'
 
 
 def rebuild_phase(system):
@@ -2018,7 +1909,7 @@ def rebuild_phase(system):
         dms = device_ms(lambda: run.rebuild(c), 10)
         print(f"rebuild[{impl}] of the job's liquid {m * k} steps after its "
               f"last rebuild, cell_dim={cdim} C={C} N={N}: {ms:.4f} ms per "
-              f"call (CUDA events), device {dms:.4f} ms; {apart} particles "
+              f"call (CUDA events), device {dev_fmt(dms)} ms; {apart} particles "
               f"binned apart from the sort", flush=True)
     # and the megastep's candidate set of the new reference, which the
     # engine builds after each rebuild
@@ -2031,7 +1922,7 @@ def rebuild_phase(system):
     dms = device_ms(lambda: cp.mega_candidates(*args, C=C), 10)
     per = int(cand.count.sum()) / int((cyc.gt >= 0).sum())
     print(f"mega_candidates of the job's liquid, cell_dim={cdim} C={C}: "
-          f"{ms:.4f} ms per build (CUDA events), device {dms:.4f} ms; "
+          f"{ms:.4f} ms per build (CUDA events), device {dev_fmt(dms)} ms; "
           f"{per:.1f} candidates per live slot of {27 * C} staged", flush=True)
 
 
@@ -2308,17 +2199,18 @@ def bench_script(card):
     c = run.rebuild(system._fast_carry)
     k, m = fast['k_rebuild'], int(system._grow.get('fast_m', 1))
     held = not bool(run.wins(c, dyn, m, k).danger)
+    wins_ms = device_ms(lambda: run.wins(c, dyn, m, k), 10)
     print(f"megastep windows of the bench job's state after a rebuild (k = "
           f"{k}, fast_m = {m}, the guard held: {held}): device "
-          f"{device_ms(lambda: run.wins(c, dyn, 1, k), 20):.4f} ms for one "
-          f"window, {device_ms(lambda: run.wins(c, dyn, m, k), 10) / m:.4f} "
+          f"{dev_fmt(device_ms(lambda: run.wins(c, dyn, 1, k), 20))} ms for one "
+          f"window, {dev_fmt(wins_ms and wins_ms / m)} "
           f"ms per window of {m} chained, "
           f"{cuda_ms(lambda: run.wins(c, dyn, m, k), 10) / m:.4f} ms per "
           f"window of {m} by CUDA events; one rebuild cycle ({m} windows, "
           f"the rebuild and its candidate set) "
           f"{cuda_ms(lambda: run.cycles(c, dyn, 1, m, k), 10):.4f} ms by CUDA "
           f"events, device "
-          f"{device_ms(lambda: run.cycles(c, dyn, 1, m, k), 5):.4f} ms",
+          f"{dev_fmt(device_ms(lambda: run.cycles(c, dyn, 1, m, k), 5))} ms",
           flush=True)
     # bench.py's warmup stops before 16 clean segments: run on until the
     # probe amnesty has fired (at most 16 runs of 1024 steps, a segment
@@ -2519,27 +2411,6 @@ def ka_job(card):
     if (t_end, pe_end) != (KA_PARENT_T, KA_PARENT_PE):
         raise RuntimeError(f"{what}: T and PE/N at the end of the window are "
                            f"not the parent design's bits")
-    if PARENT_PAIR:
-        # the parent's typed kernel on the job's end state, bit for bit
-        args = (c.pos.contiguous(), c.tag.to(torch.int32).contiguous(),
-                c.typ.to(torch.int32).contiguous(), sh.contiguous())
-        pvc = pv.contiguous()
-        old = parent_pair_calls(PARENT_PAIR['lib'], False, 'lj', 2, *args, pvc,
-                                fast['cell_dim'], fast['C'])
-        new = parent_pair_calls(cp._kernel_lib().lib, True, 'lj', 2, *args,
-                                pvc, fast['cell_dim'], fast['C'])
-        for key in ('cell_pair_planar_typed', 'cell_pair_planar_typed F'):
-            old[key][0]()
-            new[key][0]()
-        torch.cuda.synchronize()
-        equal = same_bits(old['cell_pair_planar_typed'][1],
-                          new['cell_pair_planar_typed'][1])
-        print(f"{what}: the parent's typed planar kernel and the new one on "
-              f"the end state: F, PE and virial "
-              f"{'equal' if equal else 'differ'} bit for bit", flush=True)
-        if not equal:
-            raise RuntimeError(f"{what}: the typed planar kernel differs from "
-                               f"the parent's in bits on the end state")
     print(f"{what}: plan cell_dim={fast['cell_dim']} C={fast['C']} "
           f"k={fast['k_rebuild']} rebin={fast['rebin_impl']} "
           f"impl={fast['impl']}; NVT T over the window {np.mean(temps):.5f} "
@@ -2881,10 +2752,9 @@ def charged_kernel_phases(dev):
             print(f"phase charged kernel [{name}, T={T}, cell_dim={cdim} "
                   f"C={C} N={N}, {cand} candidate pairs, {inr} inside "
                   f"r_cut]: max_abs_err={ea:.3e} kernel_ms={r['ms']:.4f} "
-                  f"device_ms={r['device_ms']:.4f} "
+                  f"device_ms={dev_fmt(r['device_ms'])} "
                   f"plain_ms={r['plain_ms']:.4f} bound_ms={b_ms:.6f} "
-                  f"({b_by}), {b_ms / max(r['device_ms'], 1e-9):.5f} of "
-                  f"the device time; {q_build_line(r['build'])}", flush=True)
+                  f"({b_by}), {share_fmt(b_ms, r['device_ms'])}; {q_build_line(r['build'])}", flush=True)
     rows['cell_pair_planar_q_typed'] = times['lj_ewald'][2]
     return rows, times
 
@@ -3177,12 +3047,10 @@ def madelung_job():
                plain_ms=cuda_ms(plain, 3), device_ms=device_ms(kern, 10),
                bound_ms=b_ms, bound_by=b_by,
                build=q_build('ewald', 1, c.pos.shape[0], C))
-    dev_ms = (f"{row['device_ms']:.4f}" if row['device_ms'] > 0 else
-              "not measured (the profiler saw no device events)")
     print(f"phase charged kernel [ewald, T=1, the Madelung job's plan "
           f"cell_dim={cdim} C={C} N={N}, jittered, {cand} candidate pairs, "
           f"{inr} inside r_cut]: max_abs_err={ea:.3e} "
-          f"kernel_ms={row['ms']:.4f} device_ms={dev_ms} "
+          f"kernel_ms={row['ms']:.4f} device_ms={dev_fmt(row['device_ms'])} "
           f"plain_ms={row['plain_ms']:.4f} bound_ms={b_ms:.6f} ({b_by}); "
           f"{q_build_line(row['build'])}", flush=True)
     return counts, row
@@ -3397,11 +3265,10 @@ def typed_kernel_phases(dev):
                       f"{cand} candidate pairs, {inr} inside r_cut]: "
                       f"max_abs_err={r['max_abs_err']:.3e} "
                       f"kernel_ms={r['ms']:.4f} "
-                      f"device_ms={r['device_ms']:.4f} "
+                      f"device_ms={dev_fmt(r['device_ms'])} "
                       f"plain_ms={r['plain_ms']:.4f} bound_ms={b_ms:.6f} "
-                      f"({b_by}), {b_ms / max(r['device_ms'], 1e-9):.4f} of "
-                      f"the device time"
-                      + (f", the fold {r['fold_ms']:.4f} ms on the device"
+                      f"({b_by}), {share_fmt(b_ms, r['device_ms'], 4)}"
+                      + (f", the fold {dev_fmt(r['fold_ms'])} ms on the device"
                          if 'fold_ms' in r else '') + f"; "
                       f"{build_line(r['build'])}", flush=True)
         print(f"phase typed kernels T={T} [KA shape cell_dim={cdim} C={C}]: "
@@ -3607,34 +3474,51 @@ def hpmc_kernel_phases():
                   f"max_abs_err={worst:.3e} trials={trials} "
                   f"pairs/call={per_call['pairs']:.0f} "
                   f"kernel_ms={row['ms']:.4f} "
-                  f"device_ms={row['device_ms']:.4f} "
+                  f"device_ms={dev_fmt(row['device_ms'])} "
                   f"plain_ms={row['plain_ms']:.4f} "
                   f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}), "
-                  f"{row['bound_ms'] / max(row['device_ms'], 1e-9):.5f} "
-                  f"of the device time", flush=True)
+                  f"{share_fmt(row['bound_ms'], row['device_ms'])}",
+                  flush=True)
             if tag_name == 'job':
                 out[kname] = row
-                if poly:
-                    row['build'] = poly_build(C)
-                    print(f"  {kname} build at C={C}: "
-                          f"{row['build']['registers']} registers, "
-                          f"{row['build']['spill_bytes']} B spilled per "
-                          f"thread, {row['build']['smem_bytes']} B shared "
-                          f"memory per block, {row['build']['blocks_per_sm']} "
-                          f"blocks per SM, {row['build']['threads']} threads "
-                          f"per block", flush=True)
+                row['build'] = sweep_build(kname, C)
+                print(f"  {kname} build at C={C}: "
+                      f"{sweep_build_line(row['build'])}", flush=True)
     return out
 
 
-def poly_build(C):
-    """What the build gave the polyhedron sweep at capacity C, and its
+def sweep_build(kname, C):
+    """What the build gave a sweep kernel at capacity C, and its
     occupancy: registers and spilled bytes per thread, shared memory and
     threads per block, blocks per SM."""
     import ctypes
     from hoomd_tpu_torch.ops import _build
     lib = _build.load()
     out = (ctypes.c_int * 6)()
-    lib.check(lib.lib.hoomd_hpmc_poly_occupancy(C, out), 'poly sweep occupancy')
+    fn = (lib.lib.hoomd_hpmc_poly_occupancy if kname == 'fused_poly_sweep'
+          else lib.lib.hoomd_hpmc_sphere_occupancy)
+    lib.check(fn(C, out), f'{kname} occupancy')
+    return dict(registers=out[0], spill_bytes=out[1],
+                smem_bytes=out[2] + out[3], blocks_per_sm=out[4],
+                threads=out[5])
+
+
+def sweep_build_line(b):
+    return (f"{b['registers']} registers, {b['spill_bytes']} B spilled per "
+            f"thread, {b['smem_bytes']} B shared memory per block, "
+            f"{b['blocks_per_sm']} blocks per SM, {b['threads']} threads per "
+            f"block")
+
+
+def lj_build(C):
+    """What the build gave the adjacency-listed LJ kernel at capacity C,
+    and its occupancy (as sweep_build)."""
+    import ctypes
+    from hoomd_tpu_torch.ops import _build
+    lib = _build.load()
+    out = (ctypes.c_int * 6)()
+    lib.check(lib.lib.hoomd_cell_pair_lj_occupancy(C, out),
+              'cell_pair_lj occupancy')
     return dict(registers=out[0], spill_bytes=out[1],
                 smem_bytes=out[2] + out[3], blocks_per_sm=out[4],
                 threads=out[5])
@@ -3763,12 +3647,11 @@ def main():
     rows.update(impl_kernel_phases(dev))
     typed_rows, typed_ms = typed_kernel_phases(dev)
     rows.update(typed_rows)
-    parent_pair_phase(dev)
     charged_rows, charged_ms = charged_kernel_phases(dev)
     rows.update(charged_rows)
     rows.update(rebin_kernel_phases(dev))
     rows.update(hpmc_kernel_phases())
-    parent_q_sweep_phase(dev)
+    parent_sweep_lj_phase(dev)
     print(f"kernel phases done at {time.perf_counter() - t0:.1f} s",
           flush=True)
     # each path's own launches, read just after it ran

@@ -32,8 +32,14 @@
 // candidate pairs of ~20 flops against a few MB of state, so the fp32
 // issue rate bounds them; the half stencil's function needs half the
 // pairs.  What each design does:
-//   * lj: one block per cell stages the 27 listed cells (27*C*13 bytes of
-//     shared memory, 14 KB at C = 40), a thread per slot.
+//   * lj: a block per cell stages the 27 listed cells once, compacted to
+//     their live slots, and a warp takes a home at a time: its lanes
+//     stride over the staged entries of the cells whose bounding box
+//     lies inside the home's cut, and the pairs inside the cut are
+//     evaluated 32 at a time, a pair per lane (as the charged kernel,
+//     cell_pair_charged.cu).  Its first design, a thread per slot of the
+//     cell walking all 27 C staged slots, left C threads of a block busy
+//     (40 at the bench plan).
 //   * lj3d: one block per cell stages one neighbour at a time into a
 //     double buffer (2*C*13 bytes, 1 KB at C = 40), one barrier per
 //     neighbour: less shared memory per block than lj, more barriers.
@@ -68,58 +74,167 @@ namespace hoomd_torch {
 
 // ---------------------------------------------------------------------------
 // lj: the adjacency-listed stencil.  lj = [lj1, lj2, rc2, e_shift].
+//
+// A block takes a cell and kLjWarps warps.  It stages the 27 cells its
+// row of the table lists once, each entry's image shift applied,
+// compacted to the live slots (compact_cells; an id outside [0, nc) lists
+// nothing), with each staged cell's bounding box, and a warp takes a home
+// at a time.  The home skips the staged cells whose box lies outside its
+// cut (r^2 of the home to the box, rounded as a pair's, not below rc2:
+// every pair of the cell is then outside, since rounding is monotone;
+// ~45% of the candidates at the bench plan), and walks the runs of
+// consecutive kept cells.  The lanes stride over the entries, test
+// r^2 < rc2 with r^2 rounded as the plain version's torch ops, append the
+// pairs inside the cut to the warp's list by a ballot, and evaluate them
+// 32 at a time, a pair per lane, converged; a fixed shuffle tree sums the lanes.  The self pair is
+// excluded by index: the home's own entry under the first table entry
+// that lists its cell under no shift (an entry listed twice counts
+// twice).  No atomics: equal inputs, equal bits.
 
-__global__ void lj_adj_kernel(const float* __restrict__ pos, const int* __restrict__ tag,
-                              const int* __restrict__ adj, const float* __restrict__ shifts,
-                              const float* __restrict__ ljp, const int C,
-                              float* __restrict__ frc, float* __restrict__ pe,
-                              float* __restrict__ vir) {
-    extern __shared__ float smem[];
+constexpr int kLjWarps = 8;              // homes at a time per block (4: 3% slower)
+constexpr int kLjList = 64;              // entries of a warp's list of pairs inside the cut
+
+// Shared memory of one block: the staged cells, the warps' lists, the
+// cells' boxes, the offsets, the homes' slots and their count.
+static inline size_t lj_adj_smem_bytes(const int C) {
+    return (size_t)27 * C * sizeof(float4) + (size_t)kLjWarps * kLjList * sizeof(float4) +
+           (size_t)27 * 6 * sizeof(float) + (size_t)(28 + C + 2) * sizeof(int);
+}
+
+__global__ void __launch_bounds__(kLjWarps * 32)
+    lj_adj_kernel(const float* __restrict__ pos, const int* __restrict__ tag,
+                  const int* __restrict__ adj, const float* __restrict__ shifts,
+                  const float* __restrict__ ljp, const int C, float* __restrict__ frc,
+                  float* __restrict__ pe, float* __restrict__ vir) {
+    extern __shared__ float4 smem4[];
     __shared__ int self_k;
-    const int n = 27 * C;
-    float* sx = smem;
-    float* sy = sx + n;
-    float* sz = sy + n;
-    unsigned char* sv = reinterpret_cast<unsigned char*>(sz + n);
-    const long long cell = blockIdx.x;
-    const int* row = adj + cell * 27;
-    const float* shc = shifts + cell * 27 * 3;
+    constexpr int W = kLjWarps;
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    float4* ent = smem4;
+    float4* lst = ent + 27 * C;
+    float* box = reinterpret_cast<float*>(lst + W * kLjList);   // [cell][lo xyz, hi xyz]
+    int* off = reinterpret_cast<int*>(box + 27 * 6);
+    int* hslot = off + 28;
+    int* hcnt = hslot + C;
+    const int cell = blockIdx.x, nc = gridDim.x;
+    const int* row = adj + (long long)cell * 27;
+    const float* shc = shifts + (long long)cell * 27 * 3;
+    for (int s = threadIdx.x; s < C; s += blockDim.x) {   // the padding slots' outputs
+        const long long slot = (long long)cell * C + s;
+        if (tag[slot] >= 0) continue;
+        for (int a = 0; a < 3; ++a) frc[slot * 3 + a] = 0.0f;
+        pe[slot] = 0.0f;
+        for (int c = 0; c < 6; ++c) vir[slot * 6 + c] = 0.0f;
+    }
     if (threadIdx.x == 0) {
         // the entry that lists this cell itself under no image shift
-        int s = -1;
-        for (int k = 0; k < 27 && s < 0; ++k)
+        int sk = -1;
+        for (int k = 0; k < 27 && sk < 0; ++k)
             if (row[k] == cell && shc[3 * k] == 0.0f && shc[3 * k + 1] == 0.0f &&
                 shc[3 * k + 2] == 0.0f)
-                s = k;
-        self_k = s;
+                sk = k;
+        self_k = sk;
     }
-    for (int t = threadIdx.x; t < n; t += blockDim.x) {
-        const int k = t / C;
-        if (row[k] < 0 || row[k] >= (int)gridDim.x) {
-            // an id outside the grid lists nothing: never read past it
-            sx[t] = sy[t] = sz[t] = 0.0f;
-            sv[t] = 0;
-            continue;
+    // the homes: the cell's live slots, in slot order (the barriers of the
+    // compaction publish self_k)
+    compact_cells(
+        1, C, tag, [&](const int) { return (long long)cell; }, hcnt,
+        [&](const int, const int s, const int idx, const long long) { hslot[idx] = s; });
+    const int nh = hcnt[1];
+    if (nh == 0) return;                        // the whole block: no live home
+    // the 27 listed cells, in table order, compacted
+    compact_cells(
+        27, C, tag,
+        [&](const int k) { return row[k] < 0 || row[k] >= nc ? -1LL : (long long)row[k]; }, off,
+        [&](const int k, const int, const int idx, const long long sl) {
+            ent[idx] = make_float4(pos[sl * 3 + 0] + shc[3 * k + 0],
+                                   pos[sl * 3 + 1] + shc[3 * k + 1],
+                                   pos[sl * 3 + 2] + shc[3 * k + 2], 0.0f);
+        });
+    // each staged cell's box (an empty one lies at infinity)
+    for (int k = w; k < 27; k += W) {
+        float b[6] = {CUDART_INF_F, CUDART_INF_F, CUDART_INF_F,
+                      -CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F};
+        for (int j = off[k] + lane; j < off[k + 1]; j += 32) {
+            const float4 e = ent[j];
+            b[0] = fminf(b[0], e.x), b[1] = fminf(b[1], e.y), b[2] = fminf(b[2], e.z);
+            b[3] = fmaxf(b[3], e.x), b[4] = fmaxf(b[4], e.y), b[5] = fmaxf(b[5], e.z);
         }
-        const long long slot = (long long)row[k] * C + (t - k * C);
-        sx[t] = pos[slot * 3 + 0] + shc[3 * k + 0];
-        sy[t] = pos[slot * 3 + 1] + shc[3 * k + 1];
-        sz[t] = pos[slot * 3 + 2] + shc[3 * k + 2];
-        sv[t] = tag[slot] >= 0;
+        for (int o = 16; o > 0; o >>= 1)
+            for (int a = 0; a < 3; ++a) {
+                b[a] = fminf(b[a], __shfl_xor_sync(0xffffffffu, b[a], o));
+                b[3 + a] = fmaxf(b[3 + a], __shfl_xor_sync(0xffffffffu, b[3 + a], o));
+            }
+        if (lane < 6) box[k * 6 + lane] = b[lane];
     }
     __syncthreads();
-    const int i = threadIdx.x;
-    if (i >= C) return;
     const PairPar lj = lj_par(ljp[2], ljp[3], ljp[0], ljp[1]);
-    float acc[10] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    const long long slot = cell * C + i;
-    if (tag[slot] >= 0)
-        stencil_sum<EV_LJ, false, true>(pos[slot * 3], pos[slot * 3 + 1], pos[slot * 3 + 2],
-                                 self_k >= 0 ? self_k * C + i : -1, n, sx, sy, sz, sv, lj,
-                                 acc);
-    for (int a = 0; a < 3; ++a) frc[slot * 3 + a] = acc[a];
-    pe[slot] = 0.5f * acc[3];
-    for (int c = 0; c < 6; ++c) vir[slot * 6 + c] = 0.5f * acc[4 + c];
+    float4* L = lst + w * kLjList;
+    for (int p = w; p < nh; p += W) {           // warp-uniform
+        const long long slot = (long long)cell * C + hslot[p];
+        const float xi = pos[slot * 3 + 0], yi = pos[slot * 3 + 1], zi = pos[slot * 3 + 2];
+        const int self = self_k >= 0 ? off[self_k] + p : -1;
+        float acc[10];
+#pragma unroll
+        for (int a = 0; a < 10; ++a) acc[a] = 0.0f;
+        int nl = 0;                             // pairs in the warp's list (warp-uniform)
+        // the first cnt entries of the list, a pair per lane, converged
+        auto evaluate = [&](const int cnt) {
+            __syncwarp();
+            if (lane < cnt) {
+                const float4 d = L[lane];
+                pair_acc<EV_LJ, false, true>(d.x, d.y, d.z, lj, acc);
+            }
+            __syncwarp();
+        };
+        // the staged cells the home walks: those whose box lies inside
+        // its cut
+        bool near = lane < 27;
+        if (near) {
+            const float* b = box + lane * 6;
+            const float dx = fmaxf(fmaxf(__fsub_rn(b[0], xi), __fsub_rn(xi, b[3])), 0.0f);
+            const float dy = fmaxf(fmaxf(__fsub_rn(b[1], yi), __fsub_rn(yi, b[4])), 0.0f);
+            const float dz = fmaxf(fmaxf(__fsub_rn(b[2], zi), __fsub_rn(zi, b[5])), 0.0f);
+            near = r2_rn(dx, dy, dz) < lj.rc2;
+        }
+        unsigned keep = __ballot_sync(0xffffffffu, near);
+        while (keep) {
+            // the next run of kept cells, k0 .. k1 - 1
+            const int k0 = __ffs(keep) - 1;
+            const int k1 = __ffs(~keep & (0xffffffffu << k0)) - 1;
+            keep &= 0xffffffffu << k1;
+            const int end = off[k1];
+            for (int j0 = off[k0]; j0 < end; j0 += 32) {
+                const int j = j0 + lane;
+                bool in = false;
+                float4 d = make_float4(0.f, 0.f, 0.f, 0.f);
+                if (j < end && j != self) {
+                    const float4 e = ent[j];
+                    d.x = xi - e.x;
+                    d.y = yi - e.y;
+                    d.z = zi - e.z;
+                    in = r2_rn(d.x, d.y, d.z) < lj.rc2;
+                }
+                const unsigned b = __ballot_sync(0xffffffffu, in);
+                if (in) L[nl + __popc(b & lanemask_lt())] = d;
+                nl += __popc(b);
+                if (nl >= 32) {
+                    evaluate(32);
+                    if (lane < nl - 32) L[lane] = L[32 + lane];
+                    nl -= 32;
+                }
+            }
+        }
+        evaluate(nl);
+#pragma unroll
+        for (int a = 0; a < 10; ++a) acc[a] = warp_sum(acc[a]);
+        if (lane == 0) {
+            for (int a = 0; a < 3; ++a) frc[slot * 3 + a] = acc[a];
+            pe[slot] = 0.5f * acc[3];
+            for (int c = 0; c < 6; ++c) vir[slot * 6 + c] = 0.5f * acc[4 + c];
+        }
+        __syncwarp();                           // the list is read before the next home
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -496,12 +611,19 @@ extern "C" {
 int hoomd_cell_pair_lj(const float* pos, const int* tag, const int* adj, const float* shifts,
                        const float* ljp, float* frc, float* pe, float* vir, int nc, int C,
                        void* stream) {
-    const size_t smem = stencil_smem_bytes(C);
+    const size_t smem = lj_adj_smem_bytes(C);
     cudaError_t e = set_smem(lj_adj_kernel, smem);
     if (e != cudaSuccess) return e;
-    lj_adj_kernel<<<nc, threads_for(C), smem, static_cast<cudaStream_t>(stream)>>>(
+    lj_adj_kernel<<<nc, 32 * kLjWarps, smem, static_cast<cudaStream_t>(stream)>>>(
         pos, tag, adj, shifts, ljp, C, frc, pe, vir);
     return cudaGetLastError();
+}
+
+// The build and occupancy of the adjacency-listed LJ kernel at capacity
+// C (kernel_occupancy's out[5]) and its threads per block (out[5]).
+int hoomd_cell_pair_lj_occupancy(int C, int* out) {
+    out[5] = 32 * kLjWarps;
+    return kernel_occupancy(lj_adj_kernel, out[5], lj_adj_smem_bytes(C), out);
 }
 
 // pos (nz, ny, nx, C, 3) cell-major, tag, shifts (nc, 27, 3), ljp as above;

@@ -1,5 +1,7 @@
 // Tiles of an x-row of cells, for the mixtures' planar kernel
-// (cell_pair_typed.cu) and the half stencil (cell_pair_impls.cu).
+// (cell_pair_typed.cu) and the half stencil (cell_pair_impls.cu); the
+// compaction of live slots (compact_cells) also stages the charged
+// kernel's and the adjacency-listed LJ kernel's 27 cells.
 //
 // A block takes a tile: tx <= TX consecutive cells x0 .. x0 + tx - 1 of
 // the x-row (iy, iz).  Its home particles are the live slots of those
@@ -82,24 +84,25 @@ __device__ inline void scan_counts(int* off, const int n) {
     if (lane == 0) off[0] = 0;
 }
 
-// Stable compaction of the live slots of n cells (cell_of(c) its id):
-// off[c] the first entry of cell c, off[n] the count, and put(c, s,
-// index, slot) for each live slot s, in (cell, slot) order.  Block-wide,
-// with the barriers it needs; off holds n + 1 ints of shared memory.
+// Stable compaction of the live slots of n cells (cell_of(c) its id; a
+// negative id lists nothing): off[c] the first entry of cell c, off[n]
+// the count, and put(c, s, index, slot) for each live slot s, in (cell,
+// slot) order.  Block-wide, with the barriers it needs; off holds n + 1
+// ints of shared memory.
 template <typename CellOf, typename Put>
 __device__ inline void compact_cells(const int n, const int C, const int* __restrict__ tag,
                                      CellOf cell_of, int* off, Put put) {
     constexpr int U = 4;                        // 32-slot chunks of a cell read at once
     const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, nw = blockDim.x >> 5;
     for (int c = w; c < n; c += nw) {
-        const long long base = cell_of(c) * C;
+        const long long id = cell_of(c), base = id * C;
         int cnt = 0;
         for (int s0 = 0; s0 < C; s0 += 32 * U) {
             bool live[U];
 #pragma unroll
             for (int u = 0; u < U; ++u) {
                 const int s = s0 + 32 * u + lane;
-                live[u] = s < C && tag[base + s] >= 0;
+                live[u] = id >= 0 && s < C && tag[base + s] >= 0;
             }
 #pragma unroll
             for (int u = 0; u < U; ++u) cnt += __popc(__ballot_sync(0xffffffffu, live[u]));
@@ -110,14 +113,14 @@ __device__ inline void compact_cells(const int n, const int C, const int* __rest
     scan_counts(off, n);
     __syncthreads();
     for (int c = w; c < n; c += nw) {
-        const long long base = cell_of(c) * C;
+        const long long id = cell_of(c), base = id * C;
         int run = off[c];
         for (int s0 = 0; s0 < C; s0 += 32 * U) {
             bool live[U];
 #pragma unroll
             for (int u = 0; u < U; ++u) {
                 const int s = s0 + 32 * u + lane;
-                live[u] = s < C && tag[base + s] >= 0;
+                live[u] = id >= 0 && s < C && tag[base + s] >= 0;
             }
 #pragma unroll
             for (int u = 0; u < U; ++u) {

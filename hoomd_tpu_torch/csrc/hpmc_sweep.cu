@@ -31,10 +31,11 @@
 // quaternion product) and the SAT of its nearest neighbours are serial
 // chains, and the sub-sweeps are ordered.
 //
-// hoomd_hpmc_sphere_sweep (first design): one launch per sub-sweep of
-// only the active cells, one block per cell; thread 0 draws the proposal,
-// every thread tests its share of the 27 C window slots straight from
-// device memory, __syncthreads_or gives the veto, thread 0 commits.
+// hoomd_hpmc_sphere_sweep: ONE cooperative launch per call, a block per
+// active cell, the proposals of a segment drawn at its start in
+// parallel, grid.sync() between the sub-sweeps (see "The sphere sweep"
+// below).  Its first design made one launch per
+// sub-sweep, and thread 0 alone drew each trial while the block waited.
 //
 // hoomd_hpmc_poly_sweep: ONE cooperative launch per call (persistent
 // blocks, a thread per window slot, grid.sync() between the ordered
@@ -242,14 +243,14 @@ __device__ __forceinline__ bool sep_rest(const PolyTables& T, const PairFrame& F
     return sep_edge(T, F, a / T.ne, a % T.ne);
 }
 
-// The active cell of this block for parity (pz, py, px), and its flat id.
-__device__ __forceinline__ int active_cell(const Geom& g, int pz, int py, int px, int& z, int& y,
-                                           int& x) {
+// Active cell m of parity class c (x parity in bit 0, z in bit 2), its
+// coordinates and its flat id.
+__device__ __forceinline__ int class_cell(const Geom& g, const int c, const int m, int& z, int& y,
+                                          int& x) {
     const int hx = g.nx / 2, hy = g.ny / 2;
-    const int b = blockIdx.x;
-    x = px + 2 * (b % hx);
-    y = py + 2 * ((b / hx) % hy);
-    z = pz + 2 * (b / (hx * hy));
+    x = (c & 1) + 2 * (m % hx);
+    y = ((c >> 1) & 1) + 2 * ((m / hx) % hy);
+    z = (c >> 2) + 2 * (m / (hx * hy));
     return (z * g.ny + y) * g.nx + x;
 }
 
@@ -264,87 +265,340 @@ __device__ __forceinline__ int window_slot(const Geom& g, int z, int y, int x, i
 }
 
 // Mover pick of one cell: slot, whether the cell holds any, live[pick].
+// The live count adds the slots in slot order; their loads go out
+// kPickLoads at a time.
+constexpr int kPickLoads = 16;
+
 __device__ __forceinline__ void pick_mover(const float* __restrict__ live, int cell, int C,
                                            float u_sel, int& pick, bool& has, float& pl) {
     float cnt = 0.f;
-    for (int l = 0; l < C; ++l) cnt = fa(cnt, live[cell * C + l]);
+    for (int l0 = 0; l0 < C; l0 += kPickLoads) {
+        float v[kPickLoads];
+#pragma unroll
+        for (int u = 0; u < kPickLoads; ++u) v[u] = l0 + u < C ? live[cell * C + l0 + u] : 0.f;
+#pragma unroll
+        for (int u = 0; u < kPickLoads; ++u)
+            if (l0 + u < C) cnt = fa(cnt, v[u]);
+    }
     const int ci = (int)cnt;
     pick = min((int)fm(u_sel, cnt), max(ci - 1, 0));
     has = cnt > 0.5f;
     pl = live[cell * C + pick];
 }
 
-struct SphereTrial {
+// ---------------------------------------------------------------------------
+// What both sweeps share: a call is ONE cooperative launch (chained past
+// kMaxSub sub-sweeps), whose blocks are all co-resident.
+
+constexpr int kMaxSweepThreads = 512;
+constexpr int kMaxSub = 1024;            // sub-sweeps of one launch
+
+// The threads of a sweep's block: a thread per window slot (27 C, in
+// whole warps), at most kMaxSweepThreads.
+static int threads_for(int C) {
+    const int n = ((27 * C + 31) / 32) * 32;
+    return n < kMaxSweepThreads ? n : kMaxSweepThreads;
+}
+
+// Each sub-sweep's class of perms[0 .. n), | 8 where a segment starts (a
+// run of sub-sweeps in which no class comes twice, so no cell is active
+// twice).
+static cudaError_t encode_segments(const int* perms, const int n, unsigned char* code) {
+    unsigned seen = 0;
+    for (int s = 0; s < n; ++s) {
+        const int c = perms[s];
+        if (c < 0 || c > 7) return cudaErrorInvalidValue;
+        const bool start = s == 0 || ((seen >> c) & 1u);
+        if (start) seen = 0;
+        seen |= 1u << c;
+        code[s] = (unsigned char)(c | (start ? 8 : 0));
+    }
+    return cudaSuccess;
+}
+
+// The blocks of a cooperative launch of `kernel`: as many as the card
+// holds at once, at most `want`.
+template <typename K>
+static cudaError_t coop_blocks(K kernel, const int threads, const size_t smem, const int want,
+                               int* blocks) {
+    int dev = 0, sms = 0, per_sm = 0, coop = 0;
+    cudaError_t e;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+    if ((e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess)
+        return e;
+    if (!coop) return cudaErrorNotSupported;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+        return e;
+    if ((e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)) != cudaSuccess)
+        return e;
+    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) !=
+        cudaSuccess)
+        return e;
+    if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+    *blocks = std::max(1, std::min(per_sm * sms, want));
+    return cudaSuccess;
+}
+
+// ---------------------------------------------------------------------------
+// The sphere sweep.
+//
+// A block takes an active cell of a sub-sweep; block b of the G blocks
+// takes cells m = b, b + G, ... of every class, so it owns the same cells
+// in every sub-sweep, and a thread takes a slot of the cell's window.
+//   * prologue: each block copies its own cells' slots from the input
+//     planes (read in place, strided) into the output planes; block 0
+//     zeroes the counts;
+//   * at a segment's start each block draws the proposals of its cells of
+//     the segment's classes into shared memory, a thread per (class,
+//     cell), from the state then, which is the state the cell's
+//     sub-sweep will see (only a cell's own commit moves its mover); the
+//     first segment of a call draws from the input planes, beside the
+//     copy;
+//   * a sub-sweep: each thread tests its window slots (the ids, live
+//     flags and thresholds (r + r_j)^2 of its first KP slots are found
+//     before the sub-sweep's grid barrier, since they read no plane),
+//     __syncthreads_or gives the veto, thread 0 commits and tallies;
+//     a grid.sync() separates the sub-sweeps;
+//   * the tallies go to the counts with integer atomics at the end.
+// The kernel keeps no state between calls.  A design that replaced the
+// grid barriers by per-cell commit flags kept between calls was 10%
+// faster (PERF.md §7) but unsafe across streams and under graph capture.
+// A warp per cell, its lanes walking the window 8 slots each, took 3x
+// longer: each slot's minimum image costs three exact divides, and the
+// lanes' chains were serial.
+// sweep-parts builds this file also with SPHERE_SWEEP_NO_TESTS (every
+// trial accepted) and with SPHERE_SWEEP_NO_CELLS as well (the prologue,
+// the barriers and the tallies alone).
+
+// A cell's drawn trial: new position, the mover's present one, its
+// radius and live flag, pick | has << 16.
+struct SphereProp {
     float x[3];
-    float r;
-    float pl;
-    int pick;
-    int has;
+    float raw[3];
+    float r, pl;
+    int meta;
 };
 
-__global__ void sphere_subsweep(float* __restrict__ px, float* __restrict__ py,
-                                float* __restrict__ pz, const float* __restrict__ rad,
-                                const float* __restrict__ dmv, const float* __restrict__ live,
-                                const float* __restrict__ u, int cz, int cy, int cx, Geom g,
-                                int* __restrict__ cnt) {
-    __shared__ SphereTrial tr;
-    int z, y, x;
-    const int cell = active_cell(g, cz, cy, cx, z, y, x);
-    const int ncells = g.nx * g.ny * g.nz;
-    float* P[3] = {px, py, pz};
-    if (threadIdx.x == 0) {
-        const float* uc = u + cell;
-        int pick;
-        bool has;
-        float pl;
-        pick_mover(live, cell, g.C, uc[0], pick, has, pl);
-        const int slot = cell * g.C + pick;
-        float g1, g2, g3;
-        gaussians(uc[1 * ncells], uc[2 * ncells], uc[3 * ncells], uc[4 * ncells], g1, g2, g3);
-        const float gn = rsqrtf(fa(sum3sq(g1, g2, g3), kTiny));
-        const float rball = expf(fm(logf(fa(uc[5 * ncells], kTiny)), kThird));
-        const float step = fm(fm(fm(dmv[slot], pl), rball), gn);
-        const float gv[3] = {g1, g2, g3};
-        for (int k = 0; k < 3; ++k)
-            tr.x[k] = wrap_box(fa(fm(P[k][slot], pl), fm(gv[k], step)), g.L[k]);
-        tr.r = fm(rad[slot], pl);
-        tr.pl = pl;
-        tr.pick = pick;
-        tr.has = has;
+struct SphereArgs {
+    const float* in[3];
+    int in_stride[3];
+    float* out;                       // the 3 new planes
+    const float* rad;
+    const float* dmv;
+    const float* live;
+    const float* u;                   // uniforms of the launch's first sub-sweep
+    int* cnt;
+    Geom g;
+    int nsub, first, nper;            // nper: cells per block and class
+    unsigned char code[kMaxSub];
+};
+
+// The proposal of cell `cell` from its uniforms uc[k * ncells] and the
+// planes P (element i of plane k at P[k][i * st[k]]), as the plain
+// version draws it.
+__device__ __forceinline__ void draw_sphere(const SphereArgs& a, const float* const* P,
+                                            const int* st, const float* uc, const int cell,
+                                            const int ncells, SphereProp& pr) {
+    const Geom& g = a.g;
+    int pick;
+    bool has;
+    float pl;
+    pick_mover(a.live, cell, g.C, uc[0], pick, has, pl);
+    const int slot = cell * g.C + pick;
+    float g1, g2, g3;
+    gaussians(uc[1 * ncells], uc[2 * ncells], uc[3 * ncells], uc[4 * ncells], g1, g2, g3);
+    const float gn = rsqrtf(fa(sum3sq(g1, g2, g3), kTiny));
+    const float rball = expf(fm(logf(fa(uc[5 * ncells], kTiny)), kThird));
+    const float step = fm(fm(fm(a.dmv[slot], pl), rball), gn);
+    const float gv[3] = {g1, g2, g3};
+    for (int k = 0; k < 3; ++k) {
+        const float raw = P[k][(long long)slot * st[k]];
+        pr.raw[k] = raw;
+        pr.x[k] = wrap_box(fa(fm(raw, pl), fm(gv[k], step)), g.L[k]);
     }
-    __syncthreads();
-    int hit = 0;
-    const int n = 27 * g.C;
-    for (int k = threadIdx.x; k < n && !hit; k += blockDim.x) {
-        const int j = window_slot(g, z, y, x, k);
-        if (!(live[j] > 0.5f)) continue;
-        if (k == kCenter * g.C + tr.pick && tr.pl > 0.5f) continue;
-        const float dx = min_image(fs(tr.x[0], px[j]), g.L[0]);
-        const float dy = min_image(fs(tr.x[1], py[j]), g.L[1]);
-        const float dz = min_image(fs(tr.x[2], pz[j]), g.L[2]);
-        const float thr = fa(tr.r, rad[j]);
-        hit = sum3sq(dx, dy, dz) < fm(thr, thr);
-    }
-    hit = __syncthreads_or(hit);
-    if (threadIdx.x == 0) {
-        const bool acc = tr.has && !hit;
-        const float sel = fm(tr.pl, acc ? 1.f : 0.f);
-        const int slot = cell * g.C + tr.pick;
-        for (int k = 0; k < 3; ++k) {
-            const float raw = P[k][slot];
-            P[k][slot] = fa(raw, fm(sel, fs(tr.x[k], raw)));
+    pr.r = fm(a.rad[slot], pl);
+    pr.pl = pl;
+    pr.meta = pick | (has ? 1 << 16 : 0);
+}
+
+__global__ void __launch_bounds__(kMaxSweepThreads) sphere_sweep_kernel(const SphereArgs a) {
+    constexpr int KP = 2;                       // window slots per thread known before a barrier
+    extern __shared__ float4 sphere_shared[];
+    const Geom& g = a.g;
+    const int ncells = g.nx * g.ny * g.nz, nslots = ncells * g.C, n = 27 * g.C;
+    float* const P[3] = {a.out, a.out + nslots, a.out + 2 * nslots};
+    const int ones[3] = {1, 1, 1};
+    const int tid = threadIdx.x, nt = blockDim.x, G = gridDim.x, b0 = blockIdx.x;
+    const int M = (g.nx / 2) * (g.ny / 2) * (g.nz / 2);
+    const int nper = a.nper;
+    SphereProp* prop = reinterpret_cast<SphereProp*>(sphere_shared);   // [class][i]
+    // prologue: the block's own cells' slots
+    if (a.first) {
+        for (int e = tid; e < 8 * nper * g.C; e += nt) {
+            const int l = e % g.C, ci = e / g.C, c = ci & 7, m = b0 + (ci >> 3) * G;
+            if (m >= M) continue;
+            int z, y, x;
+            const int slot = class_cell(g, c, m, z, y, x) * g.C + l;
+            for (int k = 0; k < 3; ++k) P[k][slot] = a.in[k][(long long)slot * a.in_stride[k]];
         }
-        if (tr.has) atomicAdd(&cnt[1], 1);
-        if (acc) atomicAdd(&cnt[0], 1);
+        if (b0 == 0 && tid == 0) a.cnt[0] = a.cnt[1] = 0;
     }
+    int tally[2] = {0, 0};                      // the block's accepts and tries (thread 0)
+    // what a cell's trial needs before its sub-sweep's barrier: for this
+    // thread's window slots k = tid + q nt, the slot and the threshold
+    // (r + r_j)^2, -1 where the slot is no candidate (not live, or the
+    // mover)
+    struct Trial {
+        int cell, z, y, x;
+        int j[KP];
+        float thr2[KP];
+    };
+    auto prepare = [&](const int c, const int m, const int i) {
+        Trial t;
+        t.cell = class_cell(g, c, m, t.z, t.y, t.x);
+        const SphereProp& p = prop[c * nper + i];
+        const int pick = p.meta & 0xffff;
+#pragma unroll
+        for (int q = 0; q < KP; ++q) {
+            const int k = tid + q * nt;
+            t.j[q] = 0;
+            t.thr2[q] = -1.f;
+            if (k < n) {
+                const int j = window_slot(g, t.z, t.y, t.x, k);
+                t.j[q] = j;
+                if (a.live[j] > 0.5f && !(k == kCenter * g.C + pick && p.pl > 0.5f)) {
+                    const float thr = fa(p.r, a.rad[j]);
+                    t.thr2[q] = fm(thr, thr);
+                }
+            }
+        }
+        return t;
+    };
+    Trial tr;
+    for (int s = 0; s < a.nsub; ++s) {
+        const int c = a.code[s] & 7;
+        if (a.code[s] & 8) {
+            if (s > 0) cg::this_grid().sync();  // the last sub-sweep's commits
+#ifndef SPHERE_SWEEP_NO_CELLS
+            // the block's cells of the segment's classes: thread (r, cls)
+            // draws the r-th for class cls
+            const bool from_in = a.first && s == 0;
+            const float* const* src = from_in ? a.in : P;
+            const int* st = from_in ? a.in_stride : ones;
+            const int cls = tid & 7;
+            int sub = -1;
+            for (int j = s; j < a.nsub && (j == s || !(a.code[j] & 8)); ++j)
+                if ((a.code[j] & 7) == cls) {
+                    sub = j;
+                    break;
+                }
+            for (int i = tid >> 3; sub >= 0 && i < nper; i += nt >> 3) {
+                const int m = b0 + i * G;
+                if (m >= M) continue;
+                int z, y, x;
+                const int cell = class_cell(g, cls, m, z, y, x);
+                draw_sphere(a, src, st, a.u + (long long)sub * 6 * ncells + cell, cell, ncells,
+                            prop[cls * nper + i]);
+            }
+            __syncthreads();
+            if (b0 < M) tr = prepare(c, b0, 0);
+#endif
+            if (s == 0) cg::this_grid().sync();  // the copied planes
+        } else {
+            cg::this_grid().sync();             // the last sub-sweep's commits
+        }
+#ifndef SPHERE_SWEEP_NO_CELLS
+        for (int i = 0, m = b0; m < M; ++i, m += G) {
+            if (i > 0) tr = prepare(c, m, i);
+            const SphereProp& p = prop[c * nper + i];
+            const bool has = (p.meta >> 16) & 1;
+            int hit = 0;
+#ifndef SPHERE_SWEEP_NO_TESTS
+            if (has) {
+#pragma unroll
+                for (int q = 0; q < KP; ++q) {
+                    if (!(tr.thr2[q] >= 0.f)) continue;
+                    const int j = tr.j[q];
+                    const float dx = min_image(fs(p.x[0], __ldcg(P[0] + j)), g.L[0]);
+                    const float dy = min_image(fs(p.x[1], __ldcg(P[1] + j)), g.L[1]);
+                    const float dz = min_image(fs(p.x[2], __ldcg(P[2] + j)), g.L[2]);
+                    hit |= sum3sq(dx, dy, dz) < tr.thr2[q];
+                }
+                for (int k = tid + KP * nt; k < n; k += nt) {
+                    const int j = window_slot(g, tr.z, tr.y, tr.x, k);
+                    if (!(a.live[j] > 0.5f) ||
+                        (k == kCenter * g.C + (p.meta & 0xffff) && p.pl > 0.5f))
+                        continue;
+                    const float dx = min_image(fs(p.x[0], __ldcg(P[0] + j)), g.L[0]);
+                    const float dy = min_image(fs(p.x[1], __ldcg(P[1] + j)), g.L[1]);
+                    const float dz = min_image(fs(p.x[2], __ldcg(P[2] + j)), g.L[2]);
+                    const float thr = fa(p.r, a.rad[j]);
+                    hit |= sum3sq(dx, dy, dz) < fm(thr, thr);
+                }
+            }
+#endif
+            hit = __syncthreads_or(hit);
+            if (tid == 0) {
+                const bool acc = has && !hit;
+                const float sel = fm(p.pl, acc ? 1.f : 0.f);
+                const int slot = tr.cell * g.C + (p.meta & 0xffff);
+                for (int k = 0; k < 3; ++k)
+                    P[k][slot] = fa(p.raw[k], fm(sel, fs(p.x[k], p.raw[k])));
+                tally[1] += has;
+                tally[0] += acc;
+            }
+        }
+        // the next sub-sweep's first trial, where it needs no new draw
+        if (s + 1 < a.nsub && !(a.code[s + 1] & 8) && b0 < M)
+            tr = prepare(a.code[s + 1] & 7, b0, 0);
+#endif
+    }
+    if (tid == 0 && (tally[0] | tally[1])) {
+        atomicAdd(&a.cnt[0], tally[0]);
+        atomicAdd(&a.cnt[1], tally[1]);
+    }
+}
+
+// The dynamic shared memory of the sphere sweep's block: the proposals.
+static size_t sphere_smem(const int nper) { return (size_t)8 * nper * sizeof(SphereProp); }
+
+static cudaError_t launch_sphere(SphereArgs& a, const int* perms, const int nsub,
+                                 const float* randu, cudaStream_t st) {
+    const Geom& g = a.g;
+    const int threads = threads_for(g.C);
+    const int M = (g.nx / 2) * (g.ny / 2) * (g.nz / 2);
+    const long long ncells = (long long)g.nx * g.ny * g.nz;
+    // the co-resident blocks, at the shared memory of the cells each block
+    // then takes
+    int blocks = M;
+    cudaError_t e;
+    for (int nper = 0; nper != (M + blocks - 1) / blocks;) {
+        nper = (M + blocks - 1) / blocks;
+        e = coop_blocks(sphere_sweep_kernel, threads, sphere_smem(nper), M, &blocks);
+        if (e != cudaSuccess) return e;
+    }
+    a.nper = (M + blocks - 1) / blocks;
+    int s0 = 0;
+    do {
+        const int nn = std::min(kMaxSub, nsub - s0);
+        if ((e = encode_segments(perms + s0, nn, a.code)) != cudaSuccess) return e;
+        a.nsub = nn;
+        a.first = s0 == 0;
+        a.u = randu + (long long)s0 * 6 * ncells;
+        void* args[] = {&a};
+        e = cudaLaunchCooperativeKernel((const void*)sphere_sweep_kernel, dim3(blocks),
+                                        dim3(threads), args, sphere_smem(a.nper), st);
+        if (e != cudaSuccess) return e;
+        s0 += nn;
+    } while (s0 < nsub);
+    return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
 // The polyhedron sweep: one cooperative launch per call (up to kMaxSub
 // sub-sweeps), persistent blocks, a block per active cell.
 
-constexpr int kMaxSweepThreads = 512;
-constexpr int kMaxSub = 1024;            // sub-sweeps of one launch
 constexpr int kAxisLanes = 8;            // lanes on one pair's remaining axes
 
 // One launch: the input planes, the output (7 planes, then the proposals,
@@ -423,13 +677,6 @@ __device__ void draw_poly(const PolyArgs& a, const float* const* P, const float*
     for (int k = 0; k < 7; ++k) prop[(18 + k) * ncells] = raw[k];
 }
 
-// The threads of a sweep's block: a thread per window slot (27 C, in
-// whole warps), at most kMaxSweepThreads.
-static int threads_for(int C) {
-    const int n = ((27 * C + 31) / 32) * 32;
-    return n < kMaxSweepThreads ? n : kMaxSweepThreads;
-}
-
 __global__ void __launch_bounds__(kMaxSweepThreads) poly_sweep_kernel(const PolyArgs a) {
     cg::grid_group grid = cg::this_grid();
     __shared__ PolyTables T;
@@ -447,12 +694,8 @@ __global__ void __launch_bounds__(kMaxSweepThreads) poly_sweep_kernel(const Poly
         int* dst = reinterpret_cast<int*>(&T);
         for (int i = tid; i < (int)(sizeof(PolyTables) / sizeof(int)); i += nt) dst[i] = src[i];
     }
-    // active cell m of class c
     auto cell_of = [&](const int c, const int m, int& z, int& y, int& x) {
-        x = (c & 1) + 2 * (m % hx);
-        y = ((c >> 1) & 1) + 2 * ((m / hx) % hy);
-        z = (c >> 2) + 2 * (m / (hx * hy));
-        return (z * g.ny + y) * g.nx + x;
+        return class_cell(g, c, m, z, y, x);
     };
     if (a.first) {
         const int gt = blockIdx.x * nt + tid, gn = gridDim.x * nt;
@@ -611,22 +854,48 @@ using namespace hoomd_hpmc;
 
 extern "C" {
 
-int hoomd_hpmc_sphere_sweep(float* px, float* py, float* pz, const float* rad, const float* dmv,
+// px, py, pz: the input planes, element i of plane k at in_k[i *
+// strides[k]] (strides, perms on the host); rad, dmv, live contiguous;
+// randu (nsub, 6, nz, ny, nx); out: the 3 new planes of nx ny nz C
+// floats; cnt [accepts, tries].
+int hoomd_hpmc_sphere_sweep(const float* px, const float* py, const float* pz,
+                            const int* strides, const float* rad, const float* dmv,
                             const float* live, const float* randu, const int* perms, int nsub,
-                            int* cnt, int nx, int ny, int nz, int C, float Lx, float Ly,
-                            float Lz, cudaStream_t st) {
-    const Geom g{nx, ny, nz, C, {Lx, Ly, Lz}};
-    const long long ncells = (long long)nx * ny * nz;
-    const int blocks = (nx / 2) * (ny / 2) * (nz / 2);
-    for (int s = 0; s < nsub; ++s) {
-        const int c = perms[s];
-        sphere_subsweep<<<blocks, threads_for(C), 0, st>>>(
-            px, py, pz, rad, dmv, live, randu + (long long)s * 6 * ncells, c / 4, (c / 2) % 2,
-            c % 2, g, cnt);
-        const cudaError_t e = cudaGetLastError();
-        if (e != cudaSuccess) return e;
+                            float* out, int* cnt, int nx, int ny, int nz, int C, float Lx,
+                            float Ly, float Lz, cudaStream_t st) {
+    if (nsub < 0) return cudaErrorInvalidValue;
+    SphereArgs a;
+    const float* in[3] = {px, py, pz};
+    for (int k = 0; k < 3; ++k) {
+        a.in[k] = in[k];
+        a.in_stride[k] = strides[k];
     }
-    return cudaGetLastError();
+    a.out = out;
+    a.rad = rad;
+    a.dmv = dmv;
+    a.live = live;
+    a.cnt = cnt;
+    a.g = Geom{nx, ny, nz, C, {Lx, Ly, Lz}};
+    return launch_sphere(a, perms, nsub, randu, st);
+}
+
+// The build and occupancy of the sphere sweep at capacity C (a cell per
+// block and class, R = 1): out = [registers per thread, local (spill)
+// bytes per thread, static shared bytes, dynamic shared bytes, blocks per
+// SM, threads per block].
+int hoomd_hpmc_sphere_occupancy(int C, int* out) {
+    const size_t smem = sphere_smem(1);
+    cudaError_t e = cudaFuncSetAttribute(sphere_sweep_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    cudaFuncAttributes fa;
+    if ((e = cudaFuncGetAttributes(&fa, sphere_sweep_kernel)) != cudaSuccess) return e;
+    out[0] = fa.numRegs;
+    out[1] = (int)fa.localSizeBytes;
+    out[2] = (int)fa.sharedSizeBytes;
+    out[3] = (int)smem;
+    out[5] = threads_for(C);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], sphere_sweep_kernel, out[5], smem);
 }
 
 int hoomd_hpmc_poly_sweep(const float* px, const float* py, const float* pz, const float* qw,
@@ -667,39 +936,18 @@ int hoomd_hpmc_poly_sweep(const float* px, const float* py, const float* pz, con
     a.d_mv = d_mv;
     a.a_mv = a_mv;
     a.m_ratio = m_ratio;
-    int dev = 0, sms = 0, per_sm = 0, coop = 0;
-    cudaError_t e;
-    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-    if ((e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess)
-        return e;
-    if (!coop) return cudaErrorNotSupported;
-    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-        return e;
     const int threads = threads_for(C);
     const size_t smem = poly_smem(C);
-    if ((e = cudaFuncSetAttribute(poly_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem)) != cudaSuccess)
-        return e;
-    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, poly_sweep_kernel, threads,
-                                                           smem)) != cudaSuccess)
-        return e;
-    if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
     // a block per active cell where the co-resident blocks hold them all
     const int M = (nx / 2) * (ny / 2) * (nz / 2);
-    const int blocks = std::max(1, std::min(per_sm * sms, M));
+    int blocks = 0;
+    cudaError_t e = coop_blocks(poly_sweep_kernel, threads, smem, M, &blocks);
+    if (e != cudaSuccess) return e;
     const long long ncells = (long long)nx * ny * nz;
     int s0 = 0;
     do {
         const int n = std::min(kMaxSub, nsub - s0);
-        unsigned seen = 0;
-        for (int s = 0; s < n; ++s) {
-            const int c = perms[s0 + s];
-            if (c < 0 || c > 7) return cudaErrorInvalidValue;
-            const bool start = s == 0 || ((seen >> c) & 1u);
-            if (start) seen = 0;
-            seen |= 1u << c;
-            a.code[s] = (unsigned char)(c | (start ? 8 : 0));
-        }
+        if ((e = encode_segments(perms + s0, n, a.code)) != cudaSuccess) return e;
         a.nsub = n;
         a.first = s0 == 0;
         a.u = randu + (long long)s0 * 12 * ncells;

@@ -22,11 +22,10 @@ pick the cells it launches.  ``randu`` lies with the planes.
 
 On a CUDA tensor a wrapper launches its hand-written kernel
 (csrc/hpmc_sweep.cu) or raises; on a CPU tensor it runs the plain
-version.  Nothing falls back from one to the other.  The sphere sweep
-makes one launch per sub-sweep, one block per active cell (8R per
-call); the polyhedron sweep one cooperative launch per call, a block
-per active cell, which writes new planes and counts: the wrapper clones
-nothing, and reads strided planes (cell_planes's views) in place.  Each
+version.  Nothing falls back from one to the other.  Each sweep is one
+cooperative launch per call, a block per active cell, which writes new
+planes and counts: the wrapper clones nothing, zero-fills nothing, and
+reads strided position planes (cell_planes's views) in place.  Each
 wrapper counts its calls in ``<wrapper>.launches``.
 """
 
@@ -450,19 +449,22 @@ def fused_sphere_sweep(px, py, pz, rad, dmv, live, perms, randu, *,
                                         randu, cell_dim=cell_dim, C=C, R=R,
                                         box_L=box_L)
     lib = _kernel_lib()
-    x, y, z, r, d, lv, u = _device_args(planes, live, randu)
-    x, y, z = x.clone(), y.clone(), z.clone()
-    cnt = torch.zeros((2,), dtype=torch.int32, device=x.device)
-    pm = _perms_host(perms, R)
+    ins, strides = _strided_planes((px, py, pz))
+    r, d, lv, u = _device_args((rad, dmv), live, randu)
     nx, ny, nz = cell_dim
+    nslots = nx * ny * nz * C
+    buf = torch.empty(3 * nslots, dtype=torch.float32, device=lv.device)
+    cnt = torch.empty((2,), dtype=torch.int32, device=lv.device)
+    pm = _perms_host(perms, R)
     Lx, Ly, Lz = (float(F32(v)) for v in box_L)
     err = lib.lib.hoomd_hpmc_sphere_sweep(
-        x.data_ptr(), y.data_ptr(), z.data_ptr(), r.data_ptr(), d.data_ptr(),
-        lv.data_ptr(), u.data_ptr(), pm.data_ptr(), 8 * R, cnt.data_ptr(),
-        nx, ny, nz, C, Lx, Ly, Lz, _stream(x))
+        *[a.data_ptr() for a in ins], strides.ctypes.data_as(ctypes.c_void_p),
+        r.data_ptr(), d.data_ptr(), lv.data_ptr(), u.data_ptr(),
+        pm.data_ptr(), 8 * R, buf.data_ptr(), cnt.data_ptr(),
+        nx, ny, nz, C, Lx, Ly, Lz, _stream(lv))
     lib.check(err, 'fused_sphere_sweep')
     fused_sphere_sweep.launches += 1
-    return x, y, z, cnt[0], cnt[1]
+    return buf.view((3,) + tuple(px.shape)).unbind(0) + (cnt[0], cnt[1])
 
 
 fused_sphere_sweep.launches = 0

@@ -43,6 +43,7 @@ _SIGNATURES = {
     'hoomd_step_plane': [P, P, P, P, P, P, P, P, I, P, F, P, P, P, P, P,
                          I, I, I, I, I, I, P],
     'hoomd_cell_pair_lj': [P, P, P, P, P, P, P, P, I, I, P],
+    'hoomd_cell_pair_lj_occupancy': [I, P],
     'hoomd_cell_pair_lj3d': [P, P, P, P, P, I, I, I, I, P],
     'hoomd_cell_pair_lj_row': [P, P, P, P, P, I, I, I, I, I, P],
     'hoomd_cell_pair_n3l': [P, P, P, P, P, I, I, P, P, I, I, I, I, I, I, P],
@@ -53,8 +54,9 @@ _SIGNATURES = {
     'hoomd_cell_pair_planar_q': [P, P, P, P, P, P, I, I, P, P, P, I, I, I, I,
                                  I, I, P],
     'hoomd_planar_q_occupancy': [I, I, I, I, I, I, P],
-    'hoomd_hpmc_sphere_sweep': [P, P, P, P, P, P, P, P, I, P,
+    'hoomd_hpmc_sphere_sweep': [P, P, P, P, P, P, P, P, P, I, P, P,
                                 I, I, I, I, F, F, F, P],
+    'hoomd_hpmc_sphere_occupancy': [I, P],
     'hoomd_hpmc_poly_sweep': [P, P, P, P, P, P, P, P, P, P, P, I, P, P,
                               P, I, I, I, F, F, F,
                               I, I, I, I, F, F, F, P],

@@ -16,7 +16,9 @@ NVIDIA GPU.
     python3 profile_torch_bench.py tiles     # the tile kernels' tile widths
     python3 profile_torch_bench.py ka-bits [TREE]  # the KA job's end bits
     python3 profile_torch_bench.py sweeps [TREE]   # the HPMC sweeps' times
-    python3 profile_torch_bench.py sweep-parts     # a poly sweep's parts
+    python3 profile_torch_bench.py jobs [TREE]     # the sphere, cube, pallas jobs
+    python3 profile_torch_bench.py sweep-parts [poly] [sphere]  # a sweep's parts
+    python3 profile_torch_bench.py profiler  # what torch.profiler sees
 
 from the root of the repository.  It runs chip_smoke.py's bench job
 (bench.py's script: Langevin melt, Nose-Hoover NVT, cadence warmup) and
@@ -74,14 +76,20 @@ KA table, row 7 at the bench shape.  With ``ka-bits [TREE]`` it runs
 chip_smoke.py's KA job script through the hoomd_tpu_torch of TREE (by
 default this checkout) and prints T and PE/N at the end of its NVT
 window exactly; chip_smoke.py's KA_PARENT_T and KA_PARENT_PE come from
-it on the tree of the parent design.  With ``sweeps [TREE]`` it times
+it on the tree of the parent design.  With ``jobs [TREE]`` it runs
+chip_smoke.py's hard-sphere, cube and HOOMD_TPU_FAST_IMPL=pallas jobs
+through the hoomd_tpu_torch of TREE, with their gates; run on two trees
+in turns, in separate processes, it compares their end-to-end numbers on
+one card.  With ``sweeps [TREE]`` it times
 each HPMC sweep (fused_sphere_sweep, fused_poly_sweep) at its job
 script's plan through the hoomd_tpu_torch of TREE: ms per wrapper call
 by CUDA events and device ms per call by torch.profiler; with
-``sweep-parts`` the polyhedron sweep built as it is, without its overlap
-tests and without any per-cell work (csrc/hpmc_sweep.cu's profiling
-switches), each timed the same way.  It checks nothing; chip_smoke.py is
-the check.
+``sweep-parts [poly] [sphere]`` the polyhedron (by default) or the
+sphere sweep built as it is, without its overlap tests and without any
+per-cell work (csrc/hpmc_sweep.cu's profiling switches), each timed the
+same way.  With ``profiler`` it probes whether torch.profiler lists short calls'
+kernels (chip_smoke.py device_ms).  Beyond those holds it checks
+nothing; chip_smoke.py is the check.
 """
 
 from __future__ import annotations
@@ -486,6 +494,22 @@ def ka_bits(tree=None):
         'PE_N': q['potential_energy'] / system.state.N}}), flush=True)
 
 
+def job_times(tree=None):
+    """chip_smoke.py's hard-sphere and config-5 cube jobs and its
+    HOOMD_TPU_FAST_IMPL=pallas job through the hoomd_tpu_torch of
+    ``tree`` (by default this checkout), with their gates: each prints
+    its metric line (trial moves/s; ms per step)."""
+    if tree:
+        sys.path.insert(0, os.path.abspath(tree))
+    from chip_smoke import card_line, hpmc_job, impl_job
+    import hoomd_tpu_torch
+    print(f"package: {os.path.dirname(hoomd_tpu_torch.__file__)}", flush=True)
+    c = card_line()
+    hpmc_job('sphere', c)
+    hpmc_job('cube', c)
+    impl_job('pallas')
+
+
 def sweep_times(tree=None, iters=50):
     """Each HPMC sweep kernel (rows 13 and 14) at its job script's plan,
     through the hoomd_tpu_torch of ``tree`` (by default this checkout):
@@ -514,63 +538,168 @@ def sweep_times(tree=None, iters=50):
         hoomd_tpu_torch.__file__)}), flush=True)
 
 
-def sweep_parts(iters=50):
-    """Where a polyhedron sweep call's device time goes at config 5's
-    plan: csrc/hpmc_sweep.cu built as it is, with POLY_SWEEP_NO_SAT (no
-    overlap tests: every trial accepted) and with POLY_SWEEP_NO_CELLS too
-    (no draws, trials or commits: the prologue, the barriers and the
-    tallies alone), each timed through the fused_poly_sweep wrapper on
-    chip_smoke.py's seeded inputs (ms per call by CUDA events, device ms
-    by torch.profiler)."""
+# The profiling builds of csrc/hpmc_sweep.cu for `sweep-parts`: per sweep,
+# its C entry point and the switches that leave parts out
+SWEEP_PARTS = {
+    'poly': ('hoomd_hpmc_poly_sweep', {
+        'as built': [], 'no SAT': ['-DPOLY_SWEEP_NO_SAT'],
+        'no cells': ['-DPOLY_SWEEP_NO_SAT', '-DPOLY_SWEEP_NO_CELLS']}),
+    'sphere': ('hoomd_hpmc_sphere_sweep', {
+        'as built': [], 'no tests': ['-DSPHERE_SWEEP_NO_TESTS'],
+        'no cells': ['-DSPHERE_SWEEP_NO_TESTS', '-DSPHERE_SWEEP_NO_CELLS']}),
+}
+
+
+def variant_calls(source, entry, variants, mod):
+    """csrc/<source> built once per variant (name -> nvcc -D switches),
+    all in parallel, into the ignored build directory; returns, per
+    variant, a function that runs a call with the wrapper module `mod`
+    bound to that build's C entry point `entry`."""
     import ctypes
     from types import SimpleNamespace
-    from chip_smoke import device_ms, mc_inputs, mc_system
-    from hoomd_tpu_torch.hpmc import sweep as tsw
     from hoomd_tpu_torch.ops import _build
-    variants = {'as built': [], 'no SAT': ['-DPOLY_SWEEP_NO_SAT'],
-                'no cells': ['-DPOLY_SWEEP_NO_SAT', '-DPOLY_SWEEP_NO_CELLS']}
-    out_dir = _build.BUILD_DIR / 'sweep_parts'
+    out_dir = _build.BUILD_DIR / f'variants_{entry}'
     out_dir.mkdir(parents=True, exist_ok=True)
-    src = _build.SRC_DIR / 'hpmc_sweep.cu'
     procs = {k: subprocess.Popen(
         [_build._nvcc(), *_build.NVCC_FLAGS, *flags, '-o',
-         str(out_dir / f'lib{i}.so'), str(src)], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT) for i, (k, flags) in
+         str(out_dir / f'lib{i}.so'), str(_build.SRC_DIR / source)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for i, (k, flags) in
         enumerate(variants.items())}
     for k, p in procs.items():
         text, _ = p.communicate()
         if p.returncode:
             raise RuntimeError(f"nvcc failed for {k}:\n{text.decode()}")
-    lib = tsw._kernel_lib()
-    system, mc = mc_system('cube')
+    lib = mod._kernel_lib()
+    libs = {}
+    for i, k in enumerate(variants):
+        fn = getattr(ctypes.CDLL(str(out_dir / f'lib{i}.so')), entry)
+        fn.argtypes = _build._SIGNATURES[entry]
+        fn.restype = ctypes.c_int
+        libs[k] = _build.KernelLibrary(
+            SimpleNamespace(**{**vars(lib.lib), entry: fn}), lib.paths, 0.0, '')
+
+    def on(k, call):
+        def run():
+            mod._LIB[0] = libs[k]
+            try:
+                return call()
+            finally:
+                mod._LIB[0] = lib
+        return run
+    return {k: (lambda call, k=k: on(k, call)) for k in variants}
+
+
+def sweep_parts(kind='poly', iters=50):
+    """Where a sweep call's device time goes at its job script's plan
+    (config 5's cubes, or the hard spheres): csrc/hpmc_sweep.cu built as
+    it is, without its overlap tests (POLY_SWEEP_NO_SAT /
+    SPHERE_SWEEP_NO_TESTS: every trial accepted) and without any
+    per-cell work too (POLY_SWEEP_NO_CELLS / SPHERE_SWEEP_NO_CELLS: no
+    draws, trials or commits; the prologue, the barriers and the tallies
+    alone), each timed through the sweep's wrapper on
+    chip_smoke.py's seeded inputs (ms per call by CUDA events, device ms
+    by torch.profiler)."""
+    from chip_smoke import device_ms, dev_fmt, mc_inputs, mc_system
+    from hoomd_tpu_torch.hpmc import sweep as tsw
+    entry, variants = SWEEP_PARTS[kind]
+    kname = 'fused_poly_sweep' if kind == 'poly' else 'fused_sphere_sweep'
+    builds = variant_calls('hpmc_sweep.cu', entry, variants, tsw)
+    system, mc = mc_system('cube' if kind == 'poly' else 'sphere')
     args, perms, randu, extra, kw, _ = mc_inputs(system, mc, 1)
     res = {}
-    try:
-        for i, k in enumerate(variants):
-            fn = ctypes.CDLL(str(out_dir / f'lib{i}.so')).hoomd_hpmc_poly_sweep
-            fn.argtypes = _build._SIGNATURES['hoomd_hpmc_poly_sweep']
-            fn.restype = ctypes.c_int
-            tsw._LIB[0] = _build.KernelLibrary(
-                SimpleNamespace(**{**vars(lib.lib),
-                                   'hoomd_hpmc_poly_sweep': fn}),
-                lib.paths, 0.0, '')
+    for k, bind in builds.items():
+        call = bind(lambda: getattr(tsw, kname)(*args, perms, randu, *extra,
+                                                **kw))
+        res[k] = dict(ms=cuda_ms(call, iters),
+                      device_ms=device_ms(call, iters))
+        print(f"{kname} {k} [{kind} job plan cell_dim={kw['cell_dim']} "
+              f"C={kw['C']}]: {res[k]['ms']:.4f} ms per call, device "
+              f"{dev_fmt(res[k]['device_ms'])}", flush=True)
+    print(json.dumps({'sweep_parts_ms': {kind: res}}), flush=True)
 
-            def call():
-                return tsw.fused_poly_sweep(*args, perms, randu, *extra, **kw)
-            res[k] = dict(ms=cuda_ms(call, iters),
-                          device_ms=device_ms(call, iters))
-            print(f"fused_poly_sweep {k} [cube job plan cell_dim="
-                  f"{kw['cell_dim']} C={kw['C']}]: {res[k]['ms']:.4f} ms "
-                  f"per call, device {res[k]['device_ms']:.4f}", flush=True)
-    finally:
-        tsw._LIB[0] = lib
-    print(json.dumps({'sweep_parts_ms': res}), flush=True)
+
+def profiler_probe(profiles=12, iters=10):
+    """Whether torch.profiler sees a short call's kernels: for each of a
+    few kernel calls (the one-type charged kernel at the Madelung plan and
+    the four-type lj_ewald one at config 4's shape, where chip_smoke.py
+    once read no device time; the sphere sweep), `profiles` profiles of
+    `iters` calls as chip_smoke.py device_ms takes them, and the same
+    with the card kept busy (torch.cuda._sleep) around the calls inside
+    the profile; per profile the launches of the kernel the profiler
+    listed and their device ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from chip_smoke import (charged_table, madelung_cells, mc_inputs,
+                            mc_system, pppm_cells)
+    from hoomd_tpu_torch.hpmc import sweep as tsw
+    from hoomd_tpu_torch.ops import cell_pair as cp
+    dev = torch.device('cuda', 0)
+    calls = {}
+    for label, (name, T, cells, rc) in {
+            'charged ewald T=1 Madelung plan': ('ewald', 1, madelung_cells, 3.0),
+            'charged lj_ewald T=4 config 4': ('lj_ewald', 4, pppm_cells, 2.5)
+    }.items():
+        carry, qc, L, N, cdim, C = (cells(dev) if T == 1 else cells(dev, T))
+        _, sh = cp.build_cell_shifts(cdim, L)
+        sh = torch.as_tensor(sh, dtype=torch.float32, device=dev)
+        pv, pn = charged_table(name, T, dev, rc)
+        kw = dict(eval_name=name, pnames=pn, ntypes=T, cell_q=qc,
+                  cell_typ=carry.typ if T > 1 else None, C=C,
+                  cell_tag=carry.tag)
+        calls[label] = ('cell_pair_q_kernel', lambda pos=carry.pos, sh=sh,
+                        pv=pv, cdim=cdim, kw=kw:
+                        cp.cell_pair_planar(pos, cdim, sh, pv, **kw))
+    system, mc = mc_system('sphere')
+    args, perms, randu, extra, kw, _ = mc_inputs(system, mc, 1)
+    calls['sphere sweep'] = ('sphere_sweep_kernel', lambda: tsw.fused_sphere_sweep(
+        *args, perms, randu, **kw))
+    res = {}
+    for label, (kname, fn) in calls.items():
+        for pad in (False, True):
+            seen = []
+            for _ in range(profiles):
+                fn()
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    if pad:
+                        torch.cuda._sleep(200000)
+                    for _ in range(iters):
+                        fn()
+                    if pad:
+                        torch.cuda._sleep(200000)
+                    torch.cuda.synchronize()
+                n = t = 0
+                kinds = set()
+                for e in prof.key_averages():
+                    if kname in e.key:
+                        kinds.add(str(e.device_type))
+                        if e.device_type == DeviceType.CUDA:
+                            n += e.count
+                            t += getattr(e, 'self_device_time_total', 0.0)
+                seen.append((n, round(t / 1e3 / iters, 5), sorted(kinds)))
+            res[f'{label}{" padded" if pad else ""}'] = seen
+            print(f"profiler [{label}{', padded' if pad else ''}]: kernel "
+                  f"launches seen per profile of {iters} calls "
+                  f"{[s[0] for s in seen]}; device ms per call "
+                  f"{[s[1] for s in seen]}; device types listed "
+                  f"{sorted({k for s in seen for k in s[2]})}", flush=True)
+    print(json.dumps({'profiler_probe': res}), flush=True)
 
 
 def main(argv):
     if argv[1:2] == ['sweep-parts']:
         print('card:', card(), flush=True)
-        sweep_parts()
+        for kind in argv[2:] or ['poly']:
+            sweep_parts(kind)
+        return
+    if argv[1:2] == ['profiler']:
+        print('card:', card(), flush=True)
+        profiler_probe()
+        return
+    if argv[1:2] == ['jobs']:
+        print('card:', card(), flush=True)
+        job_times(argv[2] if len(argv) > 2 else None)
         return
     if argv[1:2] == ['sweeps']:
         print('card:', card(), flush=True)

@@ -27,7 +27,12 @@ also run on the edge fills of ``_edge_fill`` (EDGE: C = 33, 56, 72 and
 MAX_C, a cell filled to C, an empty cell, a cell of one particle, live
 slots scattered among padding) for lj, mie and moliere, on a pair one
 ulp inside r_cut and one a ulp outside (``_cut_pairs``, r^2 rounded as
-the plain version's torch ops), and give equal bits in two calls.  JAX
+the plain version's torch ops), and give equal bits in two calls.  The
+adjacency-listed 'pallas' kernel (cell_pair_lj) runs on the same edge
+fills and cut pairs (F, PE and virial at rtol = atol = 1e-4, equal bits
+in two calls, one launch counted per call), and on the card reads its
+neighbours from cell_adj: a permuted table gives the same sums, and a
+relisted entry counts twice.  JAX
 is imported only inside the JAX-side helpers, so they also run where it
 is missing:
 
@@ -379,3 +384,76 @@ def test_cuda_kernels_reject_cpu_operands(cuda):
                                   torch.as_tensor(ljp, device=cuda), C=24,
                                   cell_tag=torch.as_tensor(cell_tag,
                                                            device=cuda))
+
+
+def _cuda_lj_call(cuda, cell_pos, cell_tag, shifts, adj, rc=2.5):
+    """cell_pair_lj on the card twice (one launch counted per call) and
+    its plain version on the same inputs."""
+    ljp, _ = _lj(rc)
+    pos, tag, sh, ad = _torch_inputs(cell_pos, cell_tag, shifts, adj, cuda)
+    lj = torch.as_tensor(ljp, device=cuda)
+    kw = dict(ncells=pos.shape[0], C=pos.shape[1], cell_tag=tag)
+    n0 = tcp.cell_pair_lj.launches
+    got = tcp.cell_pair_lj(pos, ad, sh, lj, **kw)
+    again = tcp.cell_pair_lj(pos, ad, sh, lj, **kw)
+    assert tcp.cell_pair_lj.launches == n0 + 2
+    want = tcp.cell_pair_lj_plain(pos, ad, sh, lj, cell_tag=tag)
+    return got, again, want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('fill', list(EDGE))
+def test_cuda_lj_edge_fills_match_plain(cuda, fill):
+    """'pallas' on the edge fills: F, PE and virial elementwise against
+    the plain version, equal bits from two calls."""
+    cd, C = EDGE[fill]
+    cell_pos, cell_tag, _, shifts = _edge_fill(cd, C, 23)
+    adj = tcp._adjacency_np(tuple(cd))
+    got, again, want = _cuda_lj_call(cuda, cell_pos, cell_tag, shifts, adj)
+    for g, a, w in zip(got, again, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+        assert torch.equal(g, a)
+    assert float(want[0].abs().max()) > 1.0   # the fill has pairs in the cut
+
+
+@pytest.mark.gpu
+def test_cuda_lj_cuts_at_the_rounded_r2(cuda):
+    ljp, _ = _lj(2.5)
+    cell_pos, cell_tag, _, shifts, cd, C = _cut_pairs(ljp[2])
+    adj = tcp._adjacency_np(tuple(cd))
+    got, _, want = _cuda_lj_call(cuda, cell_pos, cell_tag, shifts, adj)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    tag = torch.as_tensor(cell_tag, device=cuda)
+    f = got[0][tag >= 0]                     # tags 0, 1 inside; 2, 3 out
+    order = torch.argsort(tag[tag >= 0])
+    assert float(f[order][0].abs().max()) > 1e-2
+    assert not f[order][2:].any()
+
+
+@pytest.mark.gpu
+def test_cuda_lj_reads_the_adjacency_table(cuda):
+    """As test_pallas_reads_the_adjacency_table, on the card: a permuted
+    table (on the 2x2x2 grid, a neighbour id listed twice under
+    different shifts) gives the plain version's sums, and so does a
+    table with an entry relisted, which counts that image twice."""
+    _, n, a, cd, C, rc, jit = STENCIL[1]
+    cell_pos, cell_tag, L, shifts, adj = _fill(n, a, cd, C, 2, jit)
+    nc = cell_pos.shape[0]
+    perm = np.stack([np.random.RandomState(c).permutation(27)
+                     for c in range(nc)])
+    adj_p = np.take_along_axis(adj, perm, 1)
+    sh_p = np.take_along_axis(shifts, perm[..., None], 1)
+    want0 = _cuda_lj_call(cuda, cell_pos, cell_tag, shifts, adj, rc)[0]
+    got, again, want = _cuda_lj_call(cuda, cell_pos, cell_tag, sh_p, adj_p,
+                                     rc)
+    for g, a, w, w0 in zip(got, again, want, want0):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(g, w0, rtol=1e-4, atol=1e-4)
+        assert torch.equal(g, a)
+    adj2, sh2 = adj.copy(), shifts.copy()
+    adj2[:, 14], sh2[:, 14] = adj2[:, 12], sh2[:, 12]
+    got2, _, want2 = _cuda_lj_call(cuda, cell_pos, cell_tag, sh2, adj2, rc)
+    for g, w in zip(got2, want2):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    assert float((got2[0] - want0[0]).abs().max()) > 1.0

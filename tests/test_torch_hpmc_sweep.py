@@ -22,7 +22,10 @@ The cases marked ``gpu`` hold each CUDA kernel against its plain version
 on the card and skip where torch sees no CUDA device; the polyhedron
 sweep also on the fills of POLY_FILLS (two rounds per call, a ragged
 grid, class orders that repeat a class within a round, a 32^3 grid),
-with one launch counted per call and equal bits from two calls.  The
+and the sphere sweep on those of SPHERE_FILLS (the ragged two-radius
+mixture in two rounds, class orders with repeats, a 32^3 grid; in each
+the fullest cell filled to C), with equal counts, one launch counted
+per call and equal bits from two calls.  The
 file imports
 jax only inside the JAX-side helpers, so they also run where jax is not
 installed:
@@ -444,3 +447,77 @@ def test_cuda_poly_sweep_fills_match_plain(cuda, cube, fill, case):
         assert torch.equal(g, a)
     tries, accepts = int(want[7][1] + want[7][3]), int(want[7][0] + want[7][2])
     assert 0 < accepts <= tries
+
+
+def _sphere_fill(cell_dim, width, spacing, keep, R, repeats, diam, d, seed,
+                 device):
+    """Spheres of types 0/1 (diameters diam[t], move sizes d[t]) on an sc
+    lattice of ``spacing`` in a box of cell_dim cells of ``width``, each
+    site kept with probability ``keep``, jittered by 0.01, binned into
+    planes whose capacity C is the fullest cell's count (so that cell is
+    filled to C); class orders of R rounds (permutations, or with
+    ``repeats`` drawn with replacement) and uniforms from numpy.
+    Returns (planes + [rad, dmv, live], perms, randu, C, box_L)."""
+    rng = np.random.RandomState(seed)
+    L = np.asarray(cell_dim, float) * width
+    nl = np.floor(L / spacing).astype(int)
+    g = [(np.arange(m) + 0.5) * (L[i] / m) - L[i] / 2 for i, m in enumerate(nl)]
+    pos = np.stack(np.meshgrid(*g, indexing='ij'), -1).reshape(-1, 3)
+    pos = pos[rng.uniform(size=len(pos)) < keep]
+    pos = pos + rng.uniform(-0.01, 0.01, pos.shape)
+    tid = np.arange(len(pos)) % 2
+    nc = int(np.prod(cell_dim))
+    C = int(np.bincount(_cell_ids(pos, L, cell_dim), minlength=nc).max())
+    box = Box.create(*L, device=device)
+    (pos_t,) = interop.planes_from_numpy([pos], device)
+    idx, live, planes, ovf = tint.cell_planes(pos_t, box, cell_dim, C)
+    assert not bool(ovf)
+    assert int(live.reshape(nc, C).sum(1).max()) == C
+    t_pad = torch.as_tensor(np.append(tid, 0), device=device)[idx]
+    rad = (torch.as_tensor(0.5 * np.asarray(diam), dtype=torch.float32,
+                           device=device)[t_pad].reshape(live.shape) * live)
+    dmv = (torch.as_tensor(np.asarray(d), dtype=torch.float32,
+                           device=device)[t_pad].reshape(live.shape) * live)
+    nx, ny, nz = cell_dim
+    perms = np.concatenate([rng.randint(0, 8, 8) if repeats
+                            else rng.permutation(8) for _ in range(R)])
+    randu = torch.as_tensor(rng.uniform(size=(8 * R, 6, nz, ny, nx)),
+                            dtype=torch.float32, device=device)
+    box_L = tuple(float(v) for v in box.L.cpu().numpy())
+    return (planes + [rad, dmv, live], torch.as_tensor(perms, dtype=torch.int32),
+            randu, C, box_L)
+
+
+# (cell_dim, cell width, lattice spacing, share of sites kept, R, class
+# orders with repeats, diameters, move sizes): the ragged two-radius
+# mixture with large moves, two rounds per call; two rounds whose class
+# orders repeat classes; a 32^3 grid, whose 4096 active cells per
+# sub-sweep outnumber the kernel's blocks
+SPHERE_FILLS = {
+    'ragged': ((4, 6, 8), 1.45, 1.05, 0.6, 2, False, (1.0, 0.6), (0.3, 0.5)),
+    'repeats': ((4, 4, 4), 1.6, 1.05, 0.8, 2, True, (1.0, 1.0),
+                (0.12, 0.12)),
+    'grid32': ((32, 32, 32), 1.45, 1.05, 0.8, 1, False, (1.0, 1.0),
+               (0.12, 0.12)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('fill', list(SPHERE_FILLS))
+def test_cuda_sphere_sweep_fills_match_plain(cuda, fill):
+    """The one-launch sphere sweep on the fills of SPHERE_FILLS: equal
+    counts, planes within POS_TOL of the plain version, one launch
+    counted per call, and equal bits from two calls."""
+    cell_dim, width, spacing, keep, R, repeats, diam, d = SPHERE_FILLS[fill]
+    planes, perms, randu, C, box_L = _sphere_fill(
+        cell_dim, width, spacing, keep, R, repeats, diam, d, 9, cuda)
+    kw = dict(cell_dim=cell_dim, C=C, R=R, box_L=box_L)
+    n0 = tsw.fused_sphere_sweep.launches
+    got = tsw.fused_sphere_sweep(*planes, perms, randu, **kw)
+    assert tsw.fused_sphere_sweep.launches == n0 + 1
+    again = tsw.fused_sphere_sweep(*planes, perms, randu, **kw)
+    want = tsw.fused_sphere_sweep_plain(*planes, perms, randu, **kw)
+    _assert_kernel_matches_plain(got, want, 3)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    assert 0 < int(want[3]) < int(want[4])
