@@ -17,7 +17,8 @@ from the root of the repository.  In order it prints:
      evaluator's ATOL (EVAL_ATOL);
   3b. the megastep (megastep_phases) at the bench, ragged and 2x2x2
      shapes: its candidate set (counts, lists) against the plain
-     builder bit for bit, with its build time; for LJ and each other
+     builder bit for bit and two builds equal, with its build time (at
+     the bench fill also its device time, bound and build); for LJ and each other
      evaluator, nve, nvt and langevin, k = 1 and 4, one window against
      the plain megastep; for LJ also a window at the edge of the drift
      guard (every pair inside r_cut a candidate) and one past it (equal
@@ -43,18 +44,22 @@ from the root of the repository.  In order it prints:
      kernel's build (registers, spills, shared memory, blocks per SM).
      Where a copy of the parent's csrc lies under
      scratch/parent/hoomd_tpu_torch/csrc, parent_sweep_lj_phase builds
-     its hpmc_sweep.cu and cell_pair_impls.cu under other names and times
-     both designs of rows 13 (the sphere job's plan and the ragged
-     mixture) and 14 (the cube job's plan), planes and counts equal bit
-     for bit on three seeds, and 4 (the bench shape, the two designs
-     held to each other) in turns, as
-     wrapper calls and device time.  A device time the profiler could not
+     each stem of its table PARENT_KERNELS whose source or headers
+     differ from this tree's (hpmc_sweep.cu: rows 13 and 14, planes and
+     counts bit for bit on three seeds; cell_pair_impls.cu: rows 4, the
+     parent's bits, and 5, within RTOL and ATOL; cell_pair.cu: the
+     megastep's candidate build, the parent's counts and lists bit for
+     bit) under another name and times both designs in turns, as
+     wrapper calls and device time, with the parent's builds as ptxas
+     printed them.  A device time the profiler could not
      read (device_ms: no device kernel listed in three tries) prints as
      "not measured", with no share of the bound;
   4a. one phase per force kernel of the other HOOMD_TPU_FAST_IMPL paths
      (cell_pair_lj, cell_pair_lj_pallas3d, cell_pair_lj_row,
      cell_pair_planar_n3l): the kernel against its plain torch version at
-     the bench shape, the ragged shape and a 2x2x2 grid, as in 3; then
+     the bench shape, the ragged shape and a 2x2x2 grid, as in 3
+     (cell_pair_lj_pallas3d also two calls bit for bit; cell_pair_lj
+     and cell_pair_lj_pallas3d their device time and build); then
      the cross-kernel phase: on the bench fill the four kernels' forces
      and cell_pair_plane's agree, and cell_pair_lj's PE and virial
      cell_pair_planar's;
@@ -86,7 +91,10 @@ from the root of the repository.  In order it prints:
      variants through cell_rebin_plane on the pallas job's state, and one
      rebuild of each rebin the engine runs (sort, xsel, the migration
      sweep + place) on that job's liquid, by CUDA events and by the
-     profiler's device time; then the same script to the melt plus 1000
+     profiler's device time, and the megastep's candidate set of the
+     job's live reference equal to the plain builder's, a second
+     build's and (with the parent's csrc, above) the parent design's,
+     bit for bit; then the same script to the melt plus 1000
      NVT steps with HOOMD_TPU_FAST_IMPL = planar_n3l, pallas, pallas3d and
      row, and with plane plus HOOMD_TPU_MEGA=off, each with the same
      gates, its kernel launched and the megastep not, the rebin of its
@@ -699,32 +707,41 @@ def missing_pairs(gp, gr, gt, cdim, sh, pads, rc2, C):
     return int(inside.sum())
 
 
-def same_candidates(name, cand, plain):
-    """The kernel's candidate set against the plain version's (count,
-    listed): the counts equal, and each slot's list equal as far as it is
-    written."""
+def written(cand):
+    """(count, listed) of a candidate set, each row of listed as far as it
+    is written and zero after, as the plain version gives it."""
+    import torch
+    n = torch.clamp(cand.count, max=cand.cap).long()
+    used = torch.arange(cand.cap, device=n.device)[None, :] < n[:, None]
+    return cand.count, torch.where(used, cand.listed, 0)
+
+
+def same_candidates(name, cand, plain, what="the plain version's"):
+    """The kernel's candidate set against another's (count, listed, as
+    ``written`` gives them): the counts equal, and each slot's list equal
+    as far as it is written."""
     import torch
     count, listed = plain
-    if not torch.equal(cand.count, count):
-        raise RuntimeError(f"{name}: the kernel's counts differ from the "
-                           f"plain version's")
-    n = torch.clamp(count, max=cand.cap).long()
-    used = torch.arange(cand.cap, device=n.device)[None, :] < n[:, None]
-    if not torch.equal(torch.where(used, cand.listed, 0), listed):
+    got = written(cand)
+    if not torch.equal(got[0], count):
+        raise RuntimeError(f"{name}: the kernel's counts differ from {what}")
+    if not torch.equal(got[1], listed):
         raise RuntimeError(f"{name}: the kernel's candidate lists differ from "
-                           f"the plain version's")
+                           f"{what}")
 
 
-def candidates_bound(cand, n_live, sh, C):
-    """Bound of one candidate build: 12 operations per pair it tests
-    (each live slot against its 27 C staged entries: three differences,
-    magnitudes, skins subtracted, clamps, squares and sums, one compare)
-    against the bytes of the reference planes, tags and shifts in and of
-    the written list entries and the counts out."""
+def candidates_bound(cand, pos, tag, cdim, sh):
+    """Bound of one candidate build: 12 operations per pair the answer
+    needs tested (each live slot against every other live slot of its 27
+    cells, as lj_pair_counts counts them: three differences, magnitudes,
+    skins subtracted, clamps, squares and sums, one compare; padding
+    slots need no test) against the bytes of the reference planes, tags
+    and shifts in and of the written list entries and the counts out."""
+    pairs, _ = lj_pair_counts(pos, tag, cdim, sh, 2.5)
     M = cand.count.numel()
     written = int(cand.count.clamp(max=cand.cap).sum())
     nbytes = (3 * M + M) * 4 + sh.numel() * 4 + written * 2 + M * 4
-    return bound(nbytes, 12 * n_live * 27 * C)
+    return bound(nbytes, 12 * pairs)
 
 
 def visited_bound(cand, pos, tag, cdim, sh, N, k):
@@ -745,7 +762,8 @@ def visited_bound(cand, pos, tag, cdim, sh, N, k):
 def megastep_phases(dev):
     """The megastep at the bench, ragged and 2x2x2 shapes.  Per shape:
     the candidate set of the kernel against its plain version, bit for
-    bit; per pair evaluator, method (nve, nvt, langevin) and k in (1, 4),
+    bit, and two builds equal (at the bench fill also its time, device
+    time, bound and build); per pair evaluator, method (nve, nvt, langevin) and k in (1, 4),
     one window from the plain state (reference 0.02 behind) against the
     plain megastep, element by element (positions to POS_TOL, forces
     against the plain stencil at the positions the kernel reached, the
@@ -760,11 +778,11 @@ def megastep_phases(dev):
     cell_megastep_planes (ms: one wrapper call of an NVT k = 4 window by
     CUDA events, the set built beforehand, as the engine builds it once
     per rebuild; beside it the engine's call, the device time and the
-    bound of the candidates visited) and each evaluator's wrapper ms of
-    that window."""
+    bound of the candidates visited), each evaluator's wrapper ms of
+    that window and the candidate build's row at the bench fill."""
     import torch
     from hoomd_tpu_torch.ops import cell_pair as cp
-    row, eval_ms = None, {}
+    row, eval_ms, cand_row = None, {}, None
     for tag_name, (dims, cdim, C) in SHAPES.items():
         carry, L, N, _ = lattice_cells(dims, cdim, C, 0.1, 3, dev)
         _, sh = cp.build_cell_shifts(cdim, L)
@@ -805,6 +823,10 @@ def megastep_phases(dev):
                     same_candidates(f'mega_candidates[{tag_name},{label}]',
                                     cand, cp.mega_candidates_plain(
                                         gr, gt, cdim, sh, s_pads, rc2, C=C))
+                    same_candidates(f'mega_candidates[{tag_name},{label}] '
+                                    f'built twice', cp.mega_candidates(
+                                        gr, gt, cdim, sh, s_pads, rc2, C=C),
+                                    written(cand), 'the first build')
                 if name == 'lj' and label == 'plain state':
                     n_live = int((gt >= 0).sum())
                     per = int(cand.count.sum()) / n_live
@@ -818,12 +840,17 @@ def megastep_phases(dev):
                           f"events; first call {1e3 * (time.perf_counter() - t0):.1f} "
                           f"ms)", flush=True)
                     if bench:
-                        cand_ms = dict(ms=ms, device_ms=device_ms(
-                            lambda: cp.mega_candidates(gr, gt, cdim, sh, pads,
-                                                       rc2, C=C), 10),
-                            per_slot=per)
+                        cand_ms = build_times(lambda: cp.mega_candidates(
+                            gr, gt, cdim, sh, pads, rc2, C=C))
+                        cand_ms['plain_ms'] = cuda_ms(
+                            lambda: cp.mega_candidates_plain(
+                                gr, gt, cdim, sh, pads, rc2, C=C), 3)
+                        cand_ms['per_slot'] = per
                         cand_ms['bound_ms'], cand_ms['bound_by'] = \
-                            candidates_bound(cand, n_live, sh, C)
+                            candidates_bound(cand, carry.pos, carry.tag,
+                                             cdim, sh)
+                        cand_ms['build'] = occ_build(
+                            'hoomd_mega_candidates_occupancy', cdim[0], C)
                 dt = GUARD_DT if label == 'guard edge' else 0.005
                 if label == 'guard edge':
                     missing = missing_pairs(s['gp'], gr, gt, cdim, sh,
@@ -957,11 +984,19 @@ def megastep_phases(dev):
                 wrapper_ms=row['ms'], bound_ms=row['bound_ms'], **eng)),
                 flush=True)
             print(f"mega_candidates at the bench fill: {cand_ms['ms']:.4f} ms "
-                  f"per build (CUDA events), device {dev_fmt(cand_ms['device_ms'])} "
-                  f"ms, bound {cand_ms['bound_ms']:.6f} ms "
-                  f"({cand_ms['bound_by']}), {cand_ms['per_slot']:.1f} "
-                  f"candidates per live slot", flush=True)
-    return row, eval_ms
+                  f"per build (CUDA events; host {cand_ms['host_ms']:.4f} ms "
+                  f"per call), device {dev_fmt(cand_ms['device_ms'])} "
+                  f"ms per call from the recorded launches "
+                  f"({kernels_fmt(cand_ms['kernels'])}), plain "
+                  f"{cand_ms['plain_ms']:.4f} ms, bound "
+                  f"{cand_ms['bound_ms']:.6f} ms ({cand_ms['bound_by']}), "
+                  f"{share_fmt(cand_ms['bound_ms'], cand_ms['device_ms'])}; "
+                  f"{cand_ms['per_slot']:.1f} candidates per live slot; "
+                  f"{sweep_build_line(cand_ms['build'])}", flush=True)
+            cand_row = dict(max_abs_err=0.0, **{
+                key: cand_ms[key] for key in ('ms', 'plain_ms', 'bound_ms',
+                                              'bound_by')})
+    return row, eval_ms, cand_row
 
 
 def same_bits(a, b):
@@ -972,181 +1007,249 @@ def same_bits(a, b):
                for x, y in zip(a, b))
 
 
-def parent_sphere_call(lib, args, perms, randu, kw):
-    """The parent design's fused_sphere_sweep wrapper on its library (the
-    C signature of that design: the planes updated in place, 8R
-    launches): x, y and z cloned, the counts zeroed, the call.  Returns
-    (x', y', z', accepts, tries)."""
-    import torch
+def ptxas_build(log, kernel):
+    """The lines ptxas -v printed for each entry function whose name holds
+    ``kernel``: its registers, spills and static shared memory."""
+    out, cur = [], False
+    for line in log.splitlines():
+        if 'Compiling entry function' in line:
+            cur = kernel in line
+        elif cur and ('registers' in line or 'spill' in line):
+            out.append(line.split(':', 1)[-1].strip())
+    return '; '.join(out) or 'no ptxas lines'
+
+
+def on_parent(mod, lib, call):
+    """call, run with ``lib`` (parent_sweep_lj_phase's library of the
+    parent design) as mod's kernel library, mod's own put back after."""
+    def run():
+        own = mod._kernel_lib()
+        mod._LIB[0] = lib
+        try:
+            return call()
+        finally:
+            mod._LIB[0] = own
+    return run
+
+
+def csrc_changed(stem, src):
+    """Whether csrc/{stem}.cu, or a header it includes, differs byte for
+    byte from the parent's copy under ``src``."""
+    import re
+    from pathlib import Path
+    here = Path(__file__).resolve().parent / 'hoomd_tpu_torch' / 'csrc'
+    todo, seen = [f'{stem}.cu'], set()
+    while todo:
+        name = todo.pop()
+        if name in seen:
+            continue
+        seen.add(name)
+        ours, theirs = here / name, Path(src) / name
+        if not theirs.exists() or ours.read_bytes() != theirs.read_bytes():
+            return True
+        todo += re.findall(r'#include "([^"]+)"', ours.read_text())
+    return False
+
+
+def sweep_cases(dev):
+    """parent_sweep_lj_phase's cases of the HPMC sweeps, each on three
+    seeds, planes and counts bit for bit: row 13 (fused_sphere_sweep) at
+    the sphere job's plan and at a ragged two-radius mixture, row 14
+    (fused_poly_sweep) at the cube job's plan."""
     from hoomd_tpu_torch.hpmc import sweep as tsw
-    x, y, z, r, d, lv, u = tsw._device_args(args[:5], args[5], randu)
-    x, y, z = x.clone(), y.clone(), z.clone()
-    cnt = torch.zeros((2,), dtype=torch.int32, device=lv.device)
-    pm = tsw._perms_host(perms, kw['R'])
-    nx, ny, nz = kw['cell_dim']
-    err = lib.hoomd_hpmc_sphere_sweep(
-        x.data_ptr(), y.data_ptr(), z.data_ptr(), r.data_ptr(), d.data_ptr(),
-        lv.data_ptr(), u.data_ptr(), pm.data_ptr(), 8 * kw['R'],
-        cnt.data_ptr(), nx, ny, nz, kw['C'],
-        *(float(np.float32(v)) for v in kw['box_L']),
-        torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"parent sphere sweep: CUDA error {err}")
-    return x, y, z, cnt[0], cnt[1]
+
+    def bits(got, want):
+        if not same_bits(got, want):
+            raise RuntimeError(
+                f"planes or counts differ from the parent's (counts "
+                f"{[t.tolist() for t in got if t.numel() <= 8]} against "
+                f"{[t.tolist() for t in want if t.numel() <= 8]})")
+        return "planes and counts equal to the parent's bit for bit"
+
+    def calls(system, mc, sweep, poly):
+        out = []
+        for seed in (1, 2, 3):
+            args, perms, randu, extra, kw, _ = mc_inputs(system, mc, seed)
+            args = (*args, perms, randu, *(extra if poly else ()))
+            out.append(lambda args=args, kw=kw: sweep(*args, **kw))
+        return out, kw
+    cases = []
+    for tag, spec in {'job': dict(kind='sphere'),
+                      'ragged': dict(kind='mixture',
+                                     dims=(4 * 1.45, 6 * 1.45, 8 * 1.45),
+                                     spacing=1.05, jitter=0.01,
+                                     seed=2)}.items():
+        fns, kw = calls(*mc_system(**spec), tsw.fused_sphere_sweep, False)
+        cases.append((f'13 {tag}', f"row 13 (fused_sphere_sweep, {tag} plan "
+                      f"cell_dim={kw['cell_dim']} C={kw['C']})", tsw, fns,
+                      bits))
+    fns, kw = calls(*mc_system('cube'), tsw.fused_poly_sweep, True)
+    cases.append(('14 job', f"row 14 (fused_poly_sweep, cube job plan "
+                  f"cell_dim={kw['cell_dim']} C={kw['C']})", tsw, fns, bits))
+    return cases
+
+
+def bench_fill(dev):
+    """The bench shape's lattice fill as the parent cases take it: the
+    cell-major carry, its plan, shifts (adjacency and table), the plane
+    state's reference planes and tags, the candidate pads and the LJ
+    vector of cell_pair_lj."""
+    import torch
+    from hoomd_tpu_torch.ops import cell_pair as cp
+    dims, cdim, C = SHAPES['bench']
+    carry, L, N, _ = lattice_cells(dims, cdim, C, 0.1, 3, dev)
+    adj, sh = cp.build_cell_shifts(cdim, L)
+    sh = torch.as_tensor(sh, dtype=torch.float32, device=dev)
+    skin = np.maximum(L / np.asarray(cdim) - 2.5, 0.4).astype(np.float32)
+    st = plane_state(carry, cdim, C, sh, lj_params(dev)[0])
+    return types_ns(
+        carry=carry, cdim=cdim, C=C, sh=sh,
+        adj=torch.as_tensor(adj, dtype=torch.int32, device=dev),
+        gr=st['gr'].contiguous(), gt=st['gt'].to(torch.int32).contiguous(),
+        pads=cp.candidate_pads(skin, L), ljv=lj_params(dev)[1],
+        where=f"bench cell_dim={cdim} C={C}")
+
+
+def lj_cases(dev):
+    """parent_sweep_lj_phase's cases of cell_pair_impls.cu at the bench
+    shape: row 4 (cell_pair_lj) the parent's bits, row 5
+    (cell_pair_lj_pallas3d) within RTOL and ATOL of the parent's."""
+    from hoomd_tpu_torch.ops import cell_pair as cp
+    b = bench_fill(dev)
+    pos, tag = b.carry.pos, b.carry.tag
+
+    def bits(got, want):
+        if not same_bits(got, want):
+            raise RuntimeError("the new design differs from the parent's")
+        return "the parent's bits"
+
+    def close(got, want):
+        compare("row 5: new design against the parent's",
+                [('F', got, want, RTOL, ATOL)])
+        return "within RTOL and ATOL of the parent's"
+    return [
+        ('4 bench', f"row 4 (cell_pair_lj, {b.where})", cp,
+         [lambda: cp.cell_pair_lj(pos, b.adj, b.sh, b.ljv,
+                                  ncells=pos.shape[0], C=b.C, cell_tag=tag)],
+         bits),
+        ('5 bench', f"row 5 (cell_pair_lj_pallas3d, {b.where})", cp,
+         [lambda: cp.cell_pair_lj_pallas3d(pos, b.cdim, b.sh, b.ljv, C=b.C,
+                                           cell_tag=tag)],
+         close)]
+
+
+def candidate_cases(dev):
+    """parent_sweep_lj_phase's case of cell_pair.cu: the megastep's
+    candidate build (mega_candidates) at the bench fill, the parent's
+    counts and written lists bit for bit."""
+    from hoomd_tpu_torch.ops import cell_pair as cp
+    b = bench_fill(dev)
+
+    def lists(got, want):
+        same_candidates('mega_candidates', got, written(want),
+                        "the parent's")
+        return (f"the parent's counts and written lists bit for bit "
+                f"({int(got.count.sum())} candidates)")
+    return [('candidates bench', f"mega_candidates ({b.where})", cp,
+             [lambda: cp.mega_candidates(b.gr, b.gt, b.cdim, b.sh, b.pads,
+                                         float(b.ljv[2]), C=b.C)],
+             lists)]
+
+
+# the kernels parent_sweep_lj_phase holds to the parent design's: per
+# csrc stem, its library entries, the kernels whose builds it prints
+# and the function giving its cases as (key, label, module, calls,
+# check); check(new, parent) raises where they disagree
+PARENT_KERNELS = (
+    ('hpmc_sweep', ('hoomd_hpmc_sphere_sweep', 'hoomd_hpmc_poly_sweep'),
+     ('sphere_sweep_kernel', 'poly_sweep_kernel'), sweep_cases),
+    ('cell_pair_impls', ('hoomd_cell_pair_lj', 'hoomd_cell_pair_lj3d'),
+     ('lj_adj_kernel', 'lj_3d_kernel'), lj_cases),
+    ('cell_pair', ('hoomd_mega_candidates',), ('mega_candidates_kernel',),
+     candidate_cases),
+)
 
 
 def parent_sweep_lj_phase(dev, src='scratch/parent/hoomd_tpu_torch/csrc'):
     """Where a copy of the parent's csrc lies in ``src`` (an ignored
-    directory; the checkout has none): build its hpmc_sweep.cu and
-    cell_pair_impls.cu under other library names and time both designs
-    of rows 13, 14 and 4 in turns (parent, new, new, parent; CUDA
-    events), each as the wrapper's call (row 13: the parent's wrapper
-    re-created as parent_sphere_call, whose C signature is the parent
-    design's; rows 14 and 4: the wrapper run on either library) and as
-    device time (torch.profiler).  Row 13: fused_sphere_sweep at the
-    sphere job's plan and at the ragged two-radius mixture; row 14:
-    fused_poly_sweep at the cube job's plan; the two designs must give
-    equal planes and counts bit for bit on three seeds.  Row 4:
-    cell_pair_lj at the bench shape; the two designs held to each other
-    at RTOL and ATOL.  Returns
-    the rows' times."""
+    directory; the checkout has none): build each stem of PARENT_KERNELS
+    whose source or headers differ from this tree's (csrc_changed; an
+    unchanged stem is neither built nor timed against itself) under
+    another library name, and run each of its cases: the new design
+    against the parent's on each of the case's calls, then its last call
+    in turns (parent, new, new, parent; CUDA events), as the wrapper's
+    call run on either library, and as device time (torch.profiler).
+    Prints the parent's builds as ptxas gave them.  Returns the parent's
+    library (None where nothing was built), whose candidate build
+    rebuild_phase holds the bench job's live set to."""
     import ctypes
-    import torch
     from pathlib import Path
-    from hoomd_tpu_torch.hpmc import sweep as tsw
     from hoomd_tpu_torch.ops import _build
     from hoomd_tpu_torch.ops import cell_pair as cp
     d = Path(src)
-    if not (d / 'hpmc_sweep.cu').exists():
-        print(f"parent sweep and LJ kernels: no copy of the parent's csrc "
-              f"under {src}; skipped", flush=True)
+    if not d.is_dir():
+        print(f"parent kernels: no copy of the parent's csrc under {src}; "
+              f"skipped", flush=True)
+        return None
+    todo = []
+    for row in PARENT_KERNELS:
+        if csrc_changed(row[0], d):
+            todo.append(row)
+        else:
+            print(f"parent {row[0]}.cu: equal to this tree's with its "
+                  f"headers, byte for byte; not built or timed", flush=True)
+    if not todo:
         return None
     t0 = time.perf_counter()
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    procs = {stem: subprocess.Popen(
+    procs = [subprocess.Popen(
         [_build._nvcc(), *_build.NVCC_FLAGS, '-I', str(d), '-o',
          str(d / f'libparent_{stem}.so'), str(d / f'{stem}.cu')],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        for stem in ('hpmc_sweep', 'cell_pair_impls')}
-    for stem, proc in procs.items():
+        for stem, *_ in todo]
+    logs, entries = {}, {}
+    for (stem, names, _, _), proc in zip(todo, procs):
         out, _ = proc.communicate(timeout=600)
+        logs[stem] = out.decode()
         if proc.returncode:
             raise RuntimeError(f"parent {stem}.cu: nvcc failed\n"
-                               f"{out.decode()[-2000:]}")
-    hpmc = ctypes.CDLL(str(d / 'libparent_hpmc_sweep.so'))
-    impls = ctypes.CDLL(str(d / 'libparent_cell_pair_impls.so'))
-    hpmc.hoomd_hpmc_sphere_sweep.argtypes = [P] * 8 + [I, P] + [I] * 4 + \
-        [F] * 3 + [P]
-    hpmc.hoomd_hpmc_sphere_sweep.restype = I
-    hpmc.hoomd_hpmc_poly_sweep.argtypes = \
-        _build._SIGNATURES['hoomd_hpmc_poly_sweep']
-    hpmc.hoomd_hpmc_poly_sweep.restype = I
-    impls.hoomd_cell_pair_lj.argtypes = _build._SIGNATURES['hoomd_cell_pair_lj']
-    impls.hoomd_cell_pair_lj.restype = I
+                               f"{logs[stem][-2000:]}")
+        lib = ctypes.CDLL(str(d / f'libparent_{stem}.so'))
+        for entry in names:
+            fn = getattr(lib, entry)
+            fn.argtypes = _build._SIGNATURES[entry]
+            fn.restype = ctypes.c_int
+            entries[entry] = fn
     new_lib = cp._kernel_lib()
     parent_lib = _build.KernelLibrary(
-        types_ns(**{**vars(new_lib.lib),
-                    'hoomd_cell_pair_lj': impls.hoomd_cell_pair_lj,
-                    'hoomd_hpmc_poly_sweep': hpmc.hoomd_hpmc_poly_sweep}),
-        new_lib.paths, 0.0, '')
-
-    def on_parent(mod, call):
-        def run():
-            mod._LIB[0] = parent_lib
-            try:
-                return call()
-            finally:
-                mod._LIB[0] = new_lib
-        return run
-    tsw._kernel_lib()
-    print(f"parent sweep and LJ kernels built in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+        types_ns(**{**vars(new_lib.lib), **entries}), new_lib.paths, 0.0, '')
+    print(f"parent kernels built in {time.perf_counter() - t0:.1f} s; the "
+          f"parent's builds: " + ' | '.join(
+              f"{k} {ptxas_build(logs[stem], k)}"
+              for stem, _, kernels, _ in todo for k in kernels), flush=True)
     out = {}
-    specs = {'job': dict(kind='sphere'),
-             'ragged': dict(kind='mixture', dims=(4 * 1.45, 6 * 1.45,
-                                                  8 * 1.45),
-                            spacing=1.05, jitter=0.01, seed=2)}
-    for tag, spec in specs.items():
-        system, mc = mc_system(**spec)
-        for seed in (1, 2, 3):
-            args, perms, randu, extra, kw, _ = mc_inputs(system, mc, seed)
-            got = tsw.fused_sphere_sweep(*args, perms, randu, **kw)
-            want = parent_sphere_call(hpmc, args, perms, randu, kw)
-            if not same_bits(got, want):
-                raise RuntimeError(
-                    f"row 13 [{tag}]: the new sweep differs from the "
-                    f"parent's (seed {seed}; counts {int(got[3])}, "
-                    f"{int(got[4])} against {int(want[3])}, "
-                    f"{int(want[4])})")
-
-        def fn():
-            return tsw.fused_sphere_sweep(*args, perms, randu, **kw)
-
-        def fp():
-            return parent_sphere_call(hpmc, args, perms, randu, kw)
-        turns = [cuda_ms(f, 50) for f in (fp, fn, fn, fp)]
-        r = dict(parent_ms=turns[::3], ms=turns[1:3],
-                 parent_device_ms=device_ms(fp, 20),
-                 device_ms=device_ms(fn, 20))
-        out[f'13 {tag}'] = r
-        print(f"row 13 (fused_sphere_sweep, {tag} plan cell_dim="
-              f"{kw['cell_dim']} C={kw['C']}): planes and counts equal to "
-              f"the parent's bit for bit on 3 seeds; in turns parent, new, "
-              f"new, parent: {', '.join(f'{t:.4f}' for t in turns)} ms per "
-              f"wrapper call (CUDA events); device "
-              f"{dev_fmt(r['parent_device_ms'])} -> {dev_fmt(r['device_ms'])}"
-              f" ms per call", flush=True)
-    # row 14, whose kernel shares pick_mover and the launch helpers with
-    # row 13: the same C signature, so the wrapper runs on either library
-    system, mc = mc_system('cube')
-    for seed in (1, 2, 3):
-        args, perms, randu, extra, kw, _ = mc_inputs(system, mc, seed)
-
-        def fn():
-            return tsw.fused_poly_sweep(*args, perms, randu, *extra, **kw)
-        fp = on_parent(tsw, fn)
-        got, want = fn(), fp()
-        if not same_bits(got, want):
-            raise RuntimeError(
-                f"row 14 [job]: the new sweep differs from the parent's "
-                f"(seed {seed}; counts {got[-1].tolist()} against "
-                f"{want[-1].tolist()})")
-    turns = [cuda_ms(f, 50) for f in (fp, fn, fn, fp)]
-    r = dict(parent_ms=turns[::3], ms=turns[1:3],
-             parent_device_ms=device_ms(fp, 20), device_ms=device_ms(fn, 20))
-    out['14 job'] = r
-    print(f"row 14 (fused_poly_sweep, cube job plan cell_dim="
-          f"{kw['cell_dim']} C={kw['C']}): planes and counts equal to the "
-          f"parent's bit for bit on 3 seeds; in turns parent, new, new, "
-          f"parent: {', '.join(f'{t:.4f}' for t in turns)} ms per wrapper "
-          f"call (CUDA events); device {dev_fmt(r['parent_device_ms'])} -> "
-          f"{dev_fmt(r['device_ms'])} ms per call", flush=True)
-    dims, cdim, C = SHAPES['bench']
-    carry, L, N, _ = lattice_cells(dims, cdim, C, 0.1, 3, dev)
-    adj, sh = cp.build_cell_shifts(cdim, L)
-    adj = torch.as_tensor(adj, dtype=torch.int32, device=dev)
-    sh = torch.as_tensor(sh, dtype=torch.float32, device=dev)
-    ljv = lj_params(dev)[1]
-    pos, tag = carry.pos, carry.tag
-
-    def fn():
-        return cp.cell_pair_lj(pos, adj, sh, ljv, ncells=pos.shape[0], C=C,
-                               cell_tag=tag)
-    fp = on_parent(cp, fn)
-    compare("row 4: new design against the parent's",
-            [(lab, g, w, RTOL, ATOL)
-             for lab, g, w in zip(('F', 'pe', 'virial'), fn(), fp())])
-    turns = [cuda_ms(f, 50) for f in (fp, fn, fn, fp)]
-    r = dict(parent_ms=turns[::3], ms=turns[1:3],
-             parent_device_ms=device_ms(fp, 10), device_ms=device_ms(fn, 10))
-    out['4 bench'] = r
-    print(f"row 4 (cell_pair_lj, bench cell_dim={cdim} C={C}) in turns "
-          f"parent, new, new, parent: {', '.join(f'{t:.4f}' for t in turns)}"
-          f" ms per wrapper call (CUDA events); device "
-          f"{dev_fmt(r['parent_device_ms'])} -> {dev_fmt(r['device_ms'])} ms",
-          flush=True)
+    for _, _, _, cases in todo:
+        for key, label, mod, calls, check in cases(dev):
+            for i, fn in enumerate(calls):
+                try:
+                    msg = check(fn(), on_parent(mod, parent_lib, fn)())
+                except RuntimeError as e:
+                    raise RuntimeError(f"{label}, input {i + 1} of "
+                                       f"{len(calls)}: {e}") from None
+            fp = on_parent(mod, parent_lib, fn)
+            turns = [cuda_ms(f, 50) for f in (fp, fn, fn, fp)]
+            (pd, ps), (nd, ns) = (recorded_ms(device_kernels(f, 20))
+                                  for f in (fp, fn))
+            r = out[key] = dict(parent_ms=turns[::3], ms=turns[1:3],
+                                parent_device_ms=pd, device_ms=nd)
+            print(f"{label}: {msg} on {len(calls)} input(s); in turns "
+                  f"parent, new, new, parent: "
+                  f"{', '.join(f'{t:.4f}' for t in turns)} ms per wrapper "
+                  f"call (CUDA events); device {dev_fmt(pd)} -> "
+                  f"{dev_fmt(nd)} ms (the profiler recorded "
+                  f"{ps or 0:.2f} and {ns or 0:.2f} of the launches)",
+                  flush=True)
     print(json.dumps({"parent_sweep_lj_ms": out}), flush=True)
-    return out
+    return parent_lib
 
 
 def engine_window_ms(s, gt, cand, ws, k):
@@ -1550,6 +1653,10 @@ def fused_job():
 IMPL_KERNELS = {'planar_n3l': 'cell_pair_planar_n3l', 'pallas': 'cell_pair_lj',
                 'pallas3d': 'cell_pair_lj_pallas3d',
                 'row': 'cell_pair_lj_row'}
+# the other impls' kernels whose build impl_kernel_phases reads, by the
+# occupancy entry point of their library
+OCC_ENTRY = {'cell_pair_lj': 'hoomd_cell_pair_lj_occupancy',
+             'cell_pair_lj_pallas3d': 'hoomd_cell_pair_lj3d_occupancy'}
 
 
 def lj_params(dev):
@@ -1568,9 +1675,11 @@ def impl_kernel_phases(dev):
     """Each force kernel of the other impls against its plain version at
     the bench shape, the ragged shape and a 2x2x2 grid (where one
     neighbour cell is reached under two image shifts; 'pallas' reads its
-    neighbours from the adjacency table there), element by element; then
-    the cross-kernel phase on the bench fill.  Returns the bench row of
-    each kernel."""
+    neighbours from the adjacency table there), element by element, and
+    'pallas3d' also against a second call bit for bit; at the bench shape
+    the device time and build of 'pallas' and 'pallas3d'; then the
+    cross-kernel phase on the bench fill.  Returns the bench row of each
+    kernel."""
     import torch
     from hoomd_tpu_torch.ops import cell_pair as cp
     pv, ljv = lj_params(dev)
@@ -1607,13 +1716,18 @@ def impl_kernel_phases(dev):
                                         3 if tag_name == 'bench' else 1))
             row['bound_ms'], row['bound_by'] = bounds[name]
             extra = ''
-            if name == 'cell_pair_lj' and tag_name == 'bench':
+            if name == 'cell_pair_lj_pallas3d':
+                # a warp per home, summed in a fixed order
+                if not same_bits(got, (kern(*args, C=C, cell_tag=tag, **kw),)):
+                    raise RuntimeError(f"{name}[{tag_name}]: two calls differ")
+                extra = ' two calls bit-identical;'
+            if name in OCC_ENTRY and tag_name == 'bench':
                 call = lambda: kern(*args, C=C, cell_tag=tag, **kw)
                 row['device_ms'] = device_ms(call, 10)
-                row['build'] = lj_build(C)
-                extra = (f" device_ms={dev_fmt(row['device_ms'])}, "
-                         f"{share_fmt(row['bound_ms'], row['device_ms'])}; "
-                         f"{sweep_build_line(row['build'])}")
+                row['build'] = occ_build(OCC_ENTRY[name], C)
+                extra += (f" device_ms={dev_fmt(row['device_ms'])}, "
+                          f"{share_fmt(row['bound_ms'], row['device_ms'])}; "
+                          f"{sweep_build_line(row['build'])}")
             if name == 'cell_pair_planar_n3l' and tag_name == 'bench':
                 call = lambda: kern(*args, C=C, cell_tag=tag, **kw)
                 row['device_ms'] = device_ms(call, 10)
@@ -1829,11 +1943,10 @@ def binned_apart(name, a, b):
     return n
 
 
-def device_ms(fn, iters, only=None, attempts=3):
-    """Summed device kernel time per call of fn, by torch.profiler; with
-    ``only``, of the kernels whose name holds it.  A profile that lists
-    no device kernel at all is taken again, up to ``attempts`` times;
-    None if none did (see dev_fmt), never 0."""
+def device_kernels(fn, iters, attempts=3):
+    """The device kernels of fn by torch.profiler: {name: (ms per call,
+    launches per call)}.  A profile that lists no device kernel at all is
+    taken again, up to ``attempts`` times; {} if none did."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1845,19 +1958,76 @@ def device_ms(fn, iters, only=None, attempts=3):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total, seen = 0.0, False
+        out = {}
         for e in prof.key_averages():
             if e.device_type != DeviceType.CUDA:
                 continue
-            seen = True
-            if only and only not in e.key:
-                continue
             t = getattr(e, 'self_device_time_total', None)
-            total += t if t is not None else getattr(
-                e, 'self_cuda_time_total', 0.0)
-        if seen:
-            return total / 1e3 / iters
-    return None
+            t = t if t is not None else getattr(e, 'self_cuda_time_total',
+                                                 0.0)
+            ms, n = out.get(e.key, (0.0, 0.0))
+            out[e.key] = (ms + t / 1e3 / iters, n + e.count / iters)
+        if out:
+            return out
+    return {}
+
+
+def device_ms(fn, iters, only=None, attempts=3):
+    """Summed device kernel time per call of fn, by torch.profiler; with
+    ``only``, of the kernels whose name holds it.  None where the profile
+    listed no device kernel in ``attempts`` tries (see dev_fmt), never 0
+    for want of a profile."""
+    out = device_kernels(fn, iters, attempts)
+    if not out:
+        return None
+    return sum(ms for name, (ms, _) in out.items() if not only or only in name)
+
+
+def recorded_ms(kernels):
+    """Device ms per call from device_kernels' {name: (ms, launches)}:
+    each kernel's time per recorded launch times its launches per call,
+    rounded, at least 1, so that launches the profiler did not record
+    (it has listed 0.55 launches per call of a one-launch wrapper) do not
+    read as time saved; and the least share of its launches recorded.
+    (None, None) where no kernel was listed."""
+    if not kernels:
+        return None, None
+    total, share = 0.0, 1.0
+    for ms, n in kernels.values():
+        per = max(1, round(n))
+        total += ms / n * per
+        share = min(share, n / per)
+    return total, share
+
+
+def build_times(call, iters=20):
+    """A wrapper call's times by each of the script's means: CUDA events
+    over ``iters`` calls back to back (ms), the host's perf_counter over
+    as many calls with no synchronisation between them (host_ms: where it
+    reaches ms, the events time the host), and the profiler's device time
+    per call (device_ms, from its time per recorded launch: recorded_ms)
+    with its kernels (kernels: {name: (ms, launches)} per call)."""
+    import torch
+    ms = cuda_ms(call, iters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        call()
+    host = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    kernels = device_kernels(call, iters)
+    return dict(ms=ms, host_ms=host, kernels=kernels,
+                device_ms=recorded_ms(kernels)[0])
+
+
+def kernels_fmt(kernels):
+    """The profiler's kernels of build_times as printed, names cut at 48
+    characters."""
+    if not kernels:
+        return 'the profiler listed no device kernel'
+    return ', '.join(f"{name[:48]} {ms:.4f} ms and {n:g} launches per call"
+                     for name, (ms, n) in sorted(kernels.items(),
+                                                 key=lambda kv: -kv[1][0]))
 
 
 def dev_fmt(ms):
@@ -1874,14 +2044,17 @@ def share_fmt(bound_ms, ms, digits=5):
     return f'{bound_ms / ms:.{digits}f} of the device time'
 
 
-def rebuild_phase(system):
+def rebuild_phase(system, parent_lib=None):
     """One rebuild of each rebin on a job's liquid: its live state
     advanced by one rebuild cadence (fast_m windows of k steps) past its
     last rebuild, on the job's plan.  CUDA-event time per call and device
     kernel time per call; none may flag, and all three give the same cell
     membership but for particles within a rounding of a face.  Then the
-    megastep's candidate build of the job's live reference, timed the
-    same way."""
+    megastep's candidate set of the job's live reference: the engine's
+    equal to the plain version's, a second build's and (with
+    ``parent_lib``, parent_sweep_lj_phase's library of the parent design)
+    the parent design's, counts and written lists bit for bit, and the
+    build timed the same way."""
     import torch
     from hoomd_tpu_torch.ops import cell_pair as cp
     from hoomd_tpu_torch.ops.cell_pair import build_cell_shifts
@@ -1918,12 +2091,28 @@ def rebuild_phase(system):
     args = (cand.gr, cyc.gt, cdim, torch.as_tensor(
         build_cell_shifts(cdim, box.L.cpu().numpy())[1], dtype=torch.float32,
         device=c.pos.device), cand.pads, cand.rc2)
-    ms = cuda_ms(lambda: cp.mega_candidates(*args, C=C), 20)
-    dms = device_ms(lambda: cp.mega_candidates(*args, C=C), 10)
+    # the engine's set of its live reference: the plain version's, a
+    # second build's and, where the parent's library was built, the
+    # parent design's counts and lists bit for bit
+    what = "mega_candidates of the job's live reference"
+    same_candidates(what, cand, cp.mega_candidates_plain(*args, C=C))
+    same_candidates(what, cp.mega_candidates(*args, C=C), written(cand),
+                    "the engine's build")
+    held = "the plain version's and a second build's"
+    if parent_lib is not None:
+        parent = on_parent(cp, parent_lib,
+                           lambda: cp.mega_candidates(*args, C=C))()
+        same_candidates(what, cand, written(parent), "the parent's")
+        held += " and the parent design's"
+    t = build_times(lambda: cp.mega_candidates(*args, C=C))
     per = int(cand.count.sum()) / int((cyc.gt >= 0).sum())
-    print(f"mega_candidates of the job's liquid, cell_dim={cdim} C={C}: "
-          f"{ms:.4f} ms per build (CUDA events), device {dev_fmt(dms)} ms; "
-          f"{per:.1f} candidates per live slot of {27 * C} staged", flush=True)
+    print(f"{what}, cell_dim={cdim} C={C}: counts and lists equal to "
+          f"{held}, bit for bit; {t['ms']:.4f} ms per build (CUDA events; "
+          f"host {t['host_ms']:.4f} ms per call), device "
+          f"{dev_fmt(t['device_ms'])} ms per call from the recorded launches "
+          f"({kernels_fmt(t['kernels'])}); "
+          f"{per:.1f} candidates per live slot of {27 * C} staged",
+          flush=True)
 
 
 def bench_job(t_start, nvt_steps=500, warmup=True):
@@ -3510,15 +3699,17 @@ def sweep_build_line(b):
             f"block")
 
 
-def lj_build(C):
-    """What the build gave the adjacency-listed LJ kernel at capacity C,
-    and its occupancy (as sweep_build)."""
+def occ_build(entry, *args):
+    """What the build gave a kernel and its occupancy (as sweep_build),
+    from its library's occupancy entry point called with args: the
+    adjacency-listed LJ kernel (hoomd_cell_pair_lj_occupancy, C), the
+    modular-indexed one (hoomd_cell_pair_lj3d_occupancy, C), the
+    candidate build (hoomd_mega_candidates_occupancy, nx, C)."""
     import ctypes
     from hoomd_tpu_torch.ops import _build
     lib = _build.load()
     out = (ctypes.c_int * 6)()
-    lib.check(lib.lib.hoomd_cell_pair_lj_occupancy(C, out),
-              'cell_pair_lj occupancy')
+    lib.check(getattr(lib.lib, entry)(*args, out), entry)
     return dict(registers=out[0], spill_bytes=out[1],
                 smem_bytes=out[2] + out[3], blocks_per_sm=out[4],
                 threads=out[5])
@@ -3636,7 +3827,8 @@ def main():
                 or line.startswith('==')):
             print(f"  ptxas: {line.strip()}", flush=True)
     rows = kernel_phases(dev)
-    rows['cell_megastep_planes'], mega_eval_ms = megastep_phases(dev)
+    rows['cell_megastep_planes'], mega_eval_ms, \
+        rows['mega_candidates'] = megastep_phases(dev)
     parent_megastep_phase(dev)
     window_torch_calls(dev)
     rows.update(step_plane_phases(dev))
@@ -3651,7 +3843,7 @@ def main():
     rows.update(charged_rows)
     rows.update(rebin_kernel_phases(dev))
     rows.update(hpmc_kernel_phases())
-    parent_sweep_lj_phase(dev)
+    parent_lib = parent_sweep_lj_phase(dev)
     print(f"kernel phases done at {time.perf_counter() - t0:.1f} s",
           flush=True)
     # each path's own launches, read just after it ran
@@ -3661,7 +3853,7 @@ def main():
         launches[name] = counts[name]
     rebin_job('off')
     counts = variants_path(system)
-    rebuild_phase(system)
+    rebuild_phase(system, parent_lib)
     for name in ('cell_rebin_select', 'cell_rebin_serial'):
         launches[name] = counts[name]
     for impl, kname in IMPL_KERNELS.items():
@@ -3684,6 +3876,10 @@ def main():
     replaces = {
         'cell_megastep_planes': ('hoomd_tpu/ops/pallas_pair.py:1978',
                                  'cell_pair.cu'),
+        # the TPU megastep tests its candidates inside the kernel; the
+        # port builds them in a launch of their own, once per rebuild
+        'mega_candidates': ('hoomd_tpu/ops/pallas_pair.py:1978',
+                            'cell_pair.cu'),
         'cell_pair_plane': ('hoomd_tpu/ops/pallas_pair.py:1173',
                             'cell_pair.cu'),
         'cell_pair_planar': ('hoomd_tpu/ops/pallas_pair.py:609',

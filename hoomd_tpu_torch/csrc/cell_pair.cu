@@ -46,7 +46,7 @@
 
 #include <algorithm>
 
-#include "cell_stencil.cuh"
+#include "cell_tile.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -537,83 +537,173 @@ static cudaError_t window(int ev, int approx, const MegaArgs& a, cudaStream_t st
 
 // ---------------------------------------------------------------------------
 // The megastep's candidate set: for slot i of a cell and entry t of its
-// staged stencil (27 C entries, build_cell_shifts order), bit t of i is
-// set when both slots are live, t is not i itself, and the pair can come
+// stencil (27 C entries, build_cell_shifts order), t is a candidate of i
+// when both slots are live, t is not i itself, and the pair can come
 // inside r_cut while the drift guard holds.  The guard allows
 // |d_ia| + |d_ja| <= skin_a on each axis, so the pair's distance is at
 // least sum_a max(|dr_a| - skin_a, 0)^2 with dr from the reference
-// positions; s_a is skin_a plus the caller's rounding margin.  One warp
-// builds one 32-bit word of a slot's bits with a ballot, into shared
-// memory for 16 slots at a time; a warp per slot then writes the set
-// bits, in ascending order, as the slot's list.
-constexpr int kCandSlots = 16;
+// positions; s_a is skin_a plus the caller's rounding margin.  A slot's
+// list holds its candidates' union indices in the megastep's staging of
+// its run, ascending, which is the stencil order.
+//
+// A block takes the megastep's own work item, a run of up to R cells
+// along x.  It stages the run's union of 9 (R + 2) cells once, compacted
+// to their live slots (cell_tile.cuh compact_cells), each entry with its
+// union index and each cell's shift read from the table as the megastep
+// reads it, and each staged cell's bounding box.  The run's homes are the
+// staged entries of its own cells.  A warp takes a home at a time: it
+// skips the home's staged cells whose box fails the candidate test (the
+// box's per-axis distance put through the test, rounded as an entry's;
+// rounding is monotone, so every entry of such a cell fails it too and
+// no list changes; ~45% of the candidates at the bench plan, as row 4's
+// skip), and its lanes test the entries of the kept cells in stencil
+// order, 32 at a time; a ballot gives each kept entry its place in the
+// row, so the list is written in ascending order with contiguous stores.
+// No atomics.  The walk is latency-bound, not bound by the test's
+// arithmetic (a trivial test took as long): its body is branch-free (every
+// lane loads and tests an entry, the out-of-range ones masked), since a
+// branch around the load put convergence barriers before every vote, and
+// each stencil row's span is found once per home by one lane.  Its first
+// design, a block per cell staging the cell's own 27-cell stencil with its
+// padding and testing every staged slot against 16 slots at a time, took
+// 4.5% of its bound at the bench plan.
+//
+// Warps per block and blocks per SM, chosen by timing on the card: 12
+// warps held to 56 registers (3 blocks per SM) ran faster than 8 (5
+// blocks) or 16 (2 blocks).
+constexpr int kCandWarps = 12;
+constexpr int kCandBlocks = 3;
 
-__global__ void mega_candidates_kernel(const float* __restrict__ r, const int* __restrict__ tag,
-                                       const float* __restrict__ shifts, const Geom g,
-                                       const float s0, const float s1, const float s2,
-                                       const float rc2, const int W, const int R, const int cap,
-                                       unsigned short* __restrict__ list,
-                                       int* __restrict__ count) {
-    extern __shared__ float smem[];
-    const int n = 27 * g.C;
-    float* sx = smem;
-    float* sy = sx + n;
-    float* sz = sy + n;
-    unsigned char* sv = reinterpret_cast<unsigned char*>(sz + n);
-    unsigned* wbuf = reinterpret_cast<unsigned*>(smem + (stencil_smem_bytes(g.C) + 3) / 4);
-    const long long M = (long long)g.nx * g.ny * g.nz * g.C;
-    const int cell = blockIdx.x;
-    // the cell's place in the megastep's runs along x
-    const int ix = cell % g.nx, rr = ix % R;
-    const int uw = min(R, g.nx - (ix - rr)) + 2;
-    stage_stencil(Vec3{const_cast<float*>(r), 1, M}, tag, shifts, g, cell, sx, sy, sz, sv);
+// Shared memory of one block at capacity C, runs of R cells: the staged
+// union, its cells' boxes and shifts, their ids and the offsets.
+static inline size_t cand_smem_bytes(const int C, const int R) {
+    const int nu = 9 * (R + 2);
+    return (size_t)nu * C * sizeof(float4) + (size_t)nu * 9 * sizeof(float) +
+           (size_t)(2 * nu + 1) * sizeof(int);
+}
+
+// sum_a max(d_a - s_a, 0)^2 of the per-axis distances d_a, every
+// operation rounded to nearest, in the plain version's order.
+__device__ __forceinline__ float cand_lb(const float dx, const float dy, const float dz,
+                                         const float s0, const float s1, const float s2) {
+    const float mx = fmaxf(__fsub_rn(dx, s0), 0.0f);
+    const float my = fmaxf(__fsub_rn(dy, s1), 0.0f);
+    const float mz = fmaxf(__fsub_rn(dz, s2), 0.0f);
+    return __fadd_rn(__fadd_rn(__fmul_rn(mx, mx), __fmul_rn(my, my)), __fmul_rn(mz, mz));
+}
+
+__global__ void __launch_bounds__(kCandWarps * 32, kCandBlocks)
+    mega_candidates_kernel(const float* __restrict__ r, const int* __restrict__ tag,
+                           const float* __restrict__ shifts, const Geom g, const float s0,
+                           const float s1, const float s2, const float rc2, const int R,
+                           const int nrun, const int cap, unsigned short* __restrict__ list,
+                           int* __restrict__ count) {
+    extern __shared__ float4 smem4[];
+    const int C = g.C;
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    const int numax = 9 * (R + 2);
+    float4* ent = smem4;                                        // x, y, z, union index
+    float* box = reinterpret_cast<float*>(ent + numax * C);     // [cell][lo xyz, hi xyz]
+    float* ush = box + numax * 6;
+    int* ucell = reinterpret_cast<int*>(ush + numax * 3);
+    int* off = ucell + numax;
+    const long long M = (long long)g.nx * g.ny * g.nz * C;
+    const int row = blockIdx.x / nrun;
+    const int ix0 = (blockIdx.x - row * nrun) * R;
+    const int rlen = min(R, g.nx - ix0);
+    const int uw = rlen + 2, nu = 9 * uw;
+    const int cell0 = ix0 + g.nx * row;
+    // each union cell's id and shift, read from the shift table of a cell
+    // of the run that has it in its stencil (mega_window's rule)
+    for (int u = threadIdx.x; u < nu; u += blockDim.x) {
+        const int ux = u % uw, uyz = u / uw;
+        const int rh = min(max(ux - 1, 0), rlen - 1);
+        const int k = uyz * 3 + (ux - rh);
+        ucell[u] = (int)(stencil_slot(g, cell0 + rh, k, 0) / C);
+        for (int a = 0; a < 3; ++a)
+            ush[3 * u + a] = shifts[((long long)(cell0 + rh) * 27 + k) * 3 + a];
+    }
+    // a padding slot of the run has no candidates
+    for (int q = threadIdx.x; q < rlen * C; q += blockDim.x)
+        if (tag[(long long)cell0 * C + q] < 0) count[(long long)cell0 * C + q] = 0;
     __syncthreads();
-    const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
-    for (int i0 = 0; i0 < g.C; i0 += kCandSlots) {
-        const int ns = min(kCandSlots, g.C - i0);
-        for (int ii = 0; ii < ns; ++ii) {
-            const int ic = 13 * g.C + i0 + ii;
-            if (!sv[ic]) {                     // a padding slot has none
-                for (int wd = threadIdx.x; wd < W; wd += blockDim.x) wbuf[ii * W + wd] = 0u;
-                continue;
+    compact_cells(
+        nu, C, tag, [&](const int u) { return (long long)ucell[u]; }, off,
+        [&](const int u, const int s, const int idx, const long long sl) {
+            ent[idx] = make_float4(r[sl] + ush[3 * u], r[M + sl] + ush[3 * u + 1],
+                                   r[2 * M + sl] + ush[3 * u + 2], __int_as_float(u * C + s));
+        });
+    // each staged cell's box (an empty one lies at infinity)
+    for (int u = w; u < nu; u += kCandWarps) {
+        float b[6] = {CUDART_INF_F, CUDART_INF_F, CUDART_INF_F,
+                      -CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F};
+        for (int e = off[u] + lane; e < off[u + 1]; e += 32) {
+            const float4 q = ent[e];
+            b[0] = fminf(b[0], q.x), b[1] = fminf(b[1], q.y), b[2] = fminf(b[2], q.z);
+            b[3] = fmaxf(b[3], q.x), b[4] = fmaxf(b[4], q.y), b[5] = fmaxf(b[5], q.z);
+        }
+        for (int o = 16; o > 0; o >>= 1)
+            for (int a = 0; a < 3; ++a) {
+                b[a] = fminf(b[a], __shfl_xor_sync(0xffffffffu, b[a], o));
+                b[3 + a] = fmaxf(b[3 + a], __shfl_xor_sync(0xffffffffu, b[3 + a], o));
             }
-            const float xi = sx[ic], yi = sy[ic], zi = sz[ic];
-            for (int wd = threadIdx.x >> 5; wd < W; wd += nw) {
-                const int t = 32 * wd + lane;
-                bool keep = false;
-                if (t < n && sv[t] && t != ic) {
-                    const float mx = fmaxf(fabsf(xi - sx[t]) - s0, 0.0f);
-                    const float my = fmaxf(fabsf(yi - sy[t]) - s1, 0.0f);
-                    const float mz = fmaxf(fabsf(zi - sz[t]) - s2, 0.0f);
-                    const float lb = __fadd_rn(
-                        __fadd_rn(__fmul_rn(mx, mx), __fmul_rn(my, my)), __fmul_rn(mz, mz));
-                    keep = lb < rc2;
-                }
-                const unsigned word = __ballot_sync(0xffffffffu, keep);
-                if (lane == 0) wbuf[ii * W + wd] = word;
+        if (lane < 6) box[u * 6 + lane] = b[lane];
+    }
+    __syncthreads();
+    // the homes: the staged entries of the run's own cells, union cells
+    // hu0 .. hu0 + rlen - 1 (the row dz = dy = 0), under the zero shift of
+    // stencil entry 13, as the parent staged them
+    const int hu0 = 4 * uw + 1;
+    const int h0 = off[hu0], nh = off[hu0 + rlen] - h0;
+    const unsigned lt = lanemask_lt();
+    for (int p = w; p < nh; p += kCandWarps) {      // warp-uniform
+        const float4 h = ent[h0 + p];
+        const int self = __float_as_int(h.w);
+        const int rr = self / C - hu0;              // the home's cell in the run
+        const long long j = (long long)(cell0 + rr) * C + (self - (self / C) * C);
+        // the home's stencil cells whose box can hold a candidate
+        bool near = false;
+        if (lane < 27) {
+            const float* b = box + (((lane / 9) * 3 + (lane / 3) % 3) * uw + rr + lane % 3) * 6;
+            near = cand_lb(fmaxf(fmaxf(__fsub_rn(b[0], h.x), __fsub_rn(h.x, b[3])), 0.0f),
+                           fmaxf(fmaxf(__fsub_rn(b[1], h.y), __fsub_rn(h.y, b[4])), 0.0f),
+                           fmaxf(fmaxf(__fsub_rn(b[2], h.z), __fsub_rn(h.z, b[5])), 0.0f), s0,
+                           s1, s2) < rc2;
+        }
+        const unsigned keep = __ballot_sync(0xffffffffu, near);
+        // stencil row r (dz, dy) = (r / 3, r % 3) holds entries 3 r .. 3 r +
+        // 2, union cells r uw + rr .. r uw + rr + 2: one range of the staged
+        // entries.  Lane r < 9 finds the span from its row's first to its
+        // last kept cell (a skipped cell between them is walked, and its
+        // entries fail the test as its box did)
+        int rb = 0, re = 0;
+        if (lane < 9) {
+            const unsigned m = (keep >> (3 * lane)) & 7u;
+            if (m) {
+                const int ur = lane * uw + rr;
+                rb = off[ur + __ffs(m) - 1];
+                re = off[ur + 32 - __clz(m)];
             }
         }
-        __syncthreads();
-        // each slot's list: the union index, in the megastep's run
-        // layout, of each set bit in ascending order, as many as fit
-        for (int ii = threadIdx.x >> 5; ii < ns; ii += nw) {
-            const long long j = (long long)cell * g.C + i0 + ii;
-            int base = 0;
-            for (int wd = 0; wd < W; ++wd) {
-                const unsigned word = wbuf[ii * W + wd];
-                if ((word >> lane) & 1u) {
-                    const int pos = base + __popc(word & ((1u << lane) - 1u));
-                    if (pos < cap) {
-                        const int t = 32 * wd + lane, k = t / g.C;
-                        list[j * cap + pos] =
-                            (unsigned short)(union_base(k, rr, uw, g.C) + t - k * g.C);
-                    }
-                }
-                base += __popc(word);
+        unsigned short* out = list + j * cap;
+        int n = 0;                                  // candidates so far (warp-uniform)
+        for (int r = 0; r < 9; ++r) {
+            const int beg = __shfl_sync(0xffffffffu, rb, r);
+            const int end = __shfl_sync(0xffffffffu, re, r);
+            // branch-free: every lane loads and tests an entry of the span
+            for (int e0 = beg; e0 < end; e0 += 32) {
+                const float4 q = ent[min(e0 + lane, end - 1)];
+                const int ui = __float_as_int(q.w);
+                const float lb = cand_lb(fabsf(__fsub_rn(h.x, q.x)), fabsf(__fsub_rn(h.y, q.y)),
+                                         fabsf(__fsub_rn(h.z, q.z)), s0, s1, s2);
+                const bool in = (e0 + lane < end) & (ui != self) & (lb < rc2);
+                const unsigned b = __ballot_sync(0xffffffffu, in);
+                const int at = n + __popc(b & lt);
+                if (in & (at < cap)) out[at] = (unsigned short)ui;
+                n += __popc(b);
             }
-            if (lane == 0) count[j] = base;
         }
-        __syncthreads();
+        if (lane == 0) count[j] = n;
     }
 }
 
@@ -700,24 +790,31 @@ int hoomd_megastep(float* p, float* v, float* f, const float* w, const float* m,
 
 // The candidate set of the reference planes r (3, nz, ny, nx, C): in the
 // megastep's run layout, each slot's candidates as union indices into
-// list (M, cap), cap a
-// multiple of 8 (the first min(count, cap) of a row are written), with
-// their number in count (M); s0..s2 the per-axis skins with their
-// rounding margin, rc2 the squared cutoff.
+// list (M, cap), cap a multiple of 8 (the first min(count, cap) of a row
+// are written), with their number in count (M); s0..s2 the per-axis
+// skins with their rounding margin, rc2 the squared cutoff.
 int hoomd_mega_candidates(const float* r, const int* tag, const float* shifts, float s0,
                           float s1, float s2, float rc2, void* list, int* count,
                           int cap, int nx, int ny, int nz, int C, void* stream) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const Geom g{nx, ny, nz, C};
-    const int W = (27 * C + 31) / 32;
-    const size_t smem = (stencil_smem_bytes(C) + 3) / 4 * 4 + (size_t)kCandSlots * W * 4;
+    if (cap % 8 != 0) return cudaErrorInvalidValue;
+    const int R = mega_run(nx, C), nrun = (nx + R - 1) / R;
+    const size_t smem = cand_smem_bytes(C, R);
     cudaError_t e = set_smem(mega_candidates_kernel, smem);
     if (e != cudaSuccess) return e;
-    if (cap % 8 != 0) return cudaErrorInvalidValue;
-    mega_candidates_kernel<<<nx * ny * nz, 256, smem, st>>>(
-        r, tag, shifts, g, s0, s1, s2, rc2, W, mega_run(nx, C), cap,
+    mega_candidates_kernel<<<nrun * ny * nz, kCandWarps * 32, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+        r, tag, shifts, Geom{nx, ny, nz, C}, s0, s1, s2, rc2, R, nrun, cap,
         static_cast<unsigned short*>(list), count);
     return cudaGetLastError();
+}
+
+// The build and occupancy of the candidate build at capacity C on a grid
+// nx cells wide (kernel_occupancy's out[5]) and its threads per block
+// (out[5]).
+int hoomd_mega_candidates_occupancy(int nx, int C, int* out) {
+    out[5] = kCandWarps * 32;
+    return kernel_occupancy(mega_candidates_kernel, out[5], cand_smem_bytes(C, mega_run(nx, C)),
+                            out);
 }
 
 const char* hoomd_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }

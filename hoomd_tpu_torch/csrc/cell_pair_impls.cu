@@ -7,8 +7,8 @@
 //                         the adjacency table lists; forces, half-pair
 //                         energy and virial.
 // hoomd_cell_pair_lj3d    replaces pallas_pair.py:_kernel3d ('pallas3d'): a
-//                         cell against its 27 modular-indexed neighbours, one
-//                         neighbour at a time; forces.
+//                         cell against its 27 modular-indexed neighbours;
+//                         forces.
 // hoomd_cell_pair_lj_row  replaces pallas_pair.py:_kernel_row ('row'): a tile
 //                         of an x-row of cells against its 9 (dz, dy) stencil
 //                         rows, each row staged once and reused for
@@ -40,9 +40,11 @@
 //     cell_pair_charged.cu).  Its first design, a thread per slot of the
 //     cell walking all 27 C staged slots, left C threads of a block busy
 //     (40 at the bench plan).
-//   * lj3d: one block per cell stages one neighbour at a time into a
-//     double buffer (2*C*13 bytes, 1 KB at C = 40), one barrier per
-//     neighbour: less shared memory per block than lj, more barriers.
+//   * lj3d: lj's kernel with the modular index in place of the table's
+//     row and the forces alone (one template, two instances).  Its first
+//     design, a block per cell staging one neighbour at a time into a
+//     double buffer behind 27 barriers, kept C of threads_for(C) threads
+//     busy and walked every staged slot, padding included.
 //   * lj_row: one block per tile of TX cells of an x-row (TX*C threads:
 //     at MAX_C one row does not fit a block) stages each (dz, dy) row's
 //     TX + 2 cells once, image shifts applied, and every thread reads it
@@ -73,25 +75,33 @@
 namespace hoomd_torch {
 
 // ---------------------------------------------------------------------------
-// lj: the adjacency-listed stencil.  lj = [lj1, lj2, rc2, e_shift].
+// lj and lj3d: the 27-cell stencil of a cell, a warp per home.  lj = [lj1,
+// lj2, rc2, e_shift].
 //
-// A block takes a cell and kLjWarps warps.  It stages the 27 cells its
-// row of the table lists once, each entry's image shift applied,
-// compacted to the live slots (compact_cells; an id outside [0, nc) lists
-// nothing), with each staged cell's bounding box, and a warp takes a home
+// A block takes a cell and kLjWarps warps.  It stages the cell's 27
+// neighbours once (NB_ADJ: the cells its row of the table lists, an id
+// outside [0, nc) listing nothing; NB_MOD: the modular index of
+// build_cell_shifts' order, as _kernel3d reads them), each entry's image
+// shift applied, compacted to the live slots (compact_cells), with each
+// staged cell's bounding box; on a grid 1 or 2 cells wide a cell listed
+// under two shifts is two staged cells, each with its own box.  A warp
+// takes a home
 // at a time.  The home skips the staged cells whose box lies outside its
 // cut (r^2 of the home to the box, rounded as a pair's, not below rc2:
 // every pair of the cell is then outside, since rounding is monotone;
-// ~45% of the candidates at the bench plan), and walks the runs of
-// consecutive kept cells.  The lanes stride over the entries, test
+// ~45% of the candidates at the bench plan), and walks each stencil row's
+// span of kept cells.  The lanes stride over the entries, branch-free, test
 // r^2 < rc2 with r^2 rounded as the plain version's torch ops, append the
 // pairs inside the cut to the warp's list by a ballot, and evaluate them
 // 32 at a time, a pair per lane, converged; a fixed shuffle tree sums the lanes.  The self pair is
 // excluded by index: the home's own entry under the first table entry
-// that lists its cell under no shift (an entry listed twice counts
-// twice).  No atomics: equal inputs, equal bits.
+// that lists its cell under no shift (NB_MOD: entry 13; an entry listed
+// twice counts twice).  PV: the forces, half-pair energy and virial
+// (row 4), else the forces alone (row 5).  No atomics: equal inputs,
+// equal bits.
 
 constexpr int kLjWarps = 8;              // homes at a time per block (4: 3% slower)
+constexpr int NB_ADJ = 0, NB_MOD = 1;    // where a cell's 27 neighbours come from
 constexpr int kLjList = 64;              // entries of a warp's list of pairs inside the cut
 
 // Shared memory of one block: the staged cells, the warps' lists, the
@@ -101,14 +111,17 @@ static inline size_t lj_adj_smem_bytes(const int C) {
            (size_t)27 * 6 * sizeof(float) + (size_t)(28 + C + 2) * sizeof(int);
 }
 
+template <int NB, bool PV>
 __global__ void __launch_bounds__(kLjWarps * 32)
     lj_adj_kernel(const float* __restrict__ pos, const int* __restrict__ tag,
                   const int* __restrict__ adj, const float* __restrict__ shifts,
-                  const float* __restrict__ ljp, const int C, float* __restrict__ frc,
+                  const float* __restrict__ ljp, const Geom g, float* __restrict__ frc,
                   float* __restrict__ pe, float* __restrict__ vir) {
     extern __shared__ float4 smem4[];
     __shared__ int self_k;
     constexpr int W = kLjWarps;
+    constexpr int NA = PV ? 10 : 3;             // the sums a home keeps
+    const int C = g.C;
     const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
     float4* ent = smem4;
     float4* lst = ent + 27 * C;
@@ -117,18 +130,21 @@ __global__ void __launch_bounds__(kLjWarps * 32)
     int* hslot = off + 28;
     int* hcnt = hslot + C;
     const int cell = blockIdx.x, nc = gridDim.x;
-    const int* row = adj + (long long)cell * 27;
+    const int* row = NB == NB_ADJ ? adj + (long long)cell * 27 : nullptr;
+    const int ix = cell % g.nx, iy = (cell / g.nx) % g.ny, iz = cell / (g.nx * g.ny);
     const float* shc = shifts + (long long)cell * 27 * 3;
     for (int s = threadIdx.x; s < C; s += blockDim.x) {   // the padding slots' outputs
         const long long slot = (long long)cell * C + s;
         if (tag[slot] >= 0) continue;
         for (int a = 0; a < 3; ++a) frc[slot * 3 + a] = 0.0f;
-        pe[slot] = 0.0f;
-        for (int c = 0; c < 6; ++c) vir[slot * 6 + c] = 0.0f;
+        if (PV) {
+            pe[slot] = 0.0f;
+            for (int c = 0; c < 6; ++c) vir[slot * 6 + c] = 0.0f;
+        }
     }
     if (threadIdx.x == 0) {
         // the entry that lists this cell itself under no image shift
-        int sk = -1;
+        int sk = NB == NB_MOD ? 13 : -1;
         for (int k = 0; k < 27 && sk < 0; ++k)
             if (row[k] == cell && shc[3 * k] == 0.0f && shc[3 * k + 1] == 0.0f &&
                 shc[3 * k + 2] == 0.0f)
@@ -142,10 +158,17 @@ __global__ void __launch_bounds__(kLjWarps * 32)
         [&](const int, const int s, const int idx, const long long) { hslot[idx] = s; });
     const int nh = hcnt[1];
     if (nh == 0) return;                        // the whole block: no live home
-    // the 27 listed cells, in table order, compacted
+    // the 27 neighbours, in table order, compacted
     compact_cells(
         27, C, tag,
-        [&](const int k) { return row[k] < 0 || row[k] >= nc ? -1LL : (long long)row[k]; }, off,
+        [&](const int k) -> long long {
+            if (NB == NB_MOD)
+                return wrap(ix + k % 3 - 1, g.nx) +
+                       g.nx * (wrap(iy + (k / 3) % 3 - 1, g.ny) +
+                               (long long)g.ny * wrap(iz + k / 9 - 1, g.nz));
+            return row[k] < 0 || row[k] >= nc ? -1LL : (long long)row[k];
+        },
+        off,
         [&](const int k, const int, const int idx, const long long sl) {
             ent[idx] = make_float4(pos[sl * 3 + 0] + shc[3 * k + 0],
                                    pos[sl * 3 + 1] + shc[3 * k + 1],
@@ -169,21 +192,22 @@ __global__ void __launch_bounds__(kLjWarps * 32)
     }
     __syncthreads();
     const PairPar lj = lj_par(ljp[2], ljp[3], ljp[0], ljp[1]);
+    const unsigned lt = lanemask_lt();
     float4* L = lst + w * kLjList;
     for (int p = w; p < nh; p += W) {           // warp-uniform
         const long long slot = (long long)cell * C + hslot[p];
         const float xi = pos[slot * 3 + 0], yi = pos[slot * 3 + 1], zi = pos[slot * 3 + 2];
         const int self = self_k >= 0 ? off[self_k] + p : -1;
-        float acc[10];
+        float acc[NA];
 #pragma unroll
-        for (int a = 0; a < 10; ++a) acc[a] = 0.0f;
+        for (int a = 0; a < NA; ++a) acc[a] = 0.0f;
         int nl = 0;                             // pairs in the warp's list (warp-uniform)
         // the first cnt entries of the list, a pair per lane, converged
         auto evaluate = [&](const int cnt) {
             __syncwarp();
             if (lane < cnt) {
                 const float4 d = L[lane];
-                pair_acc<EV_LJ, false, true>(d.x, d.y, d.z, lj, acc);
+                pair_acc<EV_LJ, false, PV>(d.x, d.y, d.z, lj, acc);
             }
             __syncwarp();
         };
@@ -197,26 +221,29 @@ __global__ void __launch_bounds__(kLjWarps * 32)
             const float dz = fmaxf(fmaxf(__fsub_rn(b[2], zi), __fsub_rn(zi, b[5])), 0.0f);
             near = r2_rn(dx, dy, dz) < lj.rc2;
         }
-        unsigned keep = __ballot_sync(0xffffffffu, near);
-        while (keep) {
-            // the next run of kept cells, k0 .. k1 - 1
-            const int k0 = __ffs(keep) - 1;
-            const int k1 = __ffs(~keep & (0xffffffffu << k0)) - 1;
-            keep &= 0xffffffffu << k1;
-            const int end = off[k1];
-            for (int j0 = off[k0]; j0 < end; j0 += 32) {
+        const unsigned keep = __ballot_sync(0xffffffffu, near);
+        // the span of each row of the stencil, entries 3 r .. 3 r + 2, from
+        // its first to its last kept cell (a skipped cell between them is
+        // walked, and none of its pairs is inside the cut), found by lane r
+        int rb = 0, re = 0;
+        if (lane < 9) {
+            const unsigned m = (keep >> (3 * lane)) & 7u;
+            if (m) {
+                rb = off[3 * lane + __ffs(m) - 1];
+                re = off[3 * lane + 32 - __clz(m)];
+            }
+        }
+        for (int r = 0; r < 9; ++r) {
+            const int beg = __shfl_sync(0xffffffffu, rb, r);
+            const int end = __shfl_sync(0xffffffffu, re, r);
+            // branch-free: every lane loads and tests an entry of the span
+            for (int j0 = beg; j0 < end; j0 += 32) {
                 const int j = j0 + lane;
-                bool in = false;
-                float4 d = make_float4(0.f, 0.f, 0.f, 0.f);
-                if (j < end && j != self) {
-                    const float4 e = ent[j];
-                    d.x = xi - e.x;
-                    d.y = yi - e.y;
-                    d.z = zi - e.z;
-                    in = r2_rn(d.x, d.y, d.z) < lj.rc2;
-                }
+                const float4 e = ent[min(j, end - 1)];
+                const float4 d = make_float4(xi - e.x, yi - e.y, zi - e.z, 0.0f);
+                const bool in = (j < end) & (j != self) & (r2_rn(d.x, d.y, d.z) < lj.rc2);
                 const unsigned b = __ballot_sync(0xffffffffu, in);
-                if (in) L[nl + __popc(b & lanemask_lt())] = d;
+                if (in) L[nl + __popc(b & lt)] = d;
                 nl += __popc(b);
                 if (nl >= 32) {
                     evaluate(32);
@@ -227,66 +254,16 @@ __global__ void __launch_bounds__(kLjWarps * 32)
         }
         evaluate(nl);
 #pragma unroll
-        for (int a = 0; a < 10; ++a) acc[a] = warp_sum(acc[a]);
+        for (int a = 0; a < NA; ++a) acc[a] = warp_sum(acc[a]);
         if (lane == 0) {
             for (int a = 0; a < 3; ++a) frc[slot * 3 + a] = acc[a];
-            pe[slot] = 0.5f * acc[3];
-            for (int c = 0; c < 6; ++c) vir[slot * 6 + c] = 0.5f * acc[4 + c];
+            if (PV) {
+                pe[slot] = 0.5f * acc[3];
+                for (int c = 0; c < 6; ++c) vir[slot * 6 + c] = 0.5f * acc[4 + c];
+            }
         }
         __syncwarp();                           // the list is read before the next home
     }
-}
-
-// ---------------------------------------------------------------------------
-// lj3d: one neighbour at a time, double-buffered.
-
-__global__ void lj_3d_kernel(const float* __restrict__ pos, const int* __restrict__ tag,
-                             const float* __restrict__ shifts, const float* __restrict__ ljp,
-                             const Geom g, float* __restrict__ frc) {
-    extern __shared__ float smem[];
-    const int C = g.C;
-    unsigned char* sv0 = reinterpret_cast<unsigned char*>(smem + 6 * C);
-    const int cell = blockIdx.x;
-    const int ix = cell % g.nx, iy = (cell / g.nx) % g.ny, iz = cell / (g.nx * g.ny);
-    const float* shc = shifts + (long long)cell * 27 * 3;
-    auto stage = [&](const int k, const int b) {
-        const int jc = wrap(ix + k % 3 - 1, g.nx) +
-                       g.nx * (wrap(iy + (k / 3) % 3 - 1, g.ny) + g.ny * wrap(iz + k / 9 - 1, g.nz));
-        float* s = smem + b * 3 * C;
-        for (int t = threadIdx.x; t < C; t += blockDim.x) {
-            const long long slot = (long long)jc * C + t;
-            s[t] = pos[slot * 3 + 0] + shc[3 * k + 0];
-            s[C + t] = pos[slot * 3 + 1] + shc[3 * k + 1];
-            s[2 * C + t] = pos[slot * 3 + 2] + shc[3 * k + 2];
-            sv0[b * C + t] = tag[slot] >= 0;
-        }
-    };
-    const int i = threadIdx.x;
-    const long long slot = (long long)cell * C + i;
-    const bool vi = i < C && tag[slot] >= 0;
-    float xi = 0.f, yi = 0.f, zi = 0.f;
-    if (vi) {
-        xi = pos[slot * 3];
-        yi = pos[slot * 3 + 1];
-        zi = pos[slot * 3 + 2];
-    }
-    const PairPar lj = lj_par(ljp[2], ljp[3], ljp[0], ljp[1]);
-    float acc[3] = {0.f, 0.f, 0.f};
-    stage(0, 0);
-    __syncthreads();
-    for (int k = 0; k < 27; ++k) {
-        // the next neighbour goes to the other buffer, which every thread
-        // left at the previous barrier
-        if (k + 1 < 27) stage(k + 1, (k + 1) & 1);
-        const int b = k & 1;
-        if (vi)
-            stencil_sum<EV_LJ, false, false>(xi, yi, zi, k == 13 ? i : -1, C, smem + b * 3 * C,
-                                      smem + b * 3 * C + C, smem + b * 3 * C + 2 * C,
-                                      sv0 + b * C, lj, acc);
-        __syncthreads();
-    }
-    if (i < C)
-        for (int a = 0; a < 3; ++a) frc[slot * 3 + a] = acc[a];
 }
 
 // ---------------------------------------------------------------------------
@@ -612,10 +589,11 @@ int hoomd_cell_pair_lj(const float* pos, const int* tag, const int* adj, const f
                        const float* ljp, float* frc, float* pe, float* vir, int nc, int C,
                        void* stream) {
     const size_t smem = lj_adj_smem_bytes(C);
-    cudaError_t e = set_smem(lj_adj_kernel, smem);
+    auto kern = lj_adj_kernel<NB_ADJ, true>;
+    cudaError_t e = set_smem(kern, smem);
     if (e != cudaSuccess) return e;
-    lj_adj_kernel<<<nc, 32 * kLjWarps, smem, static_cast<cudaStream_t>(stream)>>>(
-        pos, tag, adj, shifts, ljp, C, frc, pe, vir);
+    kern<<<nc, 32 * kLjWarps, smem, static_cast<cudaStream_t>(stream)>>>(
+        pos, tag, adj, shifts, ljp, Geom{nc, 1, 1, C}, frc, pe, vir);
     return cudaGetLastError();
 }
 
@@ -623,7 +601,7 @@ int hoomd_cell_pair_lj(const float* pos, const int* tag, const int* adj, const f
 // C (kernel_occupancy's out[5]) and its threads per block (out[5]).
 int hoomd_cell_pair_lj_occupancy(int C, int* out) {
     out[5] = 32 * kLjWarps;
-    return kernel_occupancy(lj_adj_kernel, out[5], lj_adj_smem_bytes(C), out);
+    return kernel_occupancy(lj_adj_kernel<NB_ADJ, true>, out[5], lj_adj_smem_bytes(C), out);
 }
 
 // pos (nz, ny, nx, C, 3) cell-major, tag, shifts (nc, 27, 3), ljp as above;
@@ -631,12 +609,19 @@ int hoomd_cell_pair_lj_occupancy(int C, int* out) {
 int hoomd_cell_pair_lj3d(const float* pos, const int* tag, const float* shifts,
                          const float* ljp, float* frc, int nx, int ny, int nz, int C,
                          void* stream) {
-    const size_t smem = (size_t)2 * C * (3 * sizeof(float) + 1);
-    cudaError_t e = set_smem(lj_3d_kernel, smem);
+    const size_t smem = lj_adj_smem_bytes(C);
+    auto kern = lj_adj_kernel<NB_MOD, false>;
+    cudaError_t e = set_smem(kern, smem);
     if (e != cudaSuccess) return e;
-    lj_3d_kernel<<<nx * ny * nz, threads_for(C), smem, static_cast<cudaStream_t>(stream)>>>(
-        pos, tag, shifts, ljp, Geom{nx, ny, nz, C}, frc);
+    kern<<<nx * ny * nz, 32 * kLjWarps, smem, static_cast<cudaStream_t>(stream)>>>(
+        pos, tag, nullptr, shifts, ljp, Geom{nx, ny, nz, C}, frc, nullptr, nullptr);
     return cudaGetLastError();
+}
+
+// The same for the modular-indexed kernel (hoomd_cell_pair_lj3d).
+int hoomd_cell_pair_lj3d_occupancy(int C, int* out) {
+    out[5] = 32 * kLjWarps;
+    return kernel_occupancy(lj_adj_kernel<NB_MOD, false>, out[5], lj_adj_smem_bytes(C), out);
 }
 
 // As hoomd_cell_pair_lj3d, in tiles of tx cells of an x-row (tx * C <= 1024).

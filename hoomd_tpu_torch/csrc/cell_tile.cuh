@@ -1,7 +1,8 @@
 // Tiles of an x-row of cells, for the mixtures' planar kernel
 // (cell_pair_typed.cu) and the half stencil (cell_pair_impls.cu); the
 // compaction of live slots (compact_cells) also stages the charged
-// kernel's and the adjacency-listed LJ kernel's 27 cells.
+// kernel's and the 27-cell LJ kernels' cells (rows 4 and 5), and the
+// union of a run of cells for the megastep's candidate build.
 //
 // A block takes a tile: tx <= TX consecutive cells x0 .. x0 + tx - 1 of
 // the x-row (iy, iz).  Its home particles are the live slots of those

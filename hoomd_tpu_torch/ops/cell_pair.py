@@ -1138,9 +1138,10 @@ def _check_lj_args(cell_pos, cell_tag, cell_dim, cell_shift, lj_params, C):
 def cell_pair_lj_pallas3d(cell_pos, cell_dim, cell_shift, lj_params, *, C,
                           cell_tag):
     """Forces (nc, C, 3) of the 27-cell stencil, a cell against its
-    modular-indexed neighbours one at a time.  lj_params = [lj1, lj2,
-    rc2, e_shift].  The JAX function's want_pv=True form has no caller
-    in either engine and is not ported."""
+    modular-indexed neighbours (the kernel of cell_pair_lj with the
+    modular index in place of the table).  lj_params = [lj1, lj2, rc2,
+    e_shift].  The JAX function's want_pv=True form has no caller in
+    either engine and is not ported."""
     _check_lj_args(cell_pos, cell_tag, cell_dim, cell_shift, lj_params, C)
     if _device_of(cell_pos) == 'cpu':
         return cell_pair_lj_pallas3d_plain(cell_pos, cell_dim, cell_shift,

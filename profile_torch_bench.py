@@ -16,7 +16,7 @@ NVIDIA GPU.
     python3 profile_torch_bench.py tiles     # the tile kernels' tile widths
     python3 profile_torch_bench.py ka-bits [TREE]  # the KA job's end bits
     python3 profile_torch_bench.py sweeps [TREE]   # the HPMC sweeps' times
-    python3 profile_torch_bench.py jobs [TREE]     # the sphere, cube, pallas jobs
+    python3 profile_torch_bench.py jobs [TREE] [JOB ...]  # jobs through TREE
     python3 profile_torch_bench.py sweep-parts [poly] [sphere]  # a sweep's parts
     python3 profile_torch_bench.py profiler  # what torch.profiler sees
 
@@ -76,11 +76,13 @@ KA table, row 7 at the bench shape.  With ``ka-bits [TREE]`` it runs
 chip_smoke.py's KA job script through the hoomd_tpu_torch of TREE (by
 default this checkout) and prints T and PE/N at the end of its NVT
 window exactly; chip_smoke.py's KA_PARENT_T and KA_PARENT_PE come from
-it on the tree of the parent design.  With ``jobs [TREE]`` it runs
-chip_smoke.py's hard-sphere, cube and HOOMD_TPU_FAST_IMPL=pallas jobs
-through the hoomd_tpu_torch of TREE, with their gates; run on two trees
-in turns, in separate processes, it compares their end-to-end numbers on
-one card.  With ``sweeps [TREE]`` it times
+it on the tree of the parent design.  With ``jobs [TREE] [JOB ...]`` it
+runs chip_smoke.py's jobs named (JOBS: ``sphere`` and ``cube``, the HPMC
+jobs; ``pallas``, ``pallas3d``, ``row``, ``planar_n3l``, the impl jobs'
+HOOMD_TPU_FAST_IMPL paths; ``bench``, the bench job with its warmup and
+one timed 3000-step window; by default sphere, cube, pallas) through the
+hoomd_tpu_torch of TREE, with their gates; run on two trees in turns, in
+separate processes, it compares their end-to-end numbers on one card.  With ``sweeps [TREE]`` it times
 each HPMC sweep (fused_sphere_sweep, fused_poly_sweep) at its job
 script's plan through the hoomd_tpu_torch of TREE: ms per wrapper call
 by CUDA events and device ms per call by torch.profiler; with
@@ -494,20 +496,50 @@ def ka_bits(tree=None):
         'PE_N': q['potential_energy'] / system.state.N}}), flush=True)
 
 
-def job_times(tree=None):
-    """chip_smoke.py's hard-sphere and config-5 cube jobs and its
-    HOOMD_TPU_FAST_IMPL=pallas job through the hoomd_tpu_torch of
-    ``tree`` (by default this checkout), with their gates: each prints
-    its metric line (trial moves/s; ms per step)."""
+# the jobs of ``jobs``: the HPMC jobs, the impl jobs' force paths, the
+# bench job
+JOBS = ('sphere', 'cube', 'pallas', 'pallas3d', 'row', 'planar_n3l', 'bench')
+
+
+def bench_turn(card_name):
+    """chip_smoke.py's bench job (bench.py's script and warmup) and one
+    timed 3000-step window, as bench_script times it: particle-steps/s,
+    ms per step, the cadence, and T and PE/N after the window, exactly
+    (bench_script gates them on its recorded bits)."""
+    system, N = bench_job(time.perf_counter())
+    steps = 3000
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    system.run(steps, quiet=True)
+    elapsed = time.perf_counter() - t0
+    q = system.thermo_quantities()
+    pe = q['potential_energy'] / N
+    print(json.dumps({'bench_job': {
+        'particle_steps_per_sec': steps * N / elapsed,
+        'ms_per_step': elapsed / steps * 1e3,
+        'fast_m': int(system._grow.get('fast_m', 1)),
+        'T': q['temperature'], 'PE_N': pe,
+        'fast_stats': system.fast_stats, 'card': card_name}}), flush=True)
+
+
+def job_times(tree=None, jobs=('sphere', 'cube', 'pallas')):
+    """chip_smoke.py's jobs named in ``jobs`` (JOBS) through the
+    hoomd_tpu_torch of ``tree`` (by default this checkout), with their
+    gates: each prints its metric line (trial moves/s; ms per step;
+    particle-steps/s)."""
     if tree:
         sys.path.insert(0, os.path.abspath(tree))
     from chip_smoke import card_line, hpmc_job, impl_job
     import hoomd_tpu_torch
     print(f"package: {os.path.dirname(hoomd_tpu_torch.__file__)}", flush=True)
     c = card_line()
-    hpmc_job('sphere', c)
-    hpmc_job('cube', c)
-    impl_job('pallas')
+    for job in jobs:
+        if job in ('sphere', 'cube'):
+            hpmc_job(job, c)
+        elif job == 'bench':
+            bench_turn(c)
+        else:
+            impl_job(job)
 
 
 def sweep_times(tree=None, iters=50):
@@ -698,8 +730,14 @@ def main(argv):
         profiler_probe()
         return
     if argv[1:2] == ['jobs']:
+        # jobs [TREE] [JOB ...]
         print('card:', card(), flush=True)
-        job_times(argv[2] if len(argv) > 2 else None)
+        args = argv[2:]
+        tree = args.pop(0) if args and args[0] not in JOBS else None
+        bad = [a for a in args if a not in JOBS]
+        if bad:
+            raise SystemExit(f"unknown jobs {bad}; the jobs are {JOBS}")
+        job_times(tree, tuple(args) or ('sphere', 'cube', 'pallas'))
         return
     if argv[1:2] == ['sweeps']:
         print('card:', card(), flush=True)

@@ -27,6 +27,11 @@ langevin, k = 1 and 4, on the guard-edge window and on a window that
 trips the guard (equal danger flags; past the trip the kernel walks
 every staged slot); two launches give equal bits; where the lists
 overflow, the walk of every staged slot gives the listed walk's bits.
+The set is also built on the edge fills of CAND_EDGE (runs of 1 to 4
+cells along x, ragged runs, C up to MAX_C, a full, an empty and a
+one-particle cell) with pads 0, SKIN's and pads that overflow the lists:
+counts and written lists equal to the plain version's bit for bit, and
+two builds equal.
 
     python -m pytest tests/test_torch_megastep.py -m gpu --noconftest
 """
@@ -344,19 +349,64 @@ def cuda():
     return torch.device('cuda', 0)
 
 
+# the candidate build's edge fills (test_torch_force_impls._edge_fill: a
+# cell filled to C, an empty cell, a one-particle cell, live slots among
+# padding): the megastep's runs along x of 1, 2, 3 and 4 + 1 cells (nx =
+# 1, 2, 3, 5), C = 200 (runs of 2 + 1) and MAX_C (runs of 1); each with
+# pads 0, SKIN's and pads wide enough that the lists overflow their cap
+CAND_EDGE = [((1, 3, 2), 16), ((2, 2, 3), 33), ((3, 2, 2), 16),
+             ((5, 2, 2), 33), ((3, 2, 2), 200), ((2, 2, 2), tcp.MAX_C)]
+
+
+def _written(cand):
+    """(count, each row of listed as far as it is written, zero after)."""
+    n = torch.clamp(cand.count, max=cand.cap).long()
+    used = torch.arange(cand.cap, device=n.device)[None, :] < n[:, None]
+    return cand.count.cpu(), torch.where(used, cand.listed, 0).cpu()
+
+
+def _cuda_candidates_match_plain(gr, gt, cell_dim, sh, pads, Cb):
+    """The kernel's set of one build (one launch counted) against the plain
+    version's, bit for bit; a second build gives the same bits."""
+    n0 = tcp.mega_candidates.launches
+    got = tcp.mega_candidates(gr, gt, cell_dim, sh, pads, RCUT * RCUT, C=Cb)
+    again = tcp.mega_candidates(gr, gt, cell_dim, sh, pads, RCUT * RCUT,
+                                C=Cb)
+    assert tcp.mega_candidates.launches == n0 + 2
+    count, listed = tcp.mega_candidates_plain(gr, gt, cell_dim, sh, pads,
+                                              RCUT * RCUT, C=Cb)
+    g, a = _written(got), _written(again)
+    assert torch.equal(g[0], count.cpu())
+    assert torch.equal(g[1], listed.cpu())
+    assert torch.equal(g[0], a[0]) and torch.equal(g[1], a[1])
+    return count
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize('cell_dim,seed', FILLS)
 def test_cuda_candidates_match_plain(cuda, cell_dim, seed):
+    from test_torch_force_impls import _edge_fill
     d = _mega_inputs(cell_dim, C, seed)
-    pads = _pads(d)
-    n0 = tcp.mega_candidates.launches
-    got = _build(d, cell_dim, pads, device=cuda)
-    assert tcp.mega_candidates.launches == n0 + 1
-    want = _build(d, cell_dim, pads)
-    assert torch.equal(got.count.cpu(), want.count)
-    used = (torch.arange(want.cap)[None, :]
-            < torch.clamp(want.count, max=want.cap)[:, None])
-    assert torch.equal(torch.where(used, got.listed.cpu(), 0), want.listed)
+    T = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt,  # noqa
+                                                    device=cuda)
+    _cuda_candidates_match_plain(T(d['gr']).contiguous(),
+                                 T(d['gt'], torch.int32), cell_dim,
+                                 T(d['shift']), _pads(d), C)
+    # the edge fills, half of them in each case
+    for cd, Ce in CAND_EDGE[FILLS.index((cell_dim, seed))::len(FILLS)]:
+        cell_pos, cell_tag, _, shifts = _edge_fill(cd, Ce, seed)
+        nx, ny, nz = cd
+        gr = T(cell_pos.reshape(nz, ny, nx, Ce, 3)).permute(
+            4, 0, 1, 2, 3).contiguous()
+        gt = T(cell_tag.reshape(nz, ny, nx, Ce), torch.int32)
+        L = np.abs(shifts).max(axis=(0, 1))
+        for pads in (np.zeros(3, np.float32), tcp.candidate_pads(SKIN, L),
+                     np.full(3, 100.0, np.float32)):
+            count = _cuda_candidates_match_plain(gr, gt, cd, T(shifts), pads,
+                                                 Ce)
+            assert int(count.max()) > 0
+            if pads[0] == 100.0 and Ce > 16:
+                assert int((count > tcp._candidate_cap(Ce)).sum()) > 0
 
 
 def _window_inputs(cell_dim, seed, edge):
