@@ -441,8 +441,9 @@ def check_step(name, got, want, rtol, atol):
 def step_plane_phases(dev):
     """cell_step_plane_planes against its plain version, NVE (exact
     divide, s = 1) and NVT (fast reciprocal, s < 1), at the bench shape,
-    the ragged shape and a 2x2x2 grid.  Returns the bench row (times of
-    the NVT variant, the fused NVT job's)."""
+    the ragged shape and a 2x2x2 grid; at the bench shape the NVT
+    variant's device time (per recorded launch) and build.  Returns the
+    bench row (times of the NVT variant, the fused NVT job's)."""
     import torch
     from hoomd_tpu_torch.ops import cell_pair as cp
     pv, _ = lj_params(dev)
@@ -475,11 +476,23 @@ def step_plane_phases(dev):
                    plain_ms=cuda_ms(p_step, 3 if tag_name == 'bench' else 1))
         row['bound_ms'], row['bound_by'] = lj_bounds(
             carry.pos, carry.tag, cdim, sh, N, 4)['cell_step_plane_planes']
+        extra = ''
+        if tag_name == 'bench':
+            # the NVT kernel (lj, fast reciprocal) and the finishing pass
+            kernels = device_kernels(k_step, 10)
+            row['device_ms'] = recorded_ms(kernels)[0]
+            row['build'] = occ_build('hoomd_step_plane_occupancy',
+                                     cp.pair_eval.EVAL_IDS['lj'], 1,
+                                     cdim[0], C)
+            extra = (f"; device_ms={dev_fmt(row['device_ms'])} "
+                     f"({kernels_fmt(kernels)}), "
+                     f"{share_fmt(row['bound_ms'], row['device_ms'])}; "
+                     f"{sweep_build_line(row['build'])}")
         print(f"phase cell_step_plane_planes [{tag_name} cell_dim={cdim} "
               f"C={C} N={N}]: positions bit-exact, max_abs_err={worst[0]:.3e} "
               f"bound_share={worst[1]:.3f} kernel_ms={row['ms']:.4f} (nvt) "
               f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.6f} "
-              f"({row['bound_by']})", flush=True)
+              f"({row['bound_by']})" + extra, flush=True)
         if tag_name == 'bench':
             out['cell_step_plane_planes'] = row
     return out
@@ -1019,17 +1032,45 @@ def ptxas_build(log, kernel):
     return '; '.join(out) or 'no ptxas lines'
 
 
-def on_parent(mod, lib, call):
+def on_parent(mod, lib, call, attrs=None):
     """call, run with ``lib`` (parent_sweep_lj_phase's library of the
-    parent design) as mod's kernel library, mod's own put back after."""
+    parent design) as mod's kernel library and with mod's attributes
+    ``attrs`` (name: value) replaced, mod's own put back after."""
     def run():
         own = mod._kernel_lib()
+        kept = {k: getattr(mod, k) for k in attrs or {}}
         mod._LIB[0] = lib
+        for k, v in (attrs or {}).items():
+            setattr(mod, k, v)
         try:
             return call()
         finally:
             mod._LIB[0] = own
+            for k, v in kept.items():
+                setattr(mod, k, v)
     return run
+
+
+def parent_module(src, name):
+    """The parent's copy of hoomd_tpu_torch/ops/{name}.py, beside its csrc
+    under ``src``, loaded as a module of a package of another name, so
+    that a case can take a host-side rule of the parent's wrapper (row 6:
+    its tile width)."""
+    import importlib.util
+    import types
+    from pathlib import Path
+    ops = Path(src).parent / 'ops'
+    if 'parent_ops' not in sys.modules:
+        pkg = types.ModuleType('parent_ops')
+        pkg.__path__ = [str(ops)]
+        sys.modules['parent_ops'] = pkg
+    full = f'parent_ops.{name}'
+    if full not in sys.modules:
+        spec = importlib.util.spec_from_file_location(full, ops / f'{name}.py')
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[full] = mod
+        spec.loader.exec_module(mod)
+    return sys.modules[full]
 
 
 def csrc_changed(stem, src):
@@ -1112,8 +1153,10 @@ def bench_fill(dev):
 
 def lj_cases(dev):
     """parent_sweep_lj_phase's cases of cell_pair_impls.cu at the bench
-    shape: row 4 (cell_pair_lj) the parent's bits, row 5
-    (cell_pair_lj_pallas3d) within RTOL and ATOL of the parent's."""
+    shape: row 4 (cell_pair_lj) the parent's bits, rows 5
+    (cell_pair_lj_pallas3d) and 6 (cell_pair_lj_row, the parent's kernel
+    at its own wrapper's tile width) within RTOL and ATOL of the
+    parent's, row 6 also two calls with equal bits."""
     from hoomd_tpu_torch.ops import cell_pair as cp
     b = bench_fill(dev)
     pos, tag = b.carry.pos, b.carry.tag
@@ -1123,10 +1166,19 @@ def lj_cases(dev):
             raise RuntimeError("the new design differs from the parent's")
         return "the parent's bits"
 
-    def close(got, want):
-        compare("row 5: new design against the parent's",
-                [('F', got, want, RTOL, ATOL)])
-        return "within RTOL and ATOL of the parent's"
+    def close(row, call=None):
+        def check(got, want):
+            compare(f"row {row}: new design against the parent's",
+                    [('F', got, want, RTOL, ATOL)])
+            if call is not None and not same_bits((got,), (call(),)):
+                raise RuntimeError(f"row {row}: two calls differ")
+            return "within RTOL and ATOL of the parent's" + (
+                "; two calls with equal bits" if call else "")
+        return check
+
+    def row6():
+        return cp.cell_pair_lj_row(pos, b.cdim, b.sh, b.ljv, C=b.C,
+                                   cell_tag=tag)
     return [
         ('4 bench', f"row 4 (cell_pair_lj, {b.where})", cp,
          [lambda: cp.cell_pair_lj(pos, b.adj, b.sh, b.ljv,
@@ -1135,7 +1187,50 @@ def lj_cases(dev):
         ('5 bench', f"row 5 (cell_pair_lj_pallas3d, {b.where})", cp,
          [lambda: cp.cell_pair_lj_pallas3d(pos, b.cdim, b.sh, b.ljv, C=b.C,
                                            cell_tag=tag)],
-         close)]
+         close(5)),
+        ('6 bench', f"row 6 (cell_pair_lj_row, {b.where}, tiles of "
+         f"{cp.row_tile(b.cdim[0], b.C)} cells)", cp, [row6], close(6, row6),
+         ('row_tile',))]
+
+
+def step_cases(dev):
+    """parent_sweep_lj_phase's cases of cell_step.cu: the fused step
+    (cell_step_plane_planes) at the bench fill, LJ NVT (fast reciprocal),
+    LJ NVE (exact divide) and mie: positions and md2 the parent's bits,
+    velocities and forces within RTOL and ATOL, ke2 within rtol 1e-5."""
+    import torch
+    from hoomd_tpu_torch.ops import cell_pair as cp
+    b = bench_fill(dev)
+
+    def check(got, want):
+        if not same_bits((got[0], got[4]), (want[0], want[4])):
+            raise RuntimeError("positions or md2 differ from the parent's")
+        compare("row 8: new design against the parent's",
+                [('vel', got[1], want[1], RTOL, ATOL),
+                 ('frc', got[2], want[2], RTOL, ATOL),
+                 ('ke2', got[3], want[3], 1e-5, 0.0)])
+        return ("positions and md2 the parent's bits, velocities and forces "
+                "within RTOL and ATOL, ke2 within 1e-5")
+    out = []
+    for key, name, recip, s in (
+            ('nvt', 'lj', 'approx', float(np.exp(-0.0025 * 0.2))),
+            ('nve', 'lj', 'div', 1.0), ('mie', 'mie', 'div', 1.0)):
+        if name == 'lj':
+            pv, ek = lj_params(dev)[0], {}
+        else:
+            pv, pn, _ = eval_params(name, dev)
+            ek = dict(eval_name=name, pnames=pn)
+        st = plane_state(b.carry, b.cdim, b.C, b.sh, pv, ek)
+        args = (st['gp'], st['gv'], st['gf'], st['gw'], st['gr'], b.cdim,
+                b.sh, pv, 0.005,
+                torch.tensor(s, dtype=torch.float32, device=dev))
+        out.append((
+            f'8 bench {key}', f"row 8 (cell_step_plane_planes {name} "
+            f"recip={recip}, {b.where})", cp,
+            [lambda args=args, st=st, ek=ek, recip=recip:
+             cp.cell_step_plane_planes(*args, C=b.C, gt=st['gt'],
+                                       recip=recip, **ek)], check))
+    return out
 
 
 def candidate_cases(dev):
@@ -1159,14 +1254,19 @@ def candidate_cases(dev):
 # the kernels parent_sweep_lj_phase holds to the parent design's: per
 # csrc stem, its library entries, the kernels whose builds it prints
 # and the function giving its cases as (key, label, module, calls,
-# check); check(new, parent) raises where they disagree
+# check[, names]); check(new, parent) raises where they disagree, and
+# the parent's calls take the module attributes ``names`` from the
+# parent's copy of that module (parent_module)
 PARENT_KERNELS = (
     ('hpmc_sweep', ('hoomd_hpmc_sphere_sweep', 'hoomd_hpmc_poly_sweep'),
      ('sphere_sweep_kernel', 'poly_sweep_kernel'), sweep_cases),
-    ('cell_pair_impls', ('hoomd_cell_pair_lj', 'hoomd_cell_pair_lj3d'),
-     ('lj_adj_kernel', 'lj_3d_kernel'), lj_cases),
+    ('cell_pair_impls', ('hoomd_cell_pair_lj', 'hoomd_cell_pair_lj3d',
+                         'hoomd_cell_pair_lj_row'),
+     ('lj_adj_kernel', 'lj_row_kernel'), lj_cases),
     ('cell_pair', ('hoomd_mega_candidates',), ('mega_candidates_kernel',),
      candidate_cases),
+    ('cell_step', ('hoomd_step_plane',), ('step_plane_kernel', 'step_finish'),
+     step_cases),
 )
 
 
@@ -1228,14 +1328,17 @@ def parent_sweep_lj_phase(dev, src='scratch/parent/hoomd_tpu_torch/csrc'):
               for stem, _, kernels, _ in todo for k in kernels), flush=True)
     out = {}
     for _, _, _, cases in todo:
-        for key, label, mod, calls, check in cases(dev):
+        for key, label, mod, calls, check, *names in cases(dev):
+            pmod = (parent_module(d, mod.__name__.rsplit('.', 1)[-1])
+                    if names else None)
+            attrs = {k: getattr(pmod, k) for k in (names[0] if names else ())}
             for i, fn in enumerate(calls):
                 try:
-                    msg = check(fn(), on_parent(mod, parent_lib, fn)())
+                    msg = check(fn(), on_parent(mod, parent_lib, fn, attrs)())
                 except RuntimeError as e:
                     raise RuntimeError(f"{label}, input {i + 1} of "
                                        f"{len(calls)}: {e}") from None
-            fp = on_parent(mod, parent_lib, fn)
+            fp = on_parent(mod, parent_lib, fn, attrs)
             turns = [cuda_ms(f, 50) for f in (fp, fn, fn, fp)]
             (pd, ps), (nd, ns) = (recorded_ms(device_kernels(f, 20))
                                   for f in (fp, fn))
@@ -1654,9 +1757,11 @@ IMPL_KERNELS = {'planar_n3l': 'cell_pair_planar_n3l', 'pallas': 'cell_pair_lj',
                 'pallas3d': 'cell_pair_lj_pallas3d',
                 'row': 'cell_pair_lj_row'}
 # the other impls' kernels whose build impl_kernel_phases reads, by the
-# occupancy entry point of their library
+# occupancy entry point of their library (called with C, and the row
+# kernel's with its tile width too)
 OCC_ENTRY = {'cell_pair_lj': 'hoomd_cell_pair_lj_occupancy',
-             'cell_pair_lj_pallas3d': 'hoomd_cell_pair_lj3d_occupancy'}
+             'cell_pair_lj_pallas3d': 'hoomd_cell_pair_lj3d_occupancy',
+             'cell_pair_lj_row': 'hoomd_cell_pair_lj_row_occupancy'}
 
 
 def lj_params(dev):
@@ -1676,8 +1781,9 @@ def impl_kernel_phases(dev):
     the bench shape, the ragged shape and a 2x2x2 grid (where one
     neighbour cell is reached under two image shifts; 'pallas' reads its
     neighbours from the adjacency table there), element by element, and
-    'pallas3d' also against a second call bit for bit; at the bench shape
-    the device time and build of 'pallas' and 'pallas3d'; then the
+    'pallas3d' and 'row' also against a second call bit for bit; at the
+    bench shape the device time and build of 'pallas', 'pallas3d' and
+    'row'; then the
     cross-kernel phase on the bench fill.  Returns the bench row of each
     kernel."""
     import torch
@@ -1716,7 +1822,7 @@ def impl_kernel_phases(dev):
                                         3 if tag_name == 'bench' else 1))
             row['bound_ms'], row['bound_by'] = bounds[name]
             extra = ''
-            if name == 'cell_pair_lj_pallas3d':
+            if name in ('cell_pair_lj_pallas3d', 'cell_pair_lj_row'):
                 # a warp per home, summed in a fixed order
                 if not same_bits(got, (kern(*args, C=C, cell_tag=tag, **kw),)):
                     raise RuntimeError(f"{name}[{tag_name}]: two calls differ")
@@ -1724,7 +1830,10 @@ def impl_kernel_phases(dev):
             if name in OCC_ENTRY and tag_name == 'bench':
                 call = lambda: kern(*args, C=C, cell_tag=tag, **kw)
                 row['device_ms'] = device_ms(call, 10)
-                row['build'] = occ_build(OCC_ENTRY[name], C)
+                row['build'] = occ_build(
+                    OCC_ENTRY[name], C,
+                    *((cp.row_tile(cdim[0], C),)
+                      if name == 'cell_pair_lj_row' else ()))
                 extra += (f" device_ms={dev_fmt(row['device_ms'])}, "
                           f"{share_fmt(row['bound_ms'], row['device_ms'])}; "
                           f"{sweep_build_line(row['build'])}")
@@ -3703,8 +3812,10 @@ def occ_build(entry, *args):
     """What the build gave a kernel and its occupancy (as sweep_build),
     from its library's occupancy entry point called with args: the
     adjacency-listed LJ kernel (hoomd_cell_pair_lj_occupancy, C), the
-    modular-indexed one (hoomd_cell_pair_lj3d_occupancy, C), the
-    candidate build (hoomd_mega_candidates_occupancy, nx, C)."""
+    modular-indexed one (hoomd_cell_pair_lj3d_occupancy, C), the row
+    kernel (hoomd_cell_pair_lj_row_occupancy, C, tile width), the
+    candidate build (hoomd_mega_candidates_occupancy, nx, C), the fused
+    step (hoomd_step_plane_occupancy, evaluator id, approx, nx, C)."""
     import ctypes
     from hoomd_tpu_torch.ops import _build
     lib = _build.load()

@@ -32,24 +32,27 @@
 // candidate pairs of ~20 flops against a few MB of state, so the fp32
 // issue rate bounds them; the half stencil's function needs half the
 // pairs.  What each design does:
-//   * lj: a block per cell stages the 27 listed cells once, compacted to
-//     their live slots, and a warp takes a home at a time: its lanes
-//     stride over the staged entries of the cells whose bounding box
-//     lies inside the home's cut, and the pairs inside the cut are
-//     evaluated 32 at a time, a pair per lane (as the charged kernel,
-//     cell_pair_charged.cu).  Its first design, a thread per slot of the
-//     cell walking all 27 C staged slots, left C threads of a block busy
-//     (40 at the bench plan).
-//   * lj3d: lj's kernel with the modular index in place of the table's
-//     row and the forces alone (one template, two instances).  Its first
-//     design, a block per cell staging one neighbour at a time into a
-//     double buffer behind 27 barriers, kept C of threads_for(C) threads
-//     busy and walked every staged slot, padding included.
-//   * lj_row: one block per tile of TX cells of an x-row (TX*C threads:
-//     at MAX_C one row does not fit a block) stages each (dz, dy) row's
-//     TX + 2 cells once, image shifts applied, and every thread reads it
-//     for its dx = -1, 0, +1 neighbours: 9 stagings of (TX+2)*C slots
-//     instead of 27 of C per cell.
+//   * lj, lj3d, lj_row: one walk (cell_walk.cuh), three sources of the
+//     staged cells.  A block stages the cells its homes meet once,
+//     compacted to their live slots, with a bounding box per cell, and a
+//     warp takes a home at a time: its lanes stride over the staged
+//     entries of the cells whose box lies inside the home's cut, and the
+//     pairs inside the cut are evaluated 32 at a time, a pair per lane (as
+//     the charged kernel, cell_pair_charged.cu).  lj: a block per cell, the
+//     27 cells its row of the table lists.  lj3d: the same kernel with the
+//     modular index in place of the table's row and the forces alone (one
+//     template, two instances).  lj_row: a block per tile of tx cells of an
+//     x-row stages the tile's union, each (dz, dy) row's tx + 2 cells once
+//     for dx = -1, 0, +1 of every home: 9 (tx + 2) staged cells for tx
+//     cells instead of 27 per cell (18 per cell at the 2 cells per tile
+//     the wrapper takes at the bench plan, ops/cell_pair.py row_tile).
+//     The first designs left most of a block idle and walked every staged
+//     slot, padding included: lj a thread per slot of the cell (40
+//     threads busy at the bench plan); lj3d one neighbour at a time into
+//     a double buffer behind 27 barriers; lj_row a thread per slot of the
+//     tile (TX C threads), each (dz, dy) row staged behind two barriers,
+//     and every thread walked the row's 3 C slots of its dx = -1, 0, +1
+//     cells under a divergent in-cut branch.
 //   * n3l: a block takes a tile of TX cells of an x-row and packs their
 //     live particles (cell_tile.cuh); it stages the half stencil's two dz
 //     planes once each, compacted to the live slots, and a warp keeps 32
@@ -70,65 +73,41 @@
 
 #include <cuda_runtime.h>
 
-#include "cell_tile.cuh"
+#include "cell_walk.cuh"
 
 namespace hoomd_torch {
 
 // ---------------------------------------------------------------------------
-// lj and lj3d: the 27-cell stencil of a cell, a warp per home.  lj = [lj1,
-// lj2, rc2, e_shift].
+// lj and lj3d: the 27-cell stencil of a cell, a warp per home
+// (cell_walk.cuh).  lj = [lj1, lj2, rc2, e_shift].
 //
-// A block takes a cell and kLjWarps warps.  It stages the cell's 27
+// A block takes a cell and kWalkWarps warps.  It stages the cell's 27
 // neighbours once (NB_ADJ: the cells its row of the table lists, an id
 // outside [0, nc) listing nothing; NB_MOD: the modular index of
 // build_cell_shifts' order, as _kernel3d reads them), each entry's image
-// shift applied, compacted to the live slots (compact_cells), with each
-// staged cell's bounding box; on a grid 1 or 2 cells wide a cell listed
-// under two shifts is two staged cells, each with its own box.  A warp
-// takes a home
-// at a time.  The home skips the staged cells whose box lies outside its
-// cut (r^2 of the home to the box, rounded as a pair's, not below rc2:
-// every pair of the cell is then outside, since rounding is monotone;
-// ~45% of the candidates at the bench plan), and walks each stencil row's
-// span of kept cells.  The lanes stride over the entries, branch-free, test
-// r^2 < rc2 with r^2 rounded as the plain version's torch ops, append the
-// pairs inside the cut to the warp's list by a ballot, and evaluate them
-// 32 at a time, a pair per lane, converged; a fixed shuffle tree sums the lanes.  The self pair is
-// excluded by index: the home's own entry under the first table entry
-// that lists its cell under no shift (NB_MOD: entry 13; an entry listed
-// twice counts twice).  PV: the forces, half-pair energy and virial
-// (row 4), else the forces alone (row 5).  No atomics: equal inputs,
-// equal bits.
+// shift applied, compacted to the live slots, with each staged cell's
+// bounding box; on a grid 1 or 2 cells wide a cell listed under two shifts
+// is two staged cells, each with its own box.  A warp takes a home at a
+// time and walks the cells inside its cut (the skip drops ~45% of the
+// candidates at the bench plan).  The self pair is excluded by index: the home's own entry
+// under the first table entry that lists its cell under no shift (NB_MOD:
+// entry 13; an entry listed twice counts twice).  PV: the forces,
+// half-pair energy and virial (row 4), else the forces alone (row 5).
 
-constexpr int kLjWarps = 8;              // homes at a time per block (4: 3% slower)
 constexpr int NB_ADJ = 0, NB_MOD = 1;    // where a cell's 27 neighbours come from
-constexpr int kLjList = 64;              // entries of a warp's list of pairs inside the cut
-
-// Shared memory of one block: the staged cells, the warps' lists, the
-// cells' boxes, the offsets, the homes' slots and their count.
-static inline size_t lj_adj_smem_bytes(const int C) {
-    return (size_t)27 * C * sizeof(float4) + (size_t)kLjWarps * kLjList * sizeof(float4) +
-           (size_t)27 * 6 * sizeof(float) + (size_t)(28 + C + 2) * sizeof(int);
-}
 
 template <int NB, bool PV>
-__global__ void __launch_bounds__(kLjWarps * 32)
+__global__ void __launch_bounds__(kWalkWarps * 32)
     lj_adj_kernel(const float* __restrict__ pos, const int* __restrict__ tag,
                   const int* __restrict__ adj, const float* __restrict__ shifts,
                   const float* __restrict__ ljp, const Geom g, float* __restrict__ frc,
                   float* __restrict__ pe, float* __restrict__ vir) {
     extern __shared__ float4 smem4[];
     __shared__ int self_k;
-    constexpr int W = kLjWarps;
     constexpr int NA = PV ? 10 : 3;             // the sums a home keeps
     const int C = g.C;
     const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-    float4* ent = smem4;
-    float4* lst = ent + 27 * C;
-    float* box = reinterpret_cast<float*>(lst + W * kLjList);   // [cell][lo xyz, hi xyz]
-    int* off = reinterpret_cast<int*>(box + 27 * 6);
-    int* hslot = off + 28;
-    int* hcnt = hslot + C;
+    const WalkSmem S = walk_smem(smem4, 1, C);
     const int cell = blockIdx.x, nc = gridDim.x;
     const int* row = NB == NB_ADJ ? adj + (long long)cell * 27 : nullptr;
     const int ix = cell % g.nx, iy = (cell / g.nx) % g.ny, iz = cell / (g.nx * g.ny);
@@ -154,9 +133,9 @@ __global__ void __launch_bounds__(kLjWarps * 32)
     // the homes: the cell's live slots, in slot order (the barriers of the
     // compaction publish self_k)
     compact_cells(
-        1, C, tag, [&](const int) { return (long long)cell; }, hcnt,
-        [&](const int, const int s, const int idx, const long long) { hslot[idx] = s; });
-    const int nh = hcnt[1];
+        1, C, tag, [&](const int) { return (long long)cell; }, S.hstart,
+        [&](const int, const int s, const int idx, const long long) { S.hslot[idx] = s; });
+    const int nh = S.hstart[1];
     if (nh == 0) return;                        // the whole block: no live home
     // the 27 neighbours, in table order, compacted
     compact_cells(
@@ -168,93 +147,22 @@ __global__ void __launch_bounds__(kLjWarps * 32)
                                (long long)g.ny * wrap(iz + k / 9 - 1, g.nz));
             return row[k] < 0 || row[k] >= nc ? -1LL : (long long)row[k];
         },
-        off,
+        S.off,
         [&](const int k, const int, const int idx, const long long sl) {
-            ent[idx] = make_float4(pos[sl * 3 + 0] + shc[3 * k + 0],
-                                   pos[sl * 3 + 1] + shc[3 * k + 1],
-                                   pos[sl * 3 + 2] + shc[3 * k + 2], 0.0f);
+            S.ent[idx] = make_float4(pos[sl * 3 + 0] + shc[3 * k + 0],
+                                     pos[sl * 3 + 1] + shc[3 * k + 1],
+                                     pos[sl * 3 + 2] + shc[3 * k + 2], 0.0f);
         });
-    // each staged cell's box (an empty one lies at infinity)
-    for (int k = w; k < 27; k += W) {
-        float b[6] = {CUDART_INF_F, CUDART_INF_F, CUDART_INF_F,
-                      -CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F};
-        for (int j = off[k] + lane; j < off[k + 1]; j += 32) {
-            const float4 e = ent[j];
-            b[0] = fminf(b[0], e.x), b[1] = fminf(b[1], e.y), b[2] = fminf(b[2], e.z);
-            b[3] = fmaxf(b[3], e.x), b[4] = fmaxf(b[4], e.y), b[5] = fmaxf(b[5], e.z);
-        }
-        for (int o = 16; o > 0; o >>= 1)
-            for (int a = 0; a < 3; ++a) {
-                b[a] = fminf(b[a], __shfl_xor_sync(0xffffffffu, b[a], o));
-                b[3 + a] = fmaxf(b[3 + a], __shfl_xor_sync(0xffffffffu, b[3 + a], o));
-            }
-        if (lane < 6) box[k * 6 + lane] = b[lane];
-    }
+    stage_boxes(27, S.ent, S.off, S.box);
     __syncthreads();
     const PairPar lj = lj_par(ljp[2], ljp[3], ljp[0], ljp[1]);
-    const unsigned lt = lanemask_lt();
-    float4* L = lst + w * kLjList;
-    for (int p = w; p < nh; p += W) {           // warp-uniform
-        const long long slot = (long long)cell * C + hslot[p];
-        const float xi = pos[slot * 3 + 0], yi = pos[slot * 3 + 1], zi = pos[slot * 3 + 2];
-        const int self = self_k >= 0 ? off[self_k] + p : -1;
+    float4* L = S.lst + w * kWalkList;
+    for (int p = w; p < nh; p += kWalkWarps) {  // warp-uniform
+        const long long slot = (long long)cell * C + S.hslot[p];
         float acc[NA];
-#pragma unroll
-        for (int a = 0; a < NA; ++a) acc[a] = 0.0f;
-        int nl = 0;                             // pairs in the warp's list (warp-uniform)
-        // the first cnt entries of the list, a pair per lane, converged
-        auto evaluate = [&](const int cnt) {
-            __syncwarp();
-            if (lane < cnt) {
-                const float4 d = L[lane];
-                pair_acc<EV_LJ, false, PV>(d.x, d.y, d.z, lj, acc);
-            }
-            __syncwarp();
-        };
-        // the staged cells the home walks: those whose box lies inside
-        // its cut
-        bool near = lane < 27;
-        if (near) {
-            const float* b = box + lane * 6;
-            const float dx = fmaxf(fmaxf(__fsub_rn(b[0], xi), __fsub_rn(xi, b[3])), 0.0f);
-            const float dy = fmaxf(fmaxf(__fsub_rn(b[1], yi), __fsub_rn(yi, b[4])), 0.0f);
-            const float dz = fmaxf(fmaxf(__fsub_rn(b[2], zi), __fsub_rn(zi, b[5])), 0.0f);
-            near = r2_rn(dx, dy, dz) < lj.rc2;
-        }
-        const unsigned keep = __ballot_sync(0xffffffffu, near);
-        // the span of each row of the stencil, entries 3 r .. 3 r + 2, from
-        // its first to its last kept cell (a skipped cell between them is
-        // walked, and none of its pairs is inside the cut), found by lane r
-        int rb = 0, re = 0;
-        if (lane < 9) {
-            const unsigned m = (keep >> (3 * lane)) & 7u;
-            if (m) {
-                rb = off[3 * lane + __ffs(m) - 1];
-                re = off[3 * lane + 32 - __clz(m)];
-            }
-        }
-        for (int r = 0; r < 9; ++r) {
-            const int beg = __shfl_sync(0xffffffffu, rb, r);
-            const int end = __shfl_sync(0xffffffffu, re, r);
-            // branch-free: every lane loads and tests an entry of the span
-            for (int j0 = beg; j0 < end; j0 += 32) {
-                const int j = j0 + lane;
-                const float4 e = ent[min(j, end - 1)];
-                const float4 d = make_float4(xi - e.x, yi - e.y, zi - e.z, 0.0f);
-                const bool in = (j < end) & (j != self) & (r2_rn(d.x, d.y, d.z) < lj.rc2);
-                const unsigned b = __ballot_sync(0xffffffffu, in);
-                if (in) L[nl + __popc(b & lt)] = d;
-                nl += __popc(b);
-                if (nl >= 32) {
-                    evaluate(32);
-                    if (lane < nl - 32) L[lane] = L[32 + lane];
-                    nl -= 32;
-                }
-            }
-        }
-        evaluate(nl);
-#pragma unroll
-        for (int a = 0; a < NA; ++a) acc[a] = warp_sum(acc[a]);
+        walk_home<EV_LJ, false, PV>(pos[slot * 3 + 0], pos[slot * 3 + 1], pos[slot * 3 + 2],
+                                    self_k >= 0 ? S.off[self_k] + p : -1, S.ent, S.box, S.off,
+                                    3, 0, lj, L, acc);
         if (lane == 0) {
             for (int a = 0; a < 3; ++a) frc[slot * 3 + a] = acc[a];
             if (PV) {
@@ -267,61 +175,54 @@ __global__ void __launch_bounds__(kLjWarps * 32)
 }
 
 // ---------------------------------------------------------------------------
-// lj_row: grid (tiles of TX cells, ny, nz).
+// lj_row: a tile of tx <= TX cells of an x-row (grid: tiles, ny, nz), forces
+// alone.  The block stages the tile's union once (cell_tile.cuh: the 9
+// (dz, dy) rows of tx + 2 cells, each row's cells seen under the shift of
+// the home cells that reach them), compacted to the live slots, with each
+// union cell's box: each row serves dx = -1, 0, +1 of every home of the
+// tile, 9 (tx + 2) staged cells for tx cells against 27 per cell.  On a
+// grid 1 or 2 cells wide a cell of a row is two or three union cells,
+// each under its own shift and with its own box.  The homes are the
+// tile's live slots (pack_homes); a warp per home walks union cells
+// lc .. lc + 2 of each row (cell_walk.cuh).  The self pair: row (0, 0),
+// union cell lc + 1, the home's rank among its cell's live slots.
 
-__global__ void lj_row_kernel(const float* __restrict__ pos, const int* __restrict__ tag,
-                              const float* __restrict__ shifts, const float* __restrict__ ljp,
-                              const Geom g, const int TX, float* __restrict__ frc) {
-    extern __shared__ float smem[];
+__global__ void __launch_bounds__(kWalkWarps * 32)
+    lj_row_kernel(const float* __restrict__ pos, const int* __restrict__ tag,
+                  const float* __restrict__ shifts, const float* __restrict__ ljp, const Geom g,
+                  const int TX, float* __restrict__ frc) {
+    extern __shared__ float4 smem4[];
     const int C = g.C;
-    const int W = (TX + 2) * C;
-    float* sx = smem;
-    float* sy = sx + W;
-    float* sz = sy + W;
-    unsigned char* sv = reinterpret_cast<unsigned char*>(sz + W);
-    const int x0 = blockIdx.x * TX, iy = blockIdx.y, iz = blockIdx.z;
-    const int tx = min(TX, g.nx - x0);          // cells of this tile
-    const int t = threadIdx.x;
-    const int lc = t / C, i = t - lc * C;
-    const long long slot = ((long long)(x0 + lc) + g.nx * (iy + (long long)g.ny * iz)) * C + i;
-    const bool vi = lc < tx && tag[slot] >= 0;
-    float xi = 0.f, yi = 0.f, zi = 0.f;
-    if (vi) {
-        xi = pos[slot * 3];
-        yi = pos[slot * 3 + 1];
-        zi = pos[slot * 3 + 2];
-    }
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    const WalkSmem S = walk_smem(smem4, TX, C);
+    const Tile t = tile_of_block(g, TX);
+    const long long cell0 = (long long)t.x0 + g.nx * (t.iy + (long long)g.ny * t.iz);
+    for (int q = threadIdx.x; q < t.tx * C; q += blockDim.x)   // the padding slots' forces
+        if (tag[cell0 * C + q] < 0)
+            for (int a = 0; a < 3; ++a) frc[(cell0 * C + q) * 3 + a] = 0.0f;
+    pack_homes(tag, g, t, S.hslot, S.hstart);
+    const int nh = S.hstart[t.tx];
+    if (nh == 0) return;                        // the whole block: no live home
+    stage_union(tag, shifts, g, t, 0, 9, S.off,
+                [&](const int idx, const int, const int, const long long sl, const float* sh) {
+                    S.ent[idx] = make_float4(pos[sl * 3 + 0] + sh[0], pos[sl * 3 + 1] + sh[1],
+                                             pos[sl * 3 + 2] + sh[2], 0.0f);
+                });
+    stage_boxes(9 * t.W, S.ent, S.off, S.box);
+    __syncthreads();
     const PairPar lj = lj_par(ljp[2], ljp[3], ljp[0], ljp[1]);
-    float acc[3] = {0.f, 0.f, 0.f};
-    for (int r = 0; r < 9; ++r) {
-        const int jy = wrap(iy + r % 3 - 1, g.ny), jz = wrap(iz + r / 3 - 1, g.nz);
-        __syncthreads();                        // the last row's reads are done
-        // staged entry u_local holds cell x0 - 1 + u_local of the row under
-        // the image shift of the (home, dx) that reaches it
-        for (int s = t; s < (tx + 2) * C; s += blockDim.x) {
-            const int ul = s / C, js = s - ul * C;
-            const int u = x0 - 1 + ul;          // in [-1, nx]
-            const int hx = min(max(u, 0), g.nx - 1);
-            const int k = r * 3 + (u - hx) + 1;
-            const float* sh =
-                shifts + (((long long)hx + g.nx * (iy + (long long)g.ny * iz)) * 27 + k) * 3;
-            const long long js_slot =
-                ((long long)wrap(u, g.nx) + g.nx * (jy + (long long)g.ny * jz)) * C + js;
-            sx[s] = pos[js_slot * 3 + 0] + sh[0];
-            sy[s] = pos[js_slot * 3 + 1] + sh[1];
-            sz[s] = pos[js_slot * 3 + 2] + sh[2];
-            sv[s] = tag[js_slot] >= 0;
-        }
-        __syncthreads();
-        if (!vi) continue;
-        for (int d = 0; d < 3; ++d) {           // dx = d - 1: staged cell lc + d
-            const int base = (lc + d) * C;
-            stencil_sum<EV_LJ, false, false>(xi, yi, zi, (r == 4 && d == 1) ? i : -1, C, sx + base,
-                                      sy + base, sz + base, sv + base, lj, acc);
-        }
+    float4* L = S.lst + w * kWalkList;
+    for (int p = w; p < nh; p += kWalkWarps) {  // warp-uniform
+        const long long slot = S.hslot[p];
+        const int lc = home_cell(S.hstart, t.tx, p);
+        float acc[3];
+        walk_home<EV_LJ, false, false>(pos[slot * 3 + 0], pos[slot * 3 + 1], pos[slot * 3 + 2],
+                                       S.off[4 * t.W + lc + 1] + p - S.hstart[lc], S.ent,
+                                       S.box, S.off, t.W, lc, lj, L, acc);
+        if (lane == 0)
+            for (int a = 0; a < 3; ++a) frc[slot * 3 + a] = acc[a];
+        __syncwarp();                           // the list is read before the next home
     }
-    if (lc < tx)
-        for (int a = 0; a < 3; ++a) frc[slot * 3 + a] = acc[a];
 }
 
 // ---------------------------------------------------------------------------
@@ -588,11 +489,11 @@ extern "C" {
 int hoomd_cell_pair_lj(const float* pos, const int* tag, const int* adj, const float* shifts,
                        const float* ljp, float* frc, float* pe, float* vir, int nc, int C,
                        void* stream) {
-    const size_t smem = lj_adj_smem_bytes(C);
+    const size_t smem = walk_smem_bytes(1, C);
     auto kern = lj_adj_kernel<NB_ADJ, true>;
     cudaError_t e = set_smem(kern, smem);
     if (e != cudaSuccess) return e;
-    kern<<<nc, 32 * kLjWarps, smem, static_cast<cudaStream_t>(stream)>>>(
+    kern<<<nc, 32 * kWalkWarps, smem, static_cast<cudaStream_t>(stream)>>>(
         pos, tag, adj, shifts, ljp, Geom{nc, 1, 1, C}, frc, pe, vir);
     return cudaGetLastError();
 }
@@ -600,8 +501,8 @@ int hoomd_cell_pair_lj(const float* pos, const int* tag, const int* adj, const f
 // The build and occupancy of the adjacency-listed LJ kernel at capacity
 // C (kernel_occupancy's out[5]) and its threads per block (out[5]).
 int hoomd_cell_pair_lj_occupancy(int C, int* out) {
-    out[5] = 32 * kLjWarps;
-    return kernel_occupancy(lj_adj_kernel<NB_ADJ, true>, out[5], lj_adj_smem_bytes(C), out);
+    out[5] = 32 * kWalkWarps;
+    return kernel_occupancy(lj_adj_kernel<NB_ADJ, true>, out[5], walk_smem_bytes(1, C), out);
 }
 
 // pos (nz, ny, nx, C, 3) cell-major, tag, shifts (nc, 27, 3), ljp as above;
@@ -609,32 +510,40 @@ int hoomd_cell_pair_lj_occupancy(int C, int* out) {
 int hoomd_cell_pair_lj3d(const float* pos, const int* tag, const float* shifts,
                          const float* ljp, float* frc, int nx, int ny, int nz, int C,
                          void* stream) {
-    const size_t smem = lj_adj_smem_bytes(C);
+    const size_t smem = walk_smem_bytes(1, C);
     auto kern = lj_adj_kernel<NB_MOD, false>;
     cudaError_t e = set_smem(kern, smem);
     if (e != cudaSuccess) return e;
-    kern<<<nx * ny * nz, 32 * kLjWarps, smem, static_cast<cudaStream_t>(stream)>>>(
+    kern<<<nx * ny * nz, 32 * kWalkWarps, smem, static_cast<cudaStream_t>(stream)>>>(
         pos, tag, nullptr, shifts, ljp, Geom{nx, ny, nz, C}, frc, nullptr, nullptr);
     return cudaGetLastError();
 }
 
 // The same for the modular-indexed kernel (hoomd_cell_pair_lj3d).
 int hoomd_cell_pair_lj3d_occupancy(int C, int* out) {
-    out[5] = 32 * kLjWarps;
-    return kernel_occupancy(lj_adj_kernel<NB_MOD, false>, out[5], lj_adj_smem_bytes(C), out);
+    out[5] = 32 * kWalkWarps;
+    return kernel_occupancy(lj_adj_kernel<NB_MOD, false>, out[5], walk_smem_bytes(1, C), out);
 }
 
-// As hoomd_cell_pair_lj3d, in tiles of tx cells of an x-row (tx * C <= 1024).
+// As hoomd_cell_pair_lj3d, in tiles of tx cells of an x-row (tx * C <=
+// kUnionSlots).
 int hoomd_cell_pair_lj_row(const float* pos, const int* tag, const float* shifts,
                            const float* ljp, float* frc, int nx, int ny, int nz, int C, int tx,
                            void* stream) {
-    const size_t smem = (size_t)(tx + 2) * C * (3 * sizeof(float) + 1);
+    if (tx < 1 || tx * C > kUnionSlots) return cudaErrorInvalidValue;
+    const size_t smem = walk_smem_bytes(tx, C);
     cudaError_t e = set_smem(lj_row_kernel, smem);
     if (e != cudaSuccess) return e;
     const dim3 grid((nx + tx - 1) / tx, ny, nz);
-    lj_row_kernel<<<grid, threads_for(tx * C), smem, static_cast<cudaStream_t>(stream)>>>(
+    lj_row_kernel<<<grid, 32 * kWalkWarps, smem, static_cast<cudaStream_t>(stream)>>>(
         pos, tag, shifts, ljp, Geom{nx, ny, nz, C}, tx, frc);
     return cudaGetLastError();
+}
+
+// The same for the row kernel (hoomd_cell_pair_lj_row) at tiles of tx cells.
+int hoomd_cell_pair_lj_row_occupancy(int C, int tx, int* out) {
+    out[5] = 32 * kWalkWarps;
+    return kernel_occupancy(lj_row_kernel, out[5], walk_smem_bytes(tx, C), out);
 }
 
 // pos, tag, shifts as above, typ (nc, C) (a mixture only, else null), par

@@ -378,10 +378,13 @@ __device__ inline float block_sum(float x) { return block_reduce<false>(x); }
 // Threads of a block of n slots: whole warps.
 static inline int threads_for(int n) { return ((n + 31) / 32) * 32; }
 
-// Dynamic shared memory above the 48 KB default needs an opt-in.
+// Shared memory above the 48 KB default needs an opt-in.  The default
+// bounds a block's static shared memory (the block reductions' 128 B, a
+// few words) and its dynamic shared memory together, so the opt-in comes
+// from 1 KB below it.
 template <typename K>
 static inline cudaError_t set_smem(K kernel, size_t bytes) {
-    if (bytes <= 48 * 1024) return cudaSuccess;
+    if (bytes <= 47 * 1024) return cudaSuccess;
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)bytes);
 }

@@ -1,8 +1,10 @@
 // Tiles of an x-row of cells, for the mixtures' planar kernel
-// (cell_pair_typed.cu) and the half stencil (cell_pair_impls.cu); the
-// compaction of live slots (compact_cells) also stages the charged
-// kernel's and the 27-cell LJ kernels' cells (rows 4 and 5), and the
-// union of a run of cells for the megastep's candidate build.
+// (cell_pair_typed.cu), the half stencil, the row-blocked LJ kernel
+// (cell_pair_impls.cu) and the fused step (cell_step.cu, the last two
+// through cell_walk.cuh); the compaction of live slots (compact_cells)
+// also stages the charged kernel's and the other 27-cell LJ kernels'
+// cells (rows 4 and 5), and the union of a run of cells for the
+// megastep's candidate build.
 //
 // A block takes a tile: tx <= TX consecutive cells x0 .. x0 + tx - 1 of
 // the x-row (iy, iz).  Its home particles are the live slots of those
@@ -16,9 +18,9 @@
 // +1): one contiguous run of the compacted rows, in the stencil's order.
 //
 // The shift of union cell ul is read from the table entry of a cell of
-// the row that reaches it (lj_row_kernel's rule): the shifts of
-// build_cell_shifts depend only on whether an index wrapped, so every
-// cell of the row sees that neighbour under the same shift.
+// the row that reaches it: the shifts of build_cell_shifts depend only on
+// whether an index wrapped, so every cell of the row sees that neighbour
+// under the same shift.
 #pragma once
 
 #include "cell_stencil.cuh"
@@ -135,28 +137,51 @@ __device__ inline void compact_cells(const int n, const int C, const int* __rest
     __syncthreads();
 }
 
-// Stage nr rows (dz, dy0 + q) of the tile's union, compacted: ent[] in
-// (row, ul, slot) order, off[q * W + ul] the first entry of each union
-// cell, off[nr * W] the count.  TYPED: the type clamped to [0, T).
+// Stage rows r0 .. r0 + nr - 1 of the tile's union, row r = (dz + 1) * 3 +
+// dy + 1 of the stencil's (dz, dy), compacted in (row, ul, slot) order:
+// off[q * W + ul] the first entry of union cell ul of row r0 + q, off[nr *
+// W] the count; put(idx, c, s, slot, sh) writes entry idx from slot s (at
+// `slot`) of union cell c = q * W + ul, seen under the image shift sh.
+template <typename Put>
+__device__ inline void stage_union(const int* __restrict__ tag, const float* __restrict__ shifts,
+                                   const Geom g, const Tile t, const int r0, const int nr,
+                                   int* off, Put put) {
+    auto cell = [&](const int c, const float*& sh) {
+        const int r = r0 + c / t.W;
+        return union_cell(g, t, r / 3 - 1, r % 3 - 1, c % t.W, shifts, sh);
+    };
+    compact_cells(
+        nr * t.W, g.C, tag,
+        [&](const int c) {
+            const float* sh;
+            return cell(c, sh);
+        },
+        off,
+        [&](const int c, const int s, const int idx, const long long slot) {
+            const float* sh;
+            cell(c, sh);
+            put(idx, c, s, slot, sh);
+        });
+}
+
+// Stage nr rows (dz, dy0 + q) of the tile's union (stage_union), each
+// entry its coordinates and meta = type | q << 4 | ul << 8 | slot << 16.
+// TYPED: the type clamped to [0, T).
 template <bool TYPED>
 __device__ inline void stage_rows(const float* __restrict__ pos, const int* __restrict__ tag,
                                   const int* __restrict__ typ, const int T,
                                   const float* __restrict__ shifts, const Geom g, const Tile t,
                                   const int dz, const int dy0, const int nr, float4* ent,
                                   int* off) {
-    auto cell_of = [&](const int c) {
-        const float* sh;
-        return union_cell(g, t, dz, dy0 + c / t.W, c % t.W, shifts, sh);
-    };
-    auto put = [&](const int c, const int s, const int idx, const long long slot) {
-        const float* sh;
-        union_cell(g, t, dz, dy0 + c / t.W, c % t.W, shifts, sh);
-        const int ty = TYPED ? min(max(typ[slot], 0), T - 1) : 0;
-        ent[idx] = make_float4(pos[slot * 3 + 0] + sh[0], pos[slot * 3 + 1] + sh[1],
-                               pos[slot * 3 + 2] + sh[2],
-                               __int_as_float(ty | (c / t.W) << 4 | (c % t.W) << 8 | s << 16));
-    };
-    compact_cells(nr * t.W, g.C, tag, cell_of, off, put);
+    stage_union(tag, shifts, g, t, (dz + 1) * 3 + dy0 + 1, nr, off,
+                [&](const int idx, const int c, const int s, const long long slot,
+                    const float* sh) {
+                    const int ty = TYPED ? min(max(typ[slot], 0), T - 1) : 0;
+                    ent[idx] = make_float4(
+                        pos[slot * 3 + 0] + sh[0], pos[slot * 3 + 1] + sh[1],
+                        pos[slot * 3 + 2] + sh[2],
+                        __int_as_float(ty | (c / t.W) << 4 | (c % t.W) << 8 | s << 16));
+                });
 }
 
 // The tile's homes: hslot[p] the slot of home p, hstart[lc] the first home

@@ -43,11 +43,13 @@ _SIGNATURES = {
     'hoomd_mega_candidates_occupancy': [I, I, P],
     'hoomd_step_plane': [P, P, P, P, P, P, P, P, I, P, F, P, P, P, P, P,
                          I, I, I, I, I, I, P],
+    'hoomd_step_plane_occupancy': [I, I, I, I, P],
     'hoomd_cell_pair_lj': [P, P, P, P, P, P, P, P, I, I, P],
     'hoomd_cell_pair_lj_occupancy': [I, P],
     'hoomd_cell_pair_lj3d': [P, P, P, P, P, I, I, I, I, P],
     'hoomd_cell_pair_lj3d_occupancy': [I, P],
     'hoomd_cell_pair_lj_row': [P, P, P, P, P, I, I, I, I, I, P],
+    'hoomd_cell_pair_lj_row_occupancy': [I, I, P],
     'hoomd_cell_pair_n3l': [P, P, P, P, P, I, I, P, P, I, I, I, I, I, I, P],
     'hoomd_cell_pair_planar_typed': [P, P, P, P, P, I, I, P, P, P, I, I, I,
                                      I, I, I, I, P],

@@ -64,8 +64,9 @@ import torch
 
 from . import pair_eval
 
-# largest cell capacity the kernels take: 27*C*13 bytes of shared memory
-# per block and C threads per block
+# largest cell capacity the kernels take: the 27-cell walks stage 27 C
+# entries of 16 B per block, 232 192 B of the card's 232 448 at 512
+# (csrc/cell_walk.cuh)
 MAX_C = 512
 # most particle types of a mixture (csrc/cell_stencil.cuh kMaxTypes; the
 # JAX engine's limit, hoomd_tpu/system.py:463)
@@ -1161,15 +1162,18 @@ def cell_pair_lj_pallas3d(cell_pos, cell_dim, cell_shift, lj_params, *, C,
 
 cell_pair_lj_pallas3d.launches = 0
 
-# threads of one block of the row kernel, at most: a tile of an x-row
-# holds at most ROW_THREADS // C cells
-ROW_THREADS = 512
+# cells per tile of the row kernel, at most: ROW_TILE (chosen by timing
+# at the bench plan, profile_torch_bench.py tiles) and ROW_SLOTS // C, so
+# that the tile's union of 9 (tile + 2) cells fits a block's shared
+# memory (csrc/cell_walk.cuh kUnionSlots, union_tile: one cell at MAX_C)
+ROW_TILE = 2
+ROW_SLOTS = 512
 
 
 def row_tile(nx, C):
     """Cells per tile of the row kernel: the x-row in equal tiles of at
-    most ROW_THREADS // C cells (one at MAX_C)."""
-    tiles = -(-nx // max(1, ROW_THREADS // C))
+    most min(ROW_TILE, ROW_SLOTS // C) cells (one at MAX_C)."""
+    tiles = -(-nx // max(1, min(ROW_TILE, ROW_SLOTS // C)))
     return -(-nx // tiles)
 
 

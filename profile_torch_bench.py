@@ -72,15 +72,17 @@ formulation on random neutral clouds at config 4's density, at config
 4's size and past the dense gate, by CUDA events.  With ``tiles`` it
 times the typed planar kernel and the half stencil (csrc/cell_tile.cuh)
 at tile widths of 1 to 6 cells: rows 3t and 7t at the KA shape with the
-KA table, row 7 at the bench shape.  With ``ka-bits [TREE]`` it runs
+KA table, row 7 at the bench shape; then the row-blocked LJ kernel (row
+6) and the fused step (row 8) at the bench shape, 1 to 7 cells.  With ``ka-bits [TREE]`` it runs
 chip_smoke.py's KA job script through the hoomd_tpu_torch of TREE (by
 default this checkout) and prints T and PE/N at the end of its NVT
 window exactly; chip_smoke.py's KA_PARENT_T and KA_PARENT_PE come from
 it on the tree of the parent design.  With ``jobs [TREE] [JOB ...]`` it
 runs chip_smoke.py's jobs named (JOBS: ``sphere`` and ``cube``, the HPMC
 jobs; ``pallas``, ``pallas3d``, ``row``, ``planar_n3l``, the impl jobs'
-HOOMD_TPU_FAST_IMPL paths; ``bench``, the bench job with its warmup and
-one timed 3000-step window; by default sphere, cube, pallas) through the
+HOOMD_TPU_FAST_IMPL paths; ``fused``, the HOOMD_TPU_FUSED=on NVT job and
+its NVE continuation; ``bench``, the bench job with its warmup and one
+timed 3000-step window; by default sphere, cube, pallas) through the
 hoomd_tpu_torch of TREE, with their gates; run on two trees in turns, in
 separate processes, it compares their end-to-end numbers on one card.  With ``sweeps [TREE]`` it times
 each HPMC sweep (fused_sphere_sweep, fused_poly_sweep) at its job
@@ -441,7 +443,8 @@ def profile_tiles(widths=(1, 2, 3, 4, 5, 6), dev=torch.device('cuda', 0)):
     """The typed planar kernel and the half stencil (csrc/cell_tile.cuh)
     at each tile width: rows 3t and 7t at the KA shape with the KA table,
     row 7 at the bench shape, ms per wrapper call by CUDA events; the
-    width the wrappers take (cell_pair.pair_tile) marked."""
+    width the wrappers take (cell_pair.pair_tile) marked.  Then rows 6
+    and 8 (union_tiles)."""
     from chip_smoke import (SHAPES, ka_cells, lattice_cells, lj_params,
                             typed_table)
     from hoomd_tpu_torch.ops import cell_pair as cp
@@ -477,7 +480,64 @@ def profile_tiles(widths=(1, 2, 3, 4, 5, 6), dev=torch.device('cuda', 0)):
                               for tx, t in res[row].items()), flush=True)
     finally:
         cp.pair_tile = chosen
+    res.update(union_tiles(dev))
     print(json.dumps({'tile_ms': res}), flush=True)
+
+
+def union_tiles(dev, widths=(1, 2, 3, 4, 5, 7)):
+    """The row-blocked LJ kernel (row 6) and the fused step (row 8, LJ
+    NVT), the two kernels on a tile's union (csrc/cell_walk.cuh), at the
+    bench shape and each tile width: ms per wrapper call by CUDA events
+    and device ms (per recorded launch, chip_smoke.py recorded_ms); row 6
+    through cell_pair.ROW_TILE, row 8 built once per width with
+    -DSTEP_TILE (csrc/cell_step.cu).  The widths taken marked."""
+    from chip_smoke import (SHAPES, device_kernels, lattice_cells, lj_params,
+                            plane_state, recorded_ms)
+    from hoomd_tpu_torch.ops import cell_pair as cp
+    dims, cdim, C = SHAPES['bench']
+    carry, L, _, _ = lattice_cells(dims, cdim, C, 0.1, 3, dev)
+    sh = torch.as_tensor(cp.build_cell_shifts(cdim, L)[1], dtype=torch.float32,
+                         device=dev)
+    pv, ljv = lj_params(dev)
+    st = plane_state(carry, cdim, C, sh, pv)
+    s = torch.tensor(float(np.exp(-0.0025 * 0.2)), dtype=torch.float32,
+                     device=dev)
+    step = lambda: cp.cell_step_plane_planes(
+        st['gp'], st['gv'], st['gf'], st['gw'], st['gr'], cdim, sh, pv,
+        0.005, s, C=C, gt=st['gt'])
+    row = lambda: cp.cell_pair_lj_row(carry.pos, cdim, sh, ljv, C=C,
+                                      cell_tag=carry.tag)
+    on = variant_calls('cell_step.cu', 'hoomd_step_plane',
+                       {tx: [f'-DSTEP_TILE={tx}'] for tx in widths}, cp)
+    chosen = cp.ROW_TILE
+    res = {'6': {}, '8': {}}
+    try:
+        for tx in widths:
+            cp.ROW_TILE = tx
+            res['6'][tx] = (cuda_ms(row, 50),
+                            recorded_ms(device_kernels(row, 20))[0])
+    finally:
+        cp.ROW_TILE = chosen
+    for tx in widths:
+        call = on[tx](step)
+        res['8'][tx] = (cuda_ms(call, 50),
+                        recorded_ms(device_kernels(call, 20))[0])
+    taken = {'6': chosen, '8': _step_tile()}
+    for r, times in res.items():
+        print(f"row {r} (cell_dim={cdim} C={C}): " + ', '.join(
+            f"{tx} cells {ms:.4f} ms, device "
+            f"{'not measured' if d is None else f'{d:.4f}'}"
+            + (' (taken)' if tx == taken[r] else '')
+            for tx, (ms, d) in times.items()), flush=True)
+    return res
+
+
+def _step_tile():
+    """STEP_TILE as csrc/cell_step.cu defines it."""
+    import re
+    from hoomd_tpu_torch.ops import _build
+    src = (_build.SRC_DIR / 'cell_step.cu').read_text()
+    return int(re.search(r'#define STEP_TILE (\d+)', src).group(1))
 
 
 def ka_bits(tree=None):
@@ -497,8 +557,9 @@ def ka_bits(tree=None):
 
 
 # the jobs of ``jobs``: the HPMC jobs, the impl jobs' force paths, the
-# bench job
-JOBS = ('sphere', 'cube', 'pallas', 'pallas3d', 'row', 'planar_n3l', 'bench')
+# fused NVT + NVE job (HOOMD_TPU_FUSED=on), the bench job
+JOBS = ('sphere', 'cube', 'pallas', 'pallas3d', 'row', 'planar_n3l', 'fused',
+        'bench')
 
 
 def bench_turn(card_name):
@@ -529,7 +590,7 @@ def job_times(tree=None, jobs=('sphere', 'cube', 'pallas')):
     particle-steps/s)."""
     if tree:
         sys.path.insert(0, os.path.abspath(tree))
-    from chip_smoke import card_line, hpmc_job, impl_job
+    from chip_smoke import card_line, fused_job, hpmc_job, impl_job
     import hoomd_tpu_torch
     print(f"package: {os.path.dirname(hoomd_tpu_torch.__file__)}", flush=True)
     c = card_line()
@@ -538,6 +599,8 @@ def job_times(tree=None, jobs=('sphere', 'cube', 'pallas')):
             hpmc_job(job, c)
         elif job == 'bench':
             bench_turn(c)
+        elif job == 'fused':
+            fused_job()
         else:
             impl_job(job)
 

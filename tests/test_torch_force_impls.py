@@ -33,9 +33,12 @@ fills and cut pairs (F, PE and virial at rtol = atol = 1e-4, equal bits
 in two calls, one launch counted per call), and on the card reads its
 neighbours from cell_adj: a permuted table gives the same sums, and a
 relisted entry counts twice.  The modular-indexed 'pallas3d' kernel
-(cell_pair_lj_pallas3d, the same kernel on the modular index) runs on
+(cell_pair_lj_pallas3d, the same kernel on the modular index) and the
+row kernel (cell_pair_lj_row, the same walk on a tile's union) run on
 the same edge fills and cut pairs and on grids 1 and 2 cells wide
-(forces at rtol = atol = 1e-4, equal bits in two calls).  JAX
+(forces at rtol = atol = 1e-4, equal bits in two calls, no force on
+padding); the row kernel also where its tile width does not divide the
+x-row and at MAX_C, where a tile falls to one cell.  JAX
 is imported only inside the JAX-side helpers, so they also run where it
 is missing:
 
@@ -404,33 +407,39 @@ def _cuda_lj_call(cuda, cell_pos, cell_tag, shifts, adj, rc=2.5):
     return got, again, want
 
 
-def _cuda_lj3d_call(cuda, cell_pos, cell_tag, shifts, cd, rc=2.5):
-    """cell_pair_lj_pallas3d on the card twice (one launch counted per
-    call) against its plain version at rtol = atol = 1e-4, with equal
-    bits from the two calls and no force on a padding slot.  Returns the
-    kernel's forces and the plain ones."""
+def _cuda_stencil_call(cuda, fn, cell_pos, cell_tag, shifts, cd, rc=2.5):
+    """fn (cell_pair_lj_pallas3d or cell_pair_lj_row) on the card twice
+    (one launch counted per call) against its plain version at rtol =
+    atol = 1e-4, with equal bits from the two calls and no force on a
+    padding slot.  Returns the kernel's forces and the plain ones."""
     ljp, _ = _lj(rc)
     pos, tag, sh = (torch.as_tensor(x, device=cuda)
                     for x in (cell_pos, cell_tag, shifts))
     lj = torch.as_tensor(ljp, device=cuda)
     C = pos.shape[1]
-    n0 = tcp.cell_pair_lj_pallas3d.launches
-    got = tcp.cell_pair_lj_pallas3d(pos, cd, sh, lj, C=C, cell_tag=tag)
-    again = tcp.cell_pair_lj_pallas3d(pos, cd, sh, lj, C=C, cell_tag=tag)
-    assert tcp.cell_pair_lj_pallas3d.launches == n0 + 2
-    want = tcp.cell_pair_lj_pallas3d_plain(pos, cd, sh, lj, cell_tag=tag)
+    n0 = fn.launches
+    got = fn(pos, cd, sh, lj, C=C, cell_tag=tag)
+    again = fn(pos, cd, sh, lj, C=C, cell_tag=tag)
+    assert fn.launches == n0 + 2
+    want = getattr(tcp, fn.__name__ + '_plain')(pos, cd, sh, lj, cell_tag=tag)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     assert torch.equal(got, again)
     assert not got[tag < 0].any()
     return got, want
 
 
+# the two kernels of the 27-cell stencil's forces on the modular index:
+# one walk (csrc/cell_walk.cuh), a cell's 27 neighbours or a tile's union
+STENCIL_FNS = (tcp.cell_pair_lj_pallas3d, tcp.cell_pair_lj_row)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize('fill', list(EDGE))
 def test_cuda_lj_edge_fills_match_plain(cuda, fill):
     """'pallas' on the edge fills: F, PE and virial elementwise against
-    the plain version, equal bits from two calls; and 'pallas3d', the
-    same kernel on the modular index, its forces."""
+    the plain version, equal bits from two calls; and 'pallas3d' and
+    'row', the same walk on the modular index and on a tile's union,
+    their forces (at MAX_C a tile of the row kernel is one cell)."""
     cd, C = EDGE[fill]
     cell_pos, cell_tag, _, shifts = _edge_fill(cd, C, 23)
     adj = tcp._adjacency_np(tuple(cd))
@@ -439,14 +448,19 @@ def test_cuda_lj_edge_fills_match_plain(cuda, fill):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
         assert torch.equal(g, a)
     assert float(want[0].abs().max()) > 1.0   # the fill has pairs in the cut
-    _cuda_lj3d_call(cuda, cell_pos, cell_tag, shifts, cd)
+    if C == tcp.MAX_C:
+        assert tcp.row_tile(cd[0], C) == 1
+    for fn in STENCIL_FNS:
+        _cuda_stencil_call(cuda, fn, cell_pos, cell_tag, shifts, cd)
 
 
 @pytest.mark.gpu
 def test_cuda_lj_cuts_at_the_rounded_r2(cuda):
-    """'pallas' and 'pallas3d' cut at r^2 rounded as the plain version
-    rounds it; 'pallas3d' also on grids 1 and 2 cells wide, where the
-    modular index lists a cell under two or three shifts."""
+    """'pallas', 'pallas3d' and 'row' cut at r^2 rounded as the plain
+    version rounds it; 'pallas3d' and 'row' also on grids 1 and 2 cells
+    wide, where the modular index lists a cell under two or three shifts,
+    and 'row' on an x-row of 5 cells, which its tile width does not
+    divide."""
     ljp, _ = _lj(2.5)
     cell_pos, cell_tag, _, shifts, cd, C = _cut_pairs(ljp[2])
     adj = tcp._adjacency_np(tuple(cd))
@@ -455,15 +469,24 @@ def test_cuda_lj_cuts_at_the_rounded_r2(cuda):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
     tag = torch.as_tensor(cell_tag, device=cuda)
     order = torch.argsort(tag[tag >= 0])
-    f3d = _cuda_lj3d_call(cuda, cell_pos, cell_tag, shifts, cd)[0]
-    for F in (got[0], f3d):
+    forces = [got[0]] + [_cuda_stencil_call(cuda, fn, cell_pos, cell_tag,
+                                            shifts, cd)[0]
+                         for fn in STENCIL_FNS]
+    for F in forces:
         f = F[tag >= 0]                      # tags 0, 1 inside; 2, 3 out
         assert float(f[order][0].abs().max()) > 1e-2
         assert not f[order][2:].any()
     for cd in ((1, 3, 3), (2, 2, 3)):
         cell_pos, cell_tag, _, shifts = _edge_fill(cd, 33, 29)
-        want = _cuda_lj3d_call(cuda, cell_pos, cell_tag, shifts, cd)[1]
-        assert float(want.abs().max()) > 1.0
+        for fn in STENCIL_FNS:
+            want = _cuda_stencil_call(cuda, fn, cell_pos, cell_tag, shifts,
+                                      cd)[1]
+            assert float(want.abs().max()) > 1.0
+    assert 5 % tcp.row_tile(5, 33)           # a last tile of fewer cells
+    cell_pos, cell_tag, _, shifts = _edge_fill((5, 2, 3), 33, 31)
+    want = _cuda_stencil_call(cuda, tcp.cell_pair_lj_row, cell_pos, cell_tag,
+                              shifts, (5, 2, 3))[1]
+    assert float(want.abs().max()) > 1.0
 
 
 @pytest.mark.gpu

@@ -21,7 +21,11 @@ the JAX package.
 
 The cases marked ``gpu`` hold the kernel against its plain version on
 the card (python -m pytest tests/test_torch_step_plane.py -m gpu
---noconftest); they skip where torch sees no CUDA device.
+--noconftest); they skip where torch sees no CUDA device.  Each also
+takes two edge fills (tests/test_torch_force_impls.py _edge_fill: grids
+1 and 2 cells wide, C = 33, a full, an empty and a one-particle cell,
+live slots scattered among padding): positions bit for bit, two calls
+with equal bits.
 """
 
 import numpy as np
@@ -337,9 +341,52 @@ def test_cuda_step_plane_matches_plain(cuda, cell_dim, seed, method,
                       recip='approx' if method == 'nvt' else 'div')
     assert tcp.cell_step_plane_planes.launches == n0 + 1
     want = _torch_step(a, cell_dim, C, s, eval_name, pn, device=cuda)
+    _check_step(got, want)
+    recip = 'approx' if method == 'nvt' else 'div'
+    for k, cd in enumerate(((1, 3, 2), (2, 2, 3))):
+        a, pn = _step_args(_edge_inputs(cd, 33, 40 + seed + k), eval_name, 33,
+                           cd)
+        n0 = tcp.cell_step_plane_planes.launches
+        got = _torch_step(a, cd, 33, s, eval_name, pn, device=cuda,
+                          plain=False, recip=recip)
+        again = _torch_step(a, cd, 33, s, eval_name, pn, device=cuda,
+                            plain=False, recip=recip)
+        assert tcp.cell_step_plane_planes.launches == n0 + 2
+        _check_step(got, _torch_step(a, cd, 33, s, eval_name, pn,
+                                     device=cuda))
+        for g, g2 in zip(got, again):
+            np.testing.assert_array_equal(g, g2)
+        assert np.abs(got[2]).max() > 1.0    # the fill has pairs in the cut
+
+
+def _check_step(got, want):
     # the drift rounds each operation as torch's separate ops: equal bits
     np.testing.assert_array_equal(got[0], want[0])
     for i in (1, 2):
         np.testing.assert_allclose(got[i], want[i], rtol=1e-4, atol=1e-4)
     for i in (3, 4):
         np.testing.assert_allclose(got[i], want[i], rtol=1e-5)
+
+
+def _edge_inputs(cell_dim, C, seed):
+    """_inputs' plane-layout state on an edge fill of _edge_fill
+    (tests/test_torch_force_impls.py), with the velocities, masses and
+    reference positions of _inputs on its live slots."""
+    from test_torch_force_impls import _edge_fill
+    cell_pos, cell_tag, _, shift = _edge_fill(cell_dim, C, seed)
+    rng = np.random.RandomState(seed)
+    valid = cell_tag >= 0
+    vel = np.where(valid[..., None], rng.normal(0, 1.0, cell_pos.shape),
+                   0.0).astype(np.float32)
+    mass = np.where(valid, rng.uniform(0.8, 1.2, valid.shape),
+                    1.0).astype(np.float32)
+    ref = np.where(valid[..., None], cell_pos + rng.uniform(
+        -0.05, 0.05, cell_pos.shape), cell_pos).astype(np.float32)
+    nx, ny, nz = cell_dim
+    p4 = (nz, ny, nx, C)
+
+    def planes(a):
+        return np.ascontiguousarray(
+            a.reshape(nz, ny, nx, C, 3).transpose(4, 0, 1, 2, 3))
+    return dict(pos=cell_pos, tag=cell_tag, vel=vel, w=(1.0 / mass),
+                ref=ref, shift=shift, planes=planes, p4=p4)
