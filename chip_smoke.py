@@ -33,7 +33,10 @@ from the root of the repository.  In order it prints:
      cell_rebin_place, cell_rebin_serial): the kernel against its plain
      torch version bit for bit, slot for slot, with equal overflow flags,
      on lattice fills drifted up to 0.45 of a cell width at the bench
-     shape and at (5, 3, 4), C = 32, and on two overflowing fills;
+     shape and at (5, 3, 4), C = 32, and on two overflowing fills; at the
+     bench shape each wrapper call's host time and device time per
+     recorded launch with its share of the bound, and the sweep's and the
+     place's builds;
   5. one phase per HPMC sweep kernel (fused_poly_sweep,
      fused_sphere_sweep): the kernel against its plain torch version on
      the same planes, class orders and uniforms at three shapes (the job
@@ -49,9 +52,11 @@ from the root of the repository.  In order it prints:
      counts bit for bit on three seeds; cell_pair_impls.cu: rows 4, the
      parent's bits, and 5, within RTOL and ATOL; cell_pair.cu: the
      megastep's candidate build, the parent's counts and lists bit for
-     bit) under another name and times both designs in turns, as
-     wrapper calls and device time, with the parent's builds as ptxas
-     printed them.  A device time the profiler could not
+     bit; cell_rebin.cu: rows 10 and 11, every output the parent's bits,
+     each design through its own wrapper, also on the pallas job's live
+     liquid in rebuild_phase) under another name and times both designs
+     in turns, as wrapper calls and as device time per recorded launch,
+     with the parent's builds as ptxas printed them.  A device time the profiler could not
      read (device_ms: no device kernel listed in three tries) prints as
      "not measured", with no share of the bound;
   4a. one phase per force kernel of the other HOOMD_TPU_FAST_IMPL paths
@@ -1053,24 +1058,23 @@ def on_parent(mod, lib, call, attrs=None):
 
 def parent_module(src, name):
     """The parent's copy of hoomd_tpu_torch/ops/{name}.py, beside its csrc
-    under ``src``, loaded as a module of a package of another name, so
-    that a case can take a host-side rule of the parent's wrapper (row 6:
-    its tile width)."""
-    import importlib.util
+    under ``src``, loaded as parent_pkg.ops.{name} (parent_pkg and
+    parent_pkg.ops stand for the parent's package and its ops, without
+    running their __init__), so that a case can take a host-side rule of
+    the parent's wrapper (row 6: its tile width) or the parent's wrapper
+    itself (rows 10 and 11), and the phase the parent's signatures
+    (_build).  The parent's ops modules launch on parent_sweep_lj_phase's
+    library: it puts that library in the parent's cell_pair._LIB."""
+    import importlib
     import types
     from pathlib import Path
-    ops = Path(src).parent / 'ops'
-    if 'parent_ops' not in sys.modules:
-        pkg = types.ModuleType('parent_ops')
-        pkg.__path__ = [str(ops)]
-        sys.modules['parent_ops'] = pkg
-    full = f'parent_ops.{name}'
-    if full not in sys.modules:
-        spec = importlib.util.spec_from_file_location(full, ops / f'{name}.py')
-        mod = importlib.util.module_from_spec(spec)
-        sys.modules[full] = mod
-        spec.loader.exec_module(mod)
-    return sys.modules[full]
+    root = Path(src).parent
+    for pkg, path in (('parent_pkg', root), ('parent_pkg.ops', root / 'ops')):
+        if pkg not in sys.modules:
+            mod = types.ModuleType(pkg)
+            mod.__path__ = [str(path)]
+            sys.modules[pkg] = mod
+    return importlib.import_module(f'parent_pkg.ops.{name}')
 
 
 def csrc_changed(stem, src):
@@ -1251,6 +1255,44 @@ def candidate_cases(dev):
              lists)]
 
 
+def rebin_cases(dev):
+    """parent_sweep_lj_phase's cases of cell_rebin.cu: rows 10
+    (cell_rebin_sweep) and 11 (cell_rebin_place) on the bench fill drifted
+    by up to 0.45 w (rebin_kernel_phases' fill), every output the
+    parent's bits (rebin_pair_cases)."""
+    from hoomd_tpu_torch.ops import cell_rebin as cr
+    dims, cdim, C = SHAPES['bench']
+    carry, L, _, _ = lattice_cells(dims, cdim, C, 0.1, 3, dev)
+    c = drifted(carry, 0.45 * L / np.asarray(cdim, float), 11)
+    cols = cr.to_cols(c.pos, c.vel, c.frc, c.img, c.tag, c.mass, cdim, C)
+    return rebin_pair_cases('bench', f"the bench fill drifted by up to 0.45 "
+                            f"w, cell_dim={cdim} C={C} E=8", cols, cdim,
+                            cr.rebin_params(L, cdim), C, 8)
+
+
+def rebin_pair_cases(key, where, cols, cdim, par, C, E):
+    """Cases of rows 10 and 11 on cols: the sweep, and the place on the
+    plain sweep's output, each a pair (new wrapper, the parent's wrapper
+    from its copy of ops/cell_rebin.py); every output, flags included,
+    the parent's bits."""
+    from hoomd_tpu_torch.ops import cell_pair as cp
+    from hoomd_tpu_torch.ops import cell_rebin as cr
+    pcr = parent_module(PARENT_SRC, 'cell_rebin')
+    swept, emz, _ = cr.cell_rebin_sweep_plain(cols, cdim, par, C=C, E=E)
+
+    def bits(got, want):
+        exact("the new design against the parent's", got, want)
+        return "every output, flags included, the parent's bits"
+    sweep_args, place_args = (cols, cdim, par), (swept, emz, cdim, par)
+    return [
+        (f'10 {key}', f"row 10 (cell_rebin_sweep, {where})", cp,
+         [(lambda: cr.cell_rebin_sweep(*sweep_args, C=C, E=E),
+           lambda: pcr.cell_rebin_sweep(*sweep_args, C=C, E=E))], bits),
+        (f'11 {key}', f"row 11 (cell_rebin_place, {where})", cp,
+         [(lambda: cr.cell_rebin_place(*place_args, C=C, E=E),
+           lambda: pcr.cell_rebin_place(*place_args, C=C, E=E))], bits)]
+
+
 # the kernels parent_sweep_lj_phase holds to the parent design's: per
 # csrc stem, its library entries, the kernels whose builds it prints
 # and the function giving its cases as (key, label, module, calls,
@@ -1267,21 +1309,24 @@ PARENT_KERNELS = (
      candidate_cases),
     ('cell_step', ('hoomd_step_plane',), ('step_plane_kernel', 'step_finish'),
      step_cases),
+    ('cell_rebin', ('hoomd_rebin_sweep', 'hoomd_rebin_place'),
+     ('compact_pass', 'place_compact_pass', 'place_pass'), rebin_cases),
 )
+# where parent_sweep_lj_phase looks for the parent's csrc
+PARENT_SRC = 'scratch/parent/hoomd_tpu_torch/csrc'
 
 
-def parent_sweep_lj_phase(dev, src='scratch/parent/hoomd_tpu_torch/csrc'):
+def parent_sweep_lj_phase(dev, src=PARENT_SRC):
     """Where a copy of the parent's csrc lies in ``src`` (an ignored
     directory; the checkout has none): build each stem of PARENT_KERNELS
     whose source or headers differ from this tree's (csrc_changed; an
     unchanged stem is neither built nor timed against itself) under
-    another library name, and run each of its cases: the new design
-    against the parent's on each of the case's calls, then its last call
-    in turns (parent, new, new, parent; CUDA events), as the wrapper's
-    call run on either library, and as device time (torch.profiler).
-    Prints the parent's builds as ptxas gave them.  Returns the parent's
-    library (None where nothing was built), whose candidate build
-    rebuild_phase holds the bench job's live set to."""
+    another library name, its entry points bound with the parent's
+    signatures, and run each of its cases (run_parent_cases).  Prints the
+    parent's builds as ptxas gave them.  Returns the parent's library
+    (None where nothing was built; its ``stems`` the stems built), whose
+    candidate build and rebin kernels rebuild_phase holds the live state
+    of a job to."""
     import ctypes
     from pathlib import Path
     from hoomd_tpu_torch.ops import _build
@@ -1307,6 +1352,7 @@ def parent_sweep_lj_phase(dev, src='scratch/parent/hoomd_tpu_torch/csrc'):
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         for stem, *_ in todo]
     logs, entries = {}, {}
+    signatures = parent_module(d, '_build')._SIGNATURES
     for (stem, names, _, _), proc in zip(todo, procs):
         out, _ = proc.communicate(timeout=600)
         logs[stem] = out.decode()
@@ -1316,7 +1362,7 @@ def parent_sweep_lj_phase(dev, src='scratch/parent/hoomd_tpu_torch/csrc'):
         lib = ctypes.CDLL(str(d / f'libparent_{stem}.so'))
         for entry in names:
             fn = getattr(lib, entry)
-            fn.argtypes = _build._SIGNATURES[entry]
+            fn.argtypes = signatures[entry]
             fn.restype = ctypes.c_int
             entries[entry] = fn
     new_lib = cp._kernel_lib()
@@ -1326,33 +1372,55 @@ def parent_sweep_lj_phase(dev, src='scratch/parent/hoomd_tpu_torch/csrc'):
           f"parent's builds: " + ' | '.join(
               f"{k} {ptxas_build(logs[stem], k)}"
               for stem, _, kernels, _ in todo for k in kernels), flush=True)
+    parent_lib.stems = {stem for stem, *_ in todo}
+    parent_module(d, 'cell_pair')._LIB[:] = [parent_lib]
     out = {}
     for _, _, _, cases in todo:
-        for key, label, mod, calls, check, *names in cases(dev):
-            pmod = (parent_module(d, mod.__name__.rsplit('.', 1)[-1])
-                    if names else None)
-            attrs = {k: getattr(pmod, k) for k in (names[0] if names else ())}
-            for i, fn in enumerate(calls):
-                try:
-                    msg = check(fn(), on_parent(mod, parent_lib, fn, attrs)())
-                except RuntimeError as e:
-                    raise RuntimeError(f"{label}, input {i + 1} of "
-                                       f"{len(calls)}: {e}") from None
-            fp = on_parent(mod, parent_lib, fn, attrs)
-            turns = [cuda_ms(f, 50) for f in (fp, fn, fn, fp)]
-            (pd, ps), (nd, ns) = (recorded_ms(device_kernels(f, 20))
-                                  for f in (fp, fn))
-            r = out[key] = dict(parent_ms=turns[::3], ms=turns[1:3],
-                                parent_device_ms=pd, device_ms=nd)
-            print(f"{label}: {msg} on {len(calls)} input(s); in turns "
-                  f"parent, new, new, parent: "
-                  f"{', '.join(f'{t:.4f}' for t in turns)} ms per wrapper "
-                  f"call (CUDA events); device {dev_fmt(pd)} -> "
-                  f"{dev_fmt(nd)} ms (the profiler recorded "
-                  f"{ps or 0:.2f} and {ns or 0:.2f} of the launches)",
-                  flush=True)
+        out.update(run_parent_cases(cases(dev), parent_lib, d))
     print(json.dumps({"parent_sweep_lj_ms": out}), flush=True)
     return parent_lib
+
+
+def run_parent_cases(cases, parent_lib, d):
+    """Each case (key, label, mod, calls, check[, names]): the new design
+    against the parent's on each of its calls, then its last call in
+    turns (parent, new, new, parent), by CUDA events per wrapper call,
+    by the host's time per call (host_ms) and by device time per
+    recorded launch (torch.profiler, recorded_ms).  A call is the wrapper's call run on either library
+    (on_parent, with mod's attributes ``names`` taken from the parent's
+    copy of mod), or a pair (new call, parent's call) where the parent's
+    wrapper itself differs.  Returns {key: times}."""
+    out = {}
+    for key, label, mod, calls, check, *names in cases:
+        pmod = (parent_module(d, mod.__name__.rsplit('.', 1)[-1])
+                if names else None)
+        attrs = {k: getattr(pmod, k) for k in (names[0] if names else ())}
+        for i, call in enumerate(calls):
+            fn, pf = call if isinstance(call, tuple) else (call, call)
+            try:
+                msg = check(fn(), on_parent(mod, parent_lib, pf, attrs)())
+            except RuntimeError as e:
+                raise RuntimeError(f"{label}, input {i + 1} of "
+                                   f"{len(calls)}: {e}") from None
+        fp = on_parent(mod, parent_lib, pf, attrs)
+        turns = [cuda_ms(f, 50) for f in (fp, fn, fn, fp)]
+        host_turns = [host_ms(f) for f in (fp, fn, fn, fp)]
+        dev_turns = [recorded_ms(device_kernels(f, 20)) for f in (fp, fn, fn,
+                                                                  fp)]
+        r = out[key] = dict(parent_ms=turns[::3], ms=turns[1:3],
+                            parent_host_ms=host_turns[::3],
+                            host_ms=host_turns[1:3],
+                            parent_device_ms=[t[0] for t in dev_turns[::3]],
+                            device_ms=[t[0] for t in dev_turns[1:3]])
+        print(f"{label}: {msg} on {len(calls)} input(s); in turns parent, "
+              f"new, new, parent: {', '.join(f'{t:.4f}' for t in turns)} ms "
+              f"per wrapper call (CUDA events); host "
+              f"{', '.join(f'{t:.4f}' for t in host_turns)} ms per call; device "
+              f"{', '.join(dev_fmt(t[0]) for t in dev_turns)} ms per call "
+              f"from the recorded launches (the profiler recorded "
+              f"{', '.join(f'{t[1] or 0:.2f}' for t in dev_turns)} of them)",
+              flush=True)
+    return out
 
 
 def engine_window_ms(s, gt, cand, ws, k):
@@ -1942,7 +2010,11 @@ def rebin_kernel_phases(dev):
     densities such a drift may overflow the E = 8 emigrant buffers or a
     select window (the engine's drift is at most about half the skin,
     0.1-0.15 w here): the flags are compared like every other output.
-    Returns the bench row of each kernel."""
+    At the bench shape each kernel's wrapper call is also timed by the
+    host's clock and its device time per recorded launch read
+    (build_times), with its share of the bound; the sweep's and the
+    place's builds (registers, spills, shared memory, blocks per SM)
+    are printed.  Returns the bench row of each kernel."""
     from hoomd_tpu_torch.ops import cell_rebin as cr
     E = 8
     rows = {}
@@ -1978,6 +2050,23 @@ def rebin_kernel_phases(dev):
                   flush=True)
             if tag_name == 'bench':
                 rows[name] = row
+                t = build_times(lambda: kern(*args, **kw))
+                print(f"  {name} at the bench shape: {t['ms']:.4f} ms per "
+                      f"wrapper call (CUDA events), host {t['host_ms']:.4f} "
+                      f"ms per call, device {dev_fmt(t['device_ms'])} ms "
+                      f"per call from the recorded launches "
+                      f"({kernels_fmt(t['kernels'])}), bound "
+                      f"{share_fmt(row['bound_ms'], t['device_ms'])}",
+                      flush=True)
+        if tag_name == 'bench':
+            for name, entry, args in (
+                    ('cell_rebin_sweep', 'hoomd_rebin_sweep_occupancy',
+                     (C, E, cdim[0], cdim[1], *cr.SWEEP_TILE)),
+                    ('cell_rebin_place', 'hoomd_rebin_place_occupancy',
+                     (C, cr.PLACE_CELLS))):
+                b = sweep_build_line(occ_build(entry, *args))
+                print(f"  {name} build: {b} (sweep tile {cr.SWEEP_TILE}, "
+                      f"place {cr.PLACE_CELLS} cells per block)", flush=True)
     rebin_overflow_phase(dev)
     return rows
 
@@ -2109,6 +2198,21 @@ def recorded_ms(kernels):
     return total, share
 
 
+def host_ms(call, iters=50):
+    """A call's host time: the host's perf_counter over ``iters`` calls
+    back to back with no synchronisation between them (ms per call; where
+    it reaches the CUDA-event time, the events time the host)."""
+    import torch
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        call()
+    ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return ms
+
+
 def build_times(call, iters=20):
     """A wrapper call's times by each of the script's means: CUDA events
     over ``iters`` calls back to back (ms), the host's perf_counter over
@@ -2116,14 +2220,8 @@ def build_times(call, iters=20):
     reaches ms, the events time the host), and the profiler's device time
     per call (device_ms, from its time per recorded launch: recorded_ms)
     with its kernels (kernels: {name: (ms, launches)} per call)."""
-    import torch
     ms = cuda_ms(call, iters)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        call()
-    host = (time.perf_counter() - t0) * 1e3 / iters
-    torch.cuda.synchronize()
+    host = host_ms(call, iters)
     kernels = device_kernels(call, iters)
     return dict(ms=ms, host_ms=host, kernels=kernels,
                 device_ms=recorded_ms(kernels)[0])
@@ -2163,7 +2261,11 @@ def rebuild_phase(system, parent_lib=None):
     equal to the plain version's, a second build's and (with
     ``parent_lib``, parent_sweep_lj_phase's library of the parent design)
     the parent design's, counts and written lists bit for bit, and the
-    build timed the same way."""
+    build timed the same way.  Where the parent's cell_rebin.cu was built,
+    the sweep and the place on this liquid are held to the parent
+    design's bits and timed in turns (rebin_pair_cases)."""
+    from pathlib import Path
+
     import torch
     from hoomd_tpu_torch.ops import cell_pair as cp
     from hoomd_tpu_torch.ops.cell_pair import build_cell_shifts
@@ -2188,11 +2290,24 @@ def rebuild_phase(system, parent_lib=None):
         ref = cells if ref is None else ref
         apart = binned_apart(f'rebuild[{impl}] vs sort', cells, ref)
         ms = cuda_ms(lambda: run.rebuild(c), 20)
-        dms = device_ms(lambda: run.rebuild(c), 10)
+        dms = recorded_ms(device_kernels(lambda: run.rebuild(c), 10))[0]
         print(f"rebuild[{impl}] of the job's liquid {m * k} steps after its "
               f"last rebuild, cell_dim={cdim} C={C} N={N}: {ms:.4f} ms per "
-              f"call (CUDA events), device {dev_fmt(dms)} ms; {apart} particles "
-              f"binned apart from the sort", flush=True)
+              f"call (CUDA events), device {dev_fmt(dms)} ms per call from "
+              f"the recorded launches; {apart} particles binned apart from "
+              f"the sort", flush=True)
+    if parent_lib is not None and 'cell_rebin' in parent_lib.stems:
+        # the migration kernels on this liquid: the parent design's bits
+        # and both designs in turns
+        from hoomd_tpu_torch.ops import cell_rebin as cr
+        cols = cr.to_cols(c.pos, c.vel, c.frc, c.img, c.tag, c.mass, cdim, C)
+        print(json.dumps({"parent_rebin_live_ms": run_parent_cases(
+            rebin_pair_cases('live', f"the job's liquid {m * k} steps after "
+                             f"its last rebuild, cell_dim={cdim} C={C} "
+                             f"E={fast['rebin_E']}", cols, cdim,
+                             cr.rebin_params(box.L, cdim), C,
+                             fast['rebin_E']),
+            parent_lib, Path(PARENT_SRC))}), flush=True)
     # and the megastep's candidate set of the new reference, which the
     # engine builds after each rebuild
     cyc = system._fast_carry.cycle

@@ -66,9 +66,11 @@ _SIGNATURES = {
                               I, I, I, I, F, F, F, P],
     'hoomd_hpmc_poly_occupancy': [I, P],
     'hoomd_rebin_select': [P, P, P, P, F, F, F, F, F, F, I, I, I, I, P],
-    'hoomd_rebin_sweep': [P, P, P, P, P, P, F, F, F, F, F, F,
-                          I, I, I, I, I, P],
-    'hoomd_rebin_place': [P, P, P, P, F, F, F, F, F, F, I, I, I, I, I, P],
+    'hoomd_rebin_sweep': [P, P, P, P, F, F, F, F, F, F, I, I, I, I, I, I, I,
+                          P],
+    'hoomd_rebin_sweep_occupancy': [I, I, I, I, I, I, P],
+    'hoomd_rebin_place': [P, P, P, P, F, F, F, F, F, F, I, I, I, I, I, I, P],
+    'hoomd_rebin_place_occupancy': [I, I, P],
     'hoomd_rebin_serial': [P, P, P, P, P, P, F, F, F, F, F, F,
                            I, I, I, I, I, P],
 }

@@ -36,9 +36,15 @@ same slots and the same bits (one-hot sums add exact zeros).
 
 On a CUDA tensor each of the four migration wrappers launches its
 hand-written kernel (csrc/cell_rebin.cu) or raises; on a CPU tensor it
-runs the plain version.  Each counts its launches in ``<wrapper>.launches``.
-Overflow (more than E emigrants through one face, more immigrants than
-free slots, more than C claimants of a cell) raises a sticky flag: the
+runs the plain version.  Each adds one to ``<wrapper>.launches`` per call
+on the card.  A sweep call is one launch over tiles of SWEEP_TILE cells of
+a z plane (x pass, y pass and z emigrants in shared memory), a place call
+one launch over runs of PLACE_CELLS cells, a select call three launches
+and a serial call one cooperative launch.  The sweep's and the place's
+flag is a new 0-d bool that the C entry point zeroes before its launch,
+so that no further kernel turns it into the returned flag.  Overflow
+(more than E emigrants through one face, more immigrants than free
+slots, more than C claimants of a cell) raises a sticky flag: the
 rebuild is unusable and the host retries on the sort rebuild.
 """
 
@@ -59,10 +65,19 @@ _FILLS[PX] = _FILLS[PY] = _FILLS[PZ] = PAD_COORD
 _FILLS[TG] = -1.0
 _FILLS[MS] = 1.0
 
-# largest capacities the kernels take: 3C window candidates and 2E
-# immigrants, one thread each, in a block of at most 1024 threads
+# largest capacities the kernels take: the select and serial kernels give
+# each of 3C window candidates and 2E immigrants a thread, in a block of
+# at most 1024 threads
 MAX_C = 341
 MAX_E = 512
+
+# the sweep's tile: (TX, TY) cells of one z plane per block
+# (csrc/cell_rebin.cu sweep_plan takes one cell where a plan's shared
+# memory does not fit); 2 x 2 was the fastest of 1 x 1, 2 x 1, 4 x 1,
+# 2 x 2 and 4 x 2 at the bench plan (`profile_torch_bench.py rebin`)
+SWEEP_TILE = (2, 2)
+# cells per block of the z place, a warp each
+PLACE_CELLS = 8
 
 
 def _fill(ref, ndim):
@@ -314,9 +329,19 @@ def _launch(name, t, *args):
 
 
 def _geom(cell_dim, par, C, E=None):
-    nx, ny, nz = cell_dim
-    return [float(x) for x in np.asarray(par, np.float32)] + [
-        nx, ny, nz, C] + ([E] if E is not None else [])
+    """The C entry points' box and plan arguments as Python numbers."""
+    return (tuple(np.asarray(par, np.float32).tolist()) + tuple(cell_dim)
+            + (C,) + (() if E is None else (E,)))
+
+
+def _outputs(ref, *shapes):
+    """A new float32 tensor of each shape on ref's device, then the
+    overflow flag: a new 0-d bool, which the C entry point zeroes before
+    its launch (separate allocations cost the host less than views of
+    one buffer)."""
+    dev = ref.device
+    return [torch.empty(s, dtype=torch.float32, device=dev)
+            for s in shapes] + [torch.empty((), dtype=torch.bool, device=dev)]
 
 
 def cell_rebin_select(cols, cell_dim, par, *, C):
@@ -345,15 +370,12 @@ def cell_rebin_sweep(cols, cell_dim, par, *, C, E):
     if _on_cpu(cols):
         return cell_rebin_sweep_plain(cols, cell_dim, par, C=C, E=E)
     src = cols.contiguous()
-    swept = torch.empty_like(src)
-    emz = torch.empty(eshp, dtype=torch.float32, device=src.device)
-    emxy = torch.empty((2,) + eshp, dtype=torch.float32, device=src.device)
-    flag = torch.zeros(1, dtype=torch.int32, device=src.device)
+    swept, emz, flag = _outputs(src, shp, eshp)
     _launch('hoomd_rebin_sweep', src, src.data_ptr(), swept.data_ptr(),
-            emxy[0].data_ptr(), emxy[1].data_ptr(), emz.data_ptr(),
-            flag.data_ptr(), *_geom(cell_dim, par, C, E))
+            emz.data_ptr(), flag.data_ptr(), *_geom(cell_dim, par, C, E),
+            *SWEEP_TILE)
     cell_rebin_sweep.launches += 1
-    return swept, emz, flag[0] != 0
+    return swept, emz, flag
 
 
 def cell_rebin_place(swept, emz, cell_dim, par, *, C, E):
@@ -367,12 +389,12 @@ def cell_rebin_place(swept, emz, cell_dim, par, *, C, E):
         raise ValueError("swept and emz must lie on the same device")
     src = swept.contiguous()
     em = emz.contiguous()
-    out = torch.empty_like(src)
-    flag = torch.zeros(1, dtype=torch.int32, device=src.device)
+    out, flag = _outputs(src, shp)
     _launch('hoomd_rebin_place', src, src.data_ptr(), em.data_ptr(),
-            out.data_ptr(), flag.data_ptr(), *_geom(cell_dim, par, C, E))
+            out.data_ptr(), flag.data_ptr(), *_geom(cell_dim, par, C, E),
+            PLACE_CELLS)
     cell_rebin_place.launches += 1
-    return out, flag[0] != 0
+    return out, flag
 
 
 def cell_rebin_serial(cols, cell_dim, par, *, C, E):

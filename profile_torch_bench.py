@@ -14,6 +14,7 @@ NVIDIA GPU.
     python3 profile_torch_bench.py pppm-nve 16 32 [cpu]  # its NVE drift
     python3 profile_torch_bench.py pppm-mesh # the mesh's two formulations
     python3 profile_torch_bench.py tiles     # the tile kernels' tile widths
+    python3 profile_torch_bench.py rebin     # the migration kernels' tiles
     python3 profile_torch_bench.py ka-bits [TREE]  # the KA job's end bits
     python3 profile_torch_bench.py sweeps [TREE]   # the HPMC sweeps' times
     python3 profile_torch_bench.py jobs [TREE] [JOB ...]  # jobs through TREE
@@ -73,7 +74,11 @@ formulation on random neutral clouds at config 4's density, at config
 times the typed planar kernel and the half stencil (csrc/cell_tile.cuh)
 at tile widths of 1 to 6 cells: rows 3t and 7t at the KA shape with the
 KA table, row 7 at the bench shape; then the row-blocked LJ kernel (row
-6) and the fused step (row 8) at the bench shape, 1 to 7 cells.  With ``ka-bits [TREE]`` it runs
+6) and the fused step (row 8) at the bench shape, 1 to 7 cells.  With
+``rebin`` it times the migration sweep (row 10) at each tile of
+REBIN_TILES and the z place (row 11) at each of REBIN_PLACE_CELLS cells per
+block, on the bench fill drifted by up to 0.45 w and by up to 0.1 w, by
+CUDA events per wrapper call and by device time per recorded launch.  With ``ka-bits [TREE]`` it runs
 chip_smoke.py's KA job script through the hoomd_tpu_torch of TREE (by
 default this checkout) and prints T and PE/N at the end of its NVT
 window exactly; chip_smoke.py's KA_PARENT_T and KA_PARENT_PE come from
@@ -82,7 +87,9 @@ runs chip_smoke.py's jobs named (JOBS: ``sphere`` and ``cube``, the HPMC
 jobs; ``pallas``, ``pallas3d``, ``row``, ``planar_n3l``, the impl jobs'
 HOOMD_TPU_FAST_IMPL paths; ``fused``, the HOOMD_TPU_FUSED=on NVT job and
 its NVE continuation; ``bench``, the bench job with its warmup and one
-timed 3000-step window; by default sphere, cube, pallas) through the
+timed 3000-step window; ``migration``, the HOOMD_TPU_REBIN=pallas job
+(chip_smoke.py rebin_job) and a timed 1000-step window on the migration
+rebin; by default sphere, cube, pallas) through the
 hoomd_tpu_torch of TREE, with their gates; run on two trees in turns, in
 separate processes, it compares their end-to-end numbers on one card.  With ``sweeps [TREE]`` it times
 each HPMC sweep (fused_sphere_sweep, fused_poly_sweep) at its job
@@ -532,6 +539,97 @@ def union_tiles(dev, widths=(1, 2, 3, 4, 5, 7)):
     return res
 
 
+# the migration sweep's tiles (TX, TY) and the z place's cells per block
+# that ``rebin`` times
+REBIN_TILES = ((1, 1), (2, 1), (4, 1), (2, 2), (4, 2))
+REBIN_PLACE_CELLS = (4, 8, 16)
+
+
+def rebin_tiles(dev=torch.device('cuda', 0)):
+    """Rows 10 and 11 at each tile (REBIN_TILES) and cells per block
+    (REBIN_PLACE_CELLS) on the bench fill drifted by up to 0.45 w and 0.1 w:
+    ms per wrapper call by CUDA events and device ms per call from the
+    recorded launches, each kernel held to its plain version bit for
+    bit; the wrappers' own choice marked."""
+    from chip_smoke import (SHAPES, device_kernels, drifted, exact,
+                            lattice_cells, recorded_ms)
+    from hoomd_tpu_torch.ops import cell_rebin as cr
+    dims, cdim, C = SHAPES['bench']
+    carry, L, _, _ = lattice_cells(dims, cdim, C, 0.1, 3, dev)
+    par = cr.rebin_params(L, cdim)
+    taken = cr.SWEEP_TILE, cr.PLACE_CELLS
+    res = {}
+    try:
+        for amp in (0.45, 0.1):
+            c = drifted(carry, amp * L / np.asarray(cdim, float), 11)
+            cols = cr.to_cols(c.pos, c.vel, c.frc, c.img, c.tag, c.mass,
+                              cdim, C)
+            want = {'sweep': cr.cell_rebin_sweep_plain(cols, cdim, par, C=C,
+                                                       E=8)}
+            swept, emz, _ = want['sweep']
+            want['place'] = cr.cell_rebin_place_plain(swept, emz, cdim, par,
+                                                      C=C, E=8)
+            runs = [('sweep', t, lambda: cr.cell_rebin_sweep(
+                        cols, cdim, par, C=C, E=8)) for t in REBIN_TILES]
+            runs += [('place', pc, lambda: cr.cell_rebin_place(
+                        swept, emz, cdim, par, C=C, E=8))
+                     for pc in REBIN_PLACE_CELLS]
+            for kind, opt, call in runs:
+                if kind == 'sweep':
+                    cr.SWEEP_TILE = opt
+                else:
+                    cr.PLACE_CELLS = opt
+                exact(f'{kind} {opt}', call(), want[kind])
+                ms = cuda_ms(call, 50)
+                dms = recorded_ms(device_kernels(call, 20))[0]
+                res[f'{kind} {opt} drift {amp}'] = dict(ms=ms, device_ms=dms)
+                mark = ' (taken)' if opt in taken else ''
+                print(f"rebin {kind} {opt}{mark}, drift {amp} w: {ms:.4f} ms "
+                      f"per wrapper call, device "
+                      f"{'not measured' if dms is None else f'{dms:.4f}'} ms",
+                      flush=True)
+    finally:
+        cr.SWEEP_TILE, cr.PLACE_CELLS = taken
+    print(json.dumps({'rebin_tile_ms': res}), flush=True)
+    rebin_host(cols, cdim, par, C, swept, emz)
+
+
+def rebin_host(cols, cdim, par, C, swept, emz, E=8):
+    """The host's time per call (chip_smoke.py host_ms) of the sweep's and
+    the place's wrappers and of each step of the sweep's: the shape
+    checks, the outputs' allocations, the memoised
+    arguments, the stream, the bare ctypes call of its C entry point;
+    then the wrappers again after one torch.profiler run."""
+    from chip_smoke import device_kernels, host_ms
+    from hoomd_tpu_torch.ops import cell_rebin as cr
+    shp, eshp = cr._shapes(cdim, C, E)
+    sw, ez, fl = cr._outputs(cols, shp, eshp)
+    lib = cr._kernel_lib().lib
+    args = (cols.data_ptr(), sw.data_ptr(), ez.data_ptr(), fl.data_ptr(),
+            *cr._geom(cdim, par, C, E), *cr.SWEEP_TILE, cr._stream(cols))
+
+    def sweep():
+        return cr.cell_rebin_sweep(cols, cdim, par, C=C, E=E)
+
+    def place():
+        return cr.cell_rebin_place(swept, emz, cdim, par, C=C, E=E)
+    parts = {'sweep wrapper': sweep, 'place wrapper': place,
+             '_check': lambda: cr._check(C, E, cols=(cols, shp)),
+             'contiguous': cols.contiguous,
+             '_outputs': lambda: cr._outputs(cols, shp, eshp),
+             '_geom': lambda: cr._geom(cdim, par, C, E),
+             '_stream': lambda: cr._stream(cols),
+             'ctypes call of hoomd_rebin_sweep':
+                 lambda: lib.hoomd_rebin_sweep(*args)}
+    res = {k: host_ms(f, 200) for k, f in parts.items()}
+    device_kernels(sweep, 20)
+    res['sweep wrapper after a profiler run'] = host_ms(sweep, 200)
+    res['place wrapper after a profiler run'] = host_ms(place, 200)
+    for k, v in res.items():
+        print(f"host {k}: {v * 1e3:.2f} us per call", flush=True)
+    print(json.dumps({'rebin_host_ms': res}), flush=True)
+
+
 def _step_tile():
     """STEP_TILE as csrc/cell_step.cu defines it."""
     import re
@@ -557,9 +655,10 @@ def ka_bits(tree=None):
 
 
 # the jobs of ``jobs``: the HPMC jobs, the impl jobs' force paths, the
-# fused NVT + NVE job (HOOMD_TPU_FUSED=on), the bench job
+# fused NVT + NVE job (HOOMD_TPU_FUSED=on), the bench job, the migration
+# rebin's job (HOOMD_TPU_REBIN=pallas)
 JOBS = ('sphere', 'cube', 'pallas', 'pallas3d', 'row', 'planar_n3l', 'fused',
-        'bench')
+        'bench', 'migration')
 
 
 def bench_turn(card_name):
@@ -583,6 +682,39 @@ def bench_turn(card_name):
         'fast_stats': system.fast_stats, 'card': card_name}}), flush=True)
 
 
+def migration_turn(card_name, steps=1000):
+    """chip_smoke.py's HOOMD_TPU_REBIN=pallas job (rebin_job: the bench
+    script to the melt plus 1000 NVT steps, with its gates), then a timed
+    window of ``steps`` steps that must stay on the migration rebin: ms
+    per step, the rebuilds in the window, and T and PE/N after it."""
+    from chip_smoke import rebin_job
+    counts, system = rebin_job('pallas')
+    N = system.state.N
+    r0 = system.fast_stats['rebuilds']
+    os.environ['HOOMD_TPU_REBIN'] = 'pallas'
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        system.run(steps, quiet=True)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    finally:
+        os.environ.pop('HOOMD_TPU_REBIN')
+    fast = system._program['fast']
+    if fast['rebin_impl'] != 'pallas' or system.fast_stats['rebin_retries']:
+        raise RuntimeError(f"the migration job left the migration rebin: "
+                           f"now {fast['rebin_impl']}, {system.fast_stats}")
+    q = system.thermo_quantities()
+    print(json.dumps({'migration_job': {
+        'ms_per_step': elapsed / steps * 1e3, 'steps': steps,
+        'rebuilds': system.fast_stats['rebuilds'] - r0,
+        'fast_m': int(system._grow.get('fast_m', 1)),
+        'T': q['temperature'], 'PE_N': q['potential_energy'] / N,
+        'launches': {k: counts[k] for k in ('cell_rebin_sweep',
+                                            'cell_rebin_place')},
+        'fast_stats': system.fast_stats, 'card': card_name}}), flush=True)
+
+
 def job_times(tree=None, jobs=('sphere', 'cube', 'pallas')):
     """chip_smoke.py's jobs named in ``jobs`` (JOBS) through the
     hoomd_tpu_torch of ``tree`` (by default this checkout), with their
@@ -601,6 +733,8 @@ def job_times(tree=None, jobs=('sphere', 'cube', 'pallas')):
             bench_turn(c)
         elif job == 'fused':
             fused_job()
+        elif job == 'migration':
+            migration_turn(c)
         else:
             impl_job(job)
 
@@ -809,6 +943,10 @@ def main(argv):
     if argv[1:2] == ['tiles']:
         print('card:', card(), flush=True)
         profile_tiles()
+        return
+    if argv[1:2] == ['rebin']:
+        print('card:', card(), flush=True)
+        rebin_tiles()
         return
     if argv[1:2] == ['ka-bits']:
         print('card:', card(), flush=True)

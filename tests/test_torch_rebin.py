@@ -14,7 +14,10 @@ position, payload unchanged) checks the port on its own as well.
 
 The cases marked ``gpu`` hold each CUDA kernel (select, sweep, place,
 serial) against its plain version on the card, bit for bit with equal
-flags; they skip where torch sees no CUDA device.  This file imports jax
+flags, two calls with equal bits and one launch counted per call; the
+sweep and the place also on the edge fills of ``_edge_fills`` and on
+overflows through each face and into a full cell.  They skip where
+torch sees no CUDA device.  This file imports jax
 only inside the JAX-side helper, so they also run where jax is missing:
 
     python -m pytest tests/test_torch_rebin.py -m gpu --noconftest
@@ -335,21 +338,88 @@ def _cols(arrays, cell_dim, C, dev):
                       cell_dim, C)
 
 
+def _bits_equal(a, b):
+    """Equal shapes, dtypes and bits (a float32 by its int32 view)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(a.contiguous().view(torch.int32),
+                           b.contiguous().view(torch.int32))
+    return torch.equal(a, b)
+
+
 def _kernel_vs_plain(kernel, plain, args, kw):
+    """One kernel call (one launch counted) against the plain version,
+    bit for bit, flag included; a second call gives the same bits."""
     n0 = kernel.launches
     got = kernel(*args, **kw)
-    want = plain(*args, **kw)
     assert kernel.launches == n0 + 1
+    want = plain(*args, **kw)
     for g, w in zip(got, want):
-        assert g.shape == w.shape
-        assert torch.equal(g, w)
+        assert _bits_equal(g, w)
+    again = kernel(*args, **kw)
+    assert kernel.launches == n0 + 2
+    assert all(_bits_equal(a, g) for a, g in zip(again, got))
     return got
+
+
+def _empty_and_full(arrays, cell_dim, C, L):
+    """Empty cell 0 and fill cell 1 (ix = 1) to all C slots."""
+    pos, vel, frc, img, tag, mass = arrays
+    pos[0], vel[0], frc[0], img[0], tag[0], mass[0] = PAD, 0, 0, 0, -1, 1
+    n = int((tag[1] >= 0).sum())
+    w = np.array(L) / np.array(cell_dim)
+    org = np.array([1, 0, 0]) * w - np.array(L) / 2
+    rng = np.random.RandomState(2)
+    pos[1, n:] = (org + rng.uniform(0.02, 0.98, (C - n, 3)) * w).astype(
+        np.float32)
+    tag[1, n:] = tag.max() + 1 + np.arange(C - n)
+
+
+def _edge_fills():
+    """(label, arrays, cell_dim, C, L, E) of the kernels' edge fills:
+    grids 1 and 2 cells wide in x and in y, a grid that the sweep's tile
+    divides in neither x nor y, C = 33 and C = MAX_C, E = 16, an empty
+    and a full cell, and an already binned fill."""
+    rng = np.random.RandomState(13)
+    out = []
+    for label, cell_dim, C, fill, E, margin in (
+            ('1x2x3', (1, 2, 3), 24, (4, 8), 8, 0.45),
+            ('2x1x3', (2, 1, 3), 24, (4, 8), 8, 0.45),
+            ('1x1x2', (1, 1, 2), 24, (4, 8), 8, 0.45),
+            ('2x2x2 E=16', (2, 2, 2), 24, (4, 8), 16, 0.45),
+            ('7x5x3', (7, 5, 3), 24, (6, 10), 8, 0.45),
+            ('C=33', (3, 3, 3), 33, (8, 20), 16, 0.45),
+            ('C=MAX_C', (2, 3, 2), tr.MAX_C, (60, 120), 16, 0.45),
+            ('empty and full', (4, 3, 3), 24, (6, 10), 8, 0.45),
+            ('binned', (4, 4, 3), 24, (4, 10), 8, 0.0)):
+        L = (cell_dim[0] * 3.1, cell_dim[1] * 3.3, cell_dim[2] * 2.9)
+        arrays = _mkconfig(rng, cell_dim, C, L, *fill, margin=margin)[:6]
+        if label == 'empty and full':
+            _empty_and_full(arrays, cell_dim, C, L)
+        out.append((label, arrays, cell_dim, C, L, E))
+    return out
+
+
+def _sweep_place_vs_plain(arrays, cell_dim, C, L, E, dev):
+    """The sweep, then the place on its output, each against its plain
+    version bit for bit and twice; (cols, placed, ovf)."""
+    cols = _cols(arrays, cell_dim, C, dev)
+    par = tr.rebin_params(L, cell_dim)
+    swept, emz, o1 = _kernel_vs_plain(
+        tr.cell_rebin_sweep, tr.cell_rebin_sweep_plain,
+        (cols, cell_dim, par), dict(C=C, E=E))
+    out, o2 = _kernel_vs_plain(tr.cell_rebin_place, tr.cell_rebin_place_plain,
+                               (swept, emz, cell_dim, par), dict(C=C, E=E))
+    return cols, out, bool(o1 | o2)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize('E', [8, 16])
 @pytest.mark.parametrize('shape', range(3), ids=SHAPE_IDS)
 def test_cuda_rebin_kernels_match_plain(cuda, shape, E):
+    """Each kernel against its plain version at the shape, then the sweep
+    and the place on a share of the edge fills (_edge_fills)."""
     arrays, cell_dim, C, L = _case(shape)
     cols = _cols(arrays, cell_dim, C, cuda)
     par = tr.rebin_params(L, cell_dim)
@@ -362,6 +432,28 @@ def test_cuda_rebin_kernels_match_plain(cuda, shape, E):
                      (swept, emz, cell_dim, par), dict(C=C, E=E))
     _kernel_vs_plain(tr.cell_rebin_serial, tr.cell_rebin_serial_plain,
                      (cols, cell_dim, par), dict(C=C, E=E))
+    for label, arrays, cell_dim, C, L, E in _edge_fills()[
+            2 * shape + (E == 16)::6]:
+        cols, out, ovf = _sweep_place_vs_plain(arrays, cell_dim, C, L, E,
+                                               cuda)
+        if label == 'binned':
+            assert not ovf and _bits_equal(out, cols), label
+
+
+def _face_fill(cell_dim, C, cells):
+    """A fill of 3.0-wide cells: ``cells`` maps a cell to (its particles'
+    offset from the box's low corner, count)."""
+    nc = int(np.prod(cell_dim))
+    pos = np.full((nc, C, 3), PAD, np.float32)
+    tag = np.full((nc, C), -1, np.int32)
+    t = 0
+    for cell, (x, n) in cells.items():
+        pos[cell, :n] = np.asarray(x, np.float32) - 4.5
+        tag[cell, :n] = np.arange(t, t + n)
+        t += n
+    z3 = np.zeros((nc, C, 3), np.float32)
+    return (pos, z3, z3, np.zeros((nc, C, 3), np.int32), tag,
+            np.ones((nc, C), np.float32))
 
 
 @pytest.mark.gpu
@@ -381,3 +473,12 @@ def test_cuda_rebin_kernels_flag_overflow(cuda):
                             (_cols(arrays, cell_dim, C, cuda), cell_dim,
                              tr.rebin_params(L, cell_dim)), dict(C=C))
     assert bool(o)
+    # 12 emigrants through cell 0's +y face and through its +z face (E =
+    # 8), and 3 z immigrants into a full cell 0 from the cell above it
+    cell_dim, L = (3, 3, 3), (9.0, 9.0, 9.0)
+    full = np.random.RandomState(5).uniform(0.1, 2.9, (32, 3))
+    for arrays in (_face_fill(cell_dim, 32, {0: ((1.5, 3.1, 1.5), 12)}),
+                   _face_fill(cell_dim, 32, {0: ((1.5, 1.5, 3.1), 12)}),
+                   _face_fill(cell_dim, 32, {0: (full, 32),
+                                             9: ((1.5, 1.5, 2.9), 3)})):
+        assert _sweep_place_vs_plain(arrays, cell_dim, 32, L, 8, cuda)[2]
