@@ -10,11 +10,15 @@ from the root of the repository.  In order it prints:
      the 64k bench shape (cell grid (14, 14, 12), C = 40, N = 64 000 in a
      jittered-lattice liquid-like fill) and at one ragged small shape,
      element by element, with the largest error and CUDA-event times,
-     failing past tolerance; the fused step (cell_step_plane_planes) NVE
-     and NVT also on a 2x2x2 grid, its drifted positions bit for bit;
+     failing past tolerance; cell_pair_plane and cell_pair_planar also
+     on a 2x2x2 grid and against a second call bit for bit, with their
+     device time and build at the bench shape; the fused step
+     (cell_step_plane_planes) NVE and NVT also on a 2x2x2 grid, its
+     drifted positions bit for bit;
   3a. per other pair evaluator (EVAL_JOBS), at the bench fill: the plane,
      planar and fused-step kernels against their plain versions with the
-     evaluator's ATOL (EVAL_ATOL);
+     evaluator's ATOL (EVAL_ATOL), the plane and planar kernels also
+     against a second call bit for bit;
   3b. the megastep (megastep_phases) at the bench, ragged and 2x2x2
      shapes: its candidate set (counts, lists) against the plain
      builder bit for bit and two builds equal, with its build time (at
@@ -49,10 +53,14 @@ from the root of the repository.  In order it prints:
      scratch/parent/hoomd_tpu_torch/csrc, parent_sweep_lj_phase builds
      each stem of its table PARENT_KERNELS whose source or headers
      differ from this tree's (hpmc_sweep.cu: rows 13 and 14, planes and
-     counts bit for bit on three seeds; cell_pair_impls.cu: rows 4, the
-     parent's bits, and 5, within RTOL and ATOL; cell_pair.cu: the
+     counts bit for bit on three seeds; cell_pair_impls.cu: rows 4, 5
+     and 6, the parent's bits; cell_step.cu: row 8, every output the
+     parent's bits; cell_pair.cu: the
      megastep's candidate build, the parent's counts and lists bit for
-     bit; cell_rebin.cu: rows 10 and 11, every output the parent's bits,
+     bit, and rows 2 and 3, cell_pair_plane and cell_pair_planar, for
+     every evaluator (plane's lj also with the fast reciprocal) on the
+     ragged, 2x2x2 and bench fills, every output the parent's bits;
+     cell_rebin.cu: rows 10 and 11, every output the parent's bits,
      each design through its own wrapper, also on the pallas job's live
      liquid in rebuild_phase) under another name and times both designs
      in turns, as wrapper calls and as device time per recorded launch,
@@ -100,8 +108,8 @@ from the root of the repository.  In order it prints:
      job's live reference equal to the plain builder's, a second
      build's and (with the parent's csrc, above) the parent design's,
      bit for bit; then the same script to the melt plus 1000
-     NVT steps with HOOMD_TPU_FAST_IMPL = planar_n3l, pallas, pallas3d and
-     row, and with plane plus HOOMD_TPU_MEGA=off, each with the same
+     NVT steps with HOOMD_TPU_FAST_IMPL = planar_n3l, pallas, pallas3d,
+     row and planar, and with plane plus HOOMD_TPU_MEGA=off, each with the same
      gates, its kernel launched and the megastep not, the rebin of its
      gate, the ms per step of a timed 500-step window and the device's
      busy share over 50 profiled steps; then the same with
@@ -142,8 +150,10 @@ from the root of the repository.  In order it prints:
   8. the evaluators' kernel times, the kernels' JSON line (each with its
      bound: the larger of the bytes its inputs and outputs move over
      3.35 TB/s and the operations this run's data needs over 67 TFLOP/s
-     fp32), the card line, and the final {"ok": true, "device": {...}}
-     line.
+     fp32; its launches those of the path that runs the kernel, the
+     plane and planar kernels' those of the plane + HOOMD_TPU_MEGA=off
+     and planar jobs, which run them every step), the card line, and the
+     final {"ok": true, "device": {...}} line.
 Every path runs with the launch counters set to 0 just before it and
 read just after.  It exits non-zero without a CUDA device, outside a
 checkout, or when any phase fails.
@@ -352,56 +362,73 @@ def lj_bounds(pos, tag, cdim, sh, N, k):
 
 
 def kernel_phases(dev):
+    """cell_pair_plane (fast reciprocal) and cell_pair_planar against
+    their plain versions at the bench, ragged and 2x2x2 shapes, element
+    by element, each also against a second call bit for bit (the ordered
+    walk of csrc/cell_walk.cuh sums in a fixed order); at the bench shape
+    each kernel's device time per recorded launch, its share of the
+    bound and its build.  Returns the bench rows."""
     import torch
     from hoomd_tpu_torch.ops import cell_pair as cp
     results = {}
     pv, _ = lj_params(dev)
-    for tag_name in ('bench', 'ragged'):
-        dims, cdim, C = SHAPES[tag_name]
+    for tag_name, (dims, cdim, C) in SHAPES.items():
         carry, L, N, _ = lattice_cells(dims, cdim, C, 0.1, 3, dev)
         _, sh = cp.build_cell_shifts(cdim, L)
         sh = torch.as_tensor(sh, dtype=torch.float32, device=dev)
         pos, tag = carry.pos, carry.tag
-        iters = 50 if tag_name == 'bench' else 5
-        piters = 3 if tag_name == 'bench' else 1
+        bench = tag_name == 'bench'
+        iters = 50 if bench else 5
+        piters = 3 if bench else 1
+        calls = {
+            # the thermostat path: the fast reciprocal
+            'cell_pair_plane': (
+                lambda: cp.cell_pair_plane(pos, cdim, sh, pv, C=C,
+                                           cell_tag=tag, recip='approx'),
+                lambda: cp.cell_pair_plane_plain(pos, cdim, sh, pv,
+                                                 cell_tag=tag)),
+            'cell_pair_planar': (
+                lambda: cp.cell_pair_planar(pos, cdim, sh, pv, C=C,
+                                            cell_tag=tag),
+                lambda: cp.cell_pair_planar_plain(pos, cdim, sh, pv,
+                                                  cell_tag=tag))}
+        bounds = lj_bounds(pos.reshape(-1, C, 3), tag.reshape(-1, C), cdim,
+                           sh, N, 4)
         row = {}
-        # ---- cell_pair_plane (thermostat path: approx reciprocal)
-        def k_plane():
-            return cp.cell_pair_plane(pos, cdim, sh, pv, C=C, cell_tag=tag,
-                                      recip='approx')
-
-        def p_plane():
-            return cp.cell_pair_plane_plain(pos, cdim, sh, pv, cell_tag=tag)
-        ea, er = compare(f'cell_pair_plane[{tag_name}]',
-                         [('F', k_plane(), p_plane(), RTOL, ATOL)])
-        row['cell_pair_plane'] = dict(max_abs_err=ea, bound_share=er,
-                                      ms=cuda_ms(k_plane, iters),
-                                      plain_ms=cuda_ms(p_plane, piters))
-        # ---- cell_pair_planar
-        def k_planar():
-            return cp.cell_pair_planar(pos, cdim, sh, pv, C=C, cell_tag=tag)
-
-        def p_planar():
-            return cp.cell_pair_planar_plain(pos, cdim, sh, pv,
-                                             cell_tag=tag)
-        ea, er = compare(f'cell_pair_planar[{tag_name}]',
-                         [(lab, g, w, RTOL, ATOL) for lab, g, w in
-                          zip(('F', 'pe', 'virial'), k_planar(),
-                              p_planar())])
-        row['cell_pair_planar'] = dict(max_abs_err=ea, bound_share=er,
-                                       ms=cuda_ms(k_planar, iters),
-                                       plain_ms=cuda_ms(p_planar, piters))
-        for kname, r in row.items():
+        for kname, (kern, plain) in calls.items():
+            got, want = kern(), plain()
+            if not isinstance(got, tuple):
+                got, want = (got,), (want,)
+            ea, er = compare(f'{kname}[{tag_name}]', [
+                (lab, g, w, RTOL, ATOL)
+                for lab, g, w in zip(('F', 'pe', 'virial'), got, want)])
+            again = kern()
+            if not same_bits(got, again if isinstance(again, tuple)
+                             else (again,)):
+                raise RuntimeError(f"{kname}[{tag_name}]: two calls differ")
+            r = row[kname] = dict(max_abs_err=ea, bound_share=er,
+                                  ms=cuda_ms(kern, iters),
+                                  plain_ms=cuda_ms(plain, piters))
+            r['bound_ms'], r['bound_by'] = bounds[kname]
+            extra = ''
+            if bench:
+                kernels = device_kernels(kern, 20)
+                r['device_ms'] = recorded_ms(kernels)[0]
+                r['build'] = (
+                    occ_build('hoomd_cell_pair_plane_occupancy', 0, 1,
+                              cdim[0], C) if kname == 'cell_pair_plane' else
+                    occ_build('hoomd_cell_pair_planar_occupancy', 0, cdim[0],
+                              C))
+                extra = (f" device_ms={dev_fmt(r['device_ms'])} "
+                         f"({kernels_fmt(kernels)}), "
+                         f"{share_fmt(r['bound_ms'], r['device_ms'])}; "
+                         f"{sweep_build_line(r['build'])}")
             print(f"phase {kname} [{tag_name} cell_dim={cdim} C={C} N={N}]: "
-                  f"max_abs_err={r['max_abs_err']:.3e} "
-                  f"bound_share={r['bound_share']:.3f} "
-                  f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f}",
+                  f"max_abs_err={ea:.3e} bound_share={er:.3f} two calls "
+                  f"bit-identical; kernel_ms={r['ms']:.4f} "
+                  f"plain_ms={r['plain_ms']:.4f} "
+                  f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']})" + extra,
                   flush=True)
-        for kname, (b_ms, b_by) in lj_bounds(pos.reshape(-1, C, 3),
-                                             tag.reshape(-1, C), cdim, sh,
-                                             N, 4).items():
-            if kname in row:
-                row[kname].update(bound_ms=b_ms, bound_by=b_by)
         results[tag_name] = row
     return results['bench']
 
@@ -567,7 +594,8 @@ def eval_params(name, dev):
 def eval_kernel_phases(dev):
     """Per evaluator, at the bench fill: cell_pair_plane,
     cell_pair_planar and cell_step_plane_planes (NVE) against their plain
-    versions, element by element with the evaluator's ATOL, and each
+    versions, element by element with the evaluator's ATOL (the plane
+    and planar kernels also against a second call bit for bit), and each
     kernel's CUDA-event time (the megastep's: megastep_phases)."""
     import torch
     from hoomd_tpu_torch.ops import cell_pair as cp
@@ -614,6 +642,10 @@ def eval_kernel_phases(dev):
                 ea, _ = compare(label, [
                     (lab, g, w, RTOL, atol)
                     for lab, g, w in zip(('F', 'pe', 'virial'), got, want)])
+                again = kern()
+                if not same_bits(got, again if isinstance(again, tuple)
+                                 else (again,)):
+                    raise RuntimeError(f"{label}: two calls differ")
             row[kname] = dict(max_abs_err=ea, ms=cuda_ms(kern, 20))
         rows[name] = row
         print(f"phase evaluator {name} [bench cell_dim={cdim} C={C} N={N}] "
@@ -1157,26 +1189,22 @@ def bench_fill(dev):
 
 def lj_cases(dev):
     """parent_sweep_lj_phase's cases of cell_pair_impls.cu at the bench
-    shape: row 4 (cell_pair_lj) the parent's bits, rows 5
-    (cell_pair_lj_pallas3d) and 6 (cell_pair_lj_row, the parent's kernel
-    at its own wrapper's tile width) within RTOL and ATOL of the
-    parent's, row 6 also two calls with equal bits."""
+    shape: rows 4 (cell_pair_lj), 5 (cell_pair_lj_pallas3d) and 6
+    (cell_pair_lj_row, the parent's kernel at its own wrapper's tile
+    width) the parent's bits, row 6 also two calls with equal bits."""
     from hoomd_tpu_torch.ops import cell_pair as cp
     b = bench_fill(dev)
     pos, tag = b.carry.pos, b.carry.tag
 
-    def bits(got, want):
-        if not same_bits(got, want):
-            raise RuntimeError("the new design differs from the parent's")
-        return "the parent's bits"
-
-    def close(row, call=None):
+    def bits(call=None):
         def check(got, want):
-            compare(f"row {row}: new design against the parent's",
-                    [('F', got, want, RTOL, ATOL)])
-            if call is not None and not same_bits((got,), (call(),)):
-                raise RuntimeError(f"row {row}: two calls differ")
-            return "within RTOL and ATOL of the parent's" + (
+            got, want = (x if isinstance(x, tuple) else (x,)
+                         for x in (got, want))
+            if not same_bits(got, want):
+                raise RuntimeError("the new design differs from the parent's")
+            if call is not None and not same_bits(got, (call(),)):
+                raise RuntimeError("two calls differ")
+            return "the parent's bits" + (
                 "; two calls with equal bits" if call else "")
         return check
 
@@ -1187,34 +1215,30 @@ def lj_cases(dev):
         ('4 bench', f"row 4 (cell_pair_lj, {b.where})", cp,
          [lambda: cp.cell_pair_lj(pos, b.adj, b.sh, b.ljv,
                                   ncells=pos.shape[0], C=b.C, cell_tag=tag)],
-         bits),
+         bits()),
         ('5 bench', f"row 5 (cell_pair_lj_pallas3d, {b.where})", cp,
          [lambda: cp.cell_pair_lj_pallas3d(pos, b.cdim, b.sh, b.ljv, C=b.C,
                                            cell_tag=tag)],
-         close(5)),
+         bits()),
         ('6 bench', f"row 6 (cell_pair_lj_row, {b.where}, tiles of "
-         f"{cp.row_tile(b.cdim[0], b.C)} cells)", cp, [row6], close(6, row6),
+         f"{cp.row_tile(b.cdim[0], b.C)} cells)", cp, [row6], bits(row6),
          ('row_tile',))]
 
 
 def step_cases(dev):
     """parent_sweep_lj_phase's cases of cell_step.cu: the fused step
     (cell_step_plane_planes) at the bench fill, LJ NVT (fast reciprocal),
-    LJ NVE (exact divide) and mie: positions and md2 the parent's bits,
-    velocities and forces within RTOL and ATOL, ke2 within rtol 1e-5."""
+    LJ NVE (exact divide) and mie: positions, velocities, forces, ke2
+    and md2 the parent's bits."""
     import torch
     from hoomd_tpu_torch.ops import cell_pair as cp
     b = bench_fill(dev)
 
     def check(got, want):
-        if not same_bits((got[0], got[4]), (want[0], want[4])):
-            raise RuntimeError("positions or md2 differ from the parent's")
-        compare("row 8: new design against the parent's",
-                [('vel', got[1], want[1], RTOL, ATOL),
-                 ('frc', got[2], want[2], RTOL, ATOL),
-                 ('ke2', got[3], want[3], 1e-5, 0.0)])
-        return ("positions and md2 the parent's bits, velocities and forces "
-                "within RTOL and ATOL, ke2 within 1e-5")
+        if not same_bits(got, want):
+            raise RuntimeError("an output differs from the parent's")
+        return ("positions, velocities, forces, ke2 and md2 the parent's "
+                "bits")
     out = []
     for key, name, recip, s in (
             ('nvt', 'lj', 'approx', float(np.exp(-0.0025 * 0.2))),
@@ -1253,6 +1277,59 @@ def candidate_cases(dev):
              [lambda: cp.mega_candidates(b.gr, b.gt, b.cdim, b.sh, b.pads,
                                          float(b.ljv[2]), C=b.C)],
              lists)]
+
+
+def pair_cases(dev):
+    """parent_sweep_lj_phase's cases of cell_pair.cu beside the candidate
+    build: rows 3 (cell_pair_planar: F, PE and virial) and 2
+    (cell_pair_plane: F; lj also with the fast reciprocal) for every
+    evaluator, each on the ragged, 2x2x2 and bench fills, every output
+    the parent's bits; each case's last call (the bench fill) is timed
+    in turns."""
+    import torch
+    from hoomd_tpu_torch.ops import cell_pair as cp
+    fills = []
+    for shape in ('ragged', '2x2x2', 'bench'):
+        dims, cdim, C = SHAPES[shape]
+        carry, L, _, _ = lattice_cells(dims, cdim, C, 0.1, 3, dev)
+        sh = torch.as_tensor(cp.build_cell_shifts(cdim, L)[1],
+                             dtype=torch.float32, device=dev)
+        fills.append((carry.pos, cdim, sh, C, carry.tag))
+
+    def bits(got, want):
+        got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
+        if not same_bits(got, want):
+            n = [int((g.view(torch.int32) != w.view(torch.int32)).sum())
+                 for g, w in zip(got, want)]
+            raise RuntimeError("differs from the parent's in " + ', '.join(
+                f"{k} elements of {lab}"
+                for k, lab in zip(n, ('F', 'PE', 'the virial'))))
+        return "every output the parent's bits"
+    cases = []
+    for name in ('lj',) + tuple(EVAL_JOBS):
+        if name == 'lj':
+            pv, ek = lj_params(dev)[0], {}
+        else:
+            pv, pn, _ = eval_params(name, dev)
+            ek = dict(eval_name=name, pnames=pn)
+        rows = [('3', cp.cell_pair_planar, {}), ('2', cp.cell_pair_plane, {})]
+        if name == 'lj':
+            rows.append(('2', cp.cell_pair_plane, dict(recip='approx')))
+        for row, fn, kw in rows:
+            calls = [lambda f=f, fn=fn, kw=kw, pv=pv, ek=ek:
+                     fn(*f[:3], pv, C=f[3], cell_tag=f[4], **ek, **kw)
+                     for f in fills]
+            what = f"{name}{' ' + kw['recip'] if kw else ''}"
+            cases.append((f'{row} {what}', f"row {row} ({fn.__name__} "
+                          f"{what}; ragged, 2x2x2, bench fills)", cp, calls,
+                          bits))
+    return cases
+
+
+def cell_pair_cases(dev):
+    """parent_sweep_lj_phase's cases of cell_pair.cu: the candidate build
+    (candidate_cases), then rows 2 and 3 (pair_cases)."""
+    return candidate_cases(dev) + pair_cases(dev)
 
 
 def rebin_cases(dev):
@@ -1305,8 +1382,9 @@ PARENT_KERNELS = (
     ('cell_pair_impls', ('hoomd_cell_pair_lj', 'hoomd_cell_pair_lj3d',
                          'hoomd_cell_pair_lj_row'),
      ('lj_adj_kernel', 'lj_row_kernel'), lj_cases),
-    ('cell_pair', ('hoomd_mega_candidates',), ('mega_candidates_kernel',),
-     candidate_cases),
+    ('cell_pair', ('hoomd_mega_candidates', 'hoomd_cell_pair_plane',
+                   'hoomd_cell_pair_planar'),
+     ('mega_candidates_kernel', 'pair_walk_kernel'), cell_pair_cases),
     ('cell_step', ('hoomd_step_plane',), ('step_plane_kernel', 'step_finish'),
      step_cases),
     ('cell_rebin', ('hoomd_rebin_sweep', 'hoomd_rebin_place'),
@@ -1513,20 +1591,20 @@ def window_torch_calls(dev, nw=8):
 
 
 def parent_megastep_phase(dev, src='scratch/parent_megastep'):
-    """Where a copy of the parent's cell_pair.cu and cell_stencil.cuh lies
-    in ``src`` (an ignored directory; the checkout has none): build it
-    under another library name and hold the parent's megastep (one launch
-    per step phase) against the new one at the bench fill, from the same
-    prepared buffers: their bits for every pair evaluator, method and k in
-    (1, 4) on windows within the guard, and the time of an LJ NVT k = 4
-    window (restore the start state, launch) in turns, parent, new, new,
-    parent.  One more LJ window trips the guard in its first step: past
-    the trip the new kernel walks every staged slot, as the parent did,
-    so it gives the parent's bits there too."""
+    """Where a copy of the parent's cell_pair.cu and the headers it
+    includes lies in ``src`` (an ignored directory; the checkout has
+    none): build it under another library name and hold the parent's
+    megastep against the new one at the bench fill, each run through
+    megastep_window on its own library (on_parent) from the same prepared
+    buffers and candidate set: their bits for every pair evaluator,
+    method and k in (1, 4) on windows within the guard, and the time of
+    an LJ NVT k = 4 window (restore the start state, launch) in turns,
+    parent, new, new, parent.  One more LJ window trips the guard in its
+    first step: past the trip both walk every staged slot."""
     import ctypes
     import torch
     from pathlib import Path
-    from hoomd_tpu_torch.ops import _build, pair_eval
+    from hoomd_tpu_torch.ops import _build
     from hoomd_tpu_torch.ops import cell_pair as cp
     d = Path(src)
     if not (d / 'cell_pair.cu').exists():
@@ -1538,25 +1616,22 @@ def parent_megastep_phase(dev, src='scratch/parent_megastep'):
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, '-o', str(lib_path),
                     str(d / 'cell_pair.cu')], check=True, capture_output=True,
                    timeout=600)
-    lib = ctypes.CDLL(str(lib_path))
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.hoomd_megastep.argtypes = [P] * 9 + [I] + [P] * 5 + [I] * 8 + [P]
-    lib.hoomd_megastep.restype = I
+    fn = ctypes.CDLL(str(lib_path)).hoomd_megastep
+    fn.argtypes = _build._SIGNATURES['hoomd_megastep']
+    fn.restype = ctypes.c_int
+    own = cp._kernel_lib()
+    parent_lib = _build.KernelLibrary(
+        types_ns(**{**vars(own.lib), 'hoomd_megastep': fn}), own.paths, 0.0,
+        '')
     print(f"parent megastep built in {time.perf_counter() - t0:.1f} s",
           flush=True)
     dims, cdim, C = SHAPES['bench']
-    nx, ny, nz = cdim
     carry, L, N, _ = lattice_cells(dims, cdim, C, 0.1, 3, dev)
     _, sh = cp.build_cell_shifts(cdim, L)
     sh = torch.as_tensor(sh, dtype=torch.float32, device=dev)
     skin = torch.as_tensor(np.maximum(L / np.asarray(cdim) - 2.5, 0.4),
                            dtype=torch.float32, device=dev)
-    M = carry.tag.numel()
-    nb = -(-M // 256)
-    stream = torch.cuda.current_stream().cuda_stream
     gen = torch.Generator(device=dev).manual_seed(5)
-    dpart = torch.empty((nb * 9,), device=dev)
-    kpart = torch.empty((max(nb, nx * ny * nz),), device=dev)
     sc0 = torch.tensor([0.1, 0.0, 0.0, 0.0], device=dev)
     result, same, differ = {}, 0, []
     for name in ('lj',) + tuple(EVAL_JOBS):
@@ -1565,8 +1640,6 @@ def parent_megastep_phase(dev, src='scratch/parent_megastep'):
         else:
             pv, pn, _ = eval_params(name, dev)
             ek = dict(eval_name=name, pnames=pn)
-        npn = len(ek.get('pnames', cp.LJ_PNAMES))
-        ev = pair_eval.EVAL_IDS[name]
         st = plane_state(carry, cdim, C, sh, pv, ek)
         gt = st['gt'].to(torch.int32).contiguous()
         gw, gm = st['gw'].contiguous(), st['gm'].contiguous()
@@ -1600,26 +1673,16 @@ def parent_megastep_phase(dev, src='scratch/parent_megastep'):
                 f.copy_(st['gf'])
                 sc.copy_(sc0)
 
-            def parent():
-                restore('parent')
-                p, v, f, sc = bufs['parent']
-                err = lib.hoomd_megastep(
-                    p.data_ptr(), v.data_ptr(), f.data_ptr(),
-                    gw.data_ptr(), gm.data_ptr(), gr.data_ptr(),
-                    gt.data_ptr(), ws.shift.data_ptr(), ws.mp.data_ptr(),
-                    npn, sc.data_ptr(), kt.data_ptr(),
-                    noise.data_ptr() if noise is not None else None,
-                    dpart.data_ptr(), kpart.data_ptr(), nx, ny, nz, C, k,
-                    cp._METHODS[method], ev, ws.approx, stream)
-                if err:
-                    raise RuntimeError(f"parent hoomd_megastep: CUDA "
-                                       f"error {err}")
-
-            def new():
-                restore('new')
-                p, v, f, sc = bufs['new']
+            def window(who):
+                restore(who)
+                p, v, f, sc = bufs[who]
                 cp.megastep_window(p, v, f, gw, gm, gt, cand, ws, sc, kt,
                                    noise)
+
+            parent = on_parent(cp, parent_lib, lambda: window('parent'))
+
+            def new():
+                window('new')
             parent()
             new()
             torch.cuda.synchronize()
@@ -1823,7 +1886,7 @@ def fused_job():
 # the kernel of its steps
 IMPL_KERNELS = {'planar_n3l': 'cell_pair_planar_n3l', 'pallas': 'cell_pair_lj',
                 'pallas3d': 'cell_pair_lj_pallas3d',
-                'row': 'cell_pair_lj_row'}
+                'row': 'cell_pair_lj_row', 'planar': 'cell_pair_planar'}
 # the other impls' kernels whose build impl_kernel_phases reads, by the
 # occupancy entry point of their library (called with C, and the row
 # kernel's with its tile width too)
@@ -2492,7 +2555,7 @@ def impl_job(impl, mega=None):
             raise RuntimeError(f"the {what} never launched {kname}")
         if counts['cell_megastep_planes'] or fast['mega']:
             raise RuntimeError(f"the {what} ran the megastep")
-        gate = 'xsel' if impl in ('plane', 'planar_n3l') else 'sort'
+        gate = 'xsel' if impl in ('plane', 'planar', 'planar_n3l') else 'sort'
         # an xsel strike sorts until 8 clean segments have passed
         if not (fast['rebin_impl'] == gate
                 or (gate == 'xsel' and system._grow.get('fast_rebin_sort'))):
@@ -3930,7 +3993,10 @@ def occ_build(entry, *args):
     modular-indexed one (hoomd_cell_pair_lj3d_occupancy, C), the row
     kernel (hoomd_cell_pair_lj_row_occupancy, C, tile width), the
     candidate build (hoomd_mega_candidates_occupancy, nx, C), the fused
-    step (hoomd_step_plane_occupancy, evaluator id, approx, nx, C)."""
+    step (hoomd_step_plane_occupancy, evaluator id, approx, nx, C), the
+    plane kernel (hoomd_cell_pair_plane_occupancy, evaluator id, approx,
+    nx, C) and the planar kernel (hoomd_cell_pair_planar_occupancy,
+    evaluator id, nx, C)."""
     import ctypes
     from hoomd_tpu_torch.ops import _build
     lib = _build.load()
@@ -4082,9 +4148,12 @@ def main():
     rebuild_phase(system, parent_lib)
     for name in ('cell_rebin_select', 'cell_rebin_serial'):
         launches[name] = counts[name]
+    # the plane and planar kernels' launches: the jobs that run them every
+    # step (the bench job launches them at thermo reads and single steps)
     for impl, kname in IMPL_KERNELS.items():
         launches[kname] = impl_job(impl)[kname]
-    impl_job('plane', mega='off')
+    launches['cell_pair_plane'] = impl_job('plane', mega='off')[
+        'cell_pair_plane']
     launches['cell_step_plane_planes'] = fused_job()['cell_step_plane_planes']
     for name in EVAL_JOBS:
         eval_job(name)

@@ -12,17 +12,26 @@
 // (the JAX engine's FAST_EVALS), picked by the evaluator id the host
 // passes; its parameters are the vector [rc2, e_shift, *pnames].
 //
-// What bounds them on this card: the stencil is arithmetic on shared
-// memory.  At the 64k LJ bench shape (2352 cells, C = 40) a full step visits
-// 2352 * 40 * 1080 = 102M candidate pairs, about 20 flops each, against
-// 18 MB of state traffic, so the pair loop is FP32-issue bound, not
-// memory bound; the evaluators other than lj add a sqrtf and an expf or
-// powf per pair inside r_cut.  The design keeps it simple and right: one block per
-// cell, shared-memory broadcast of the staged candidates, no atomics (a
-// pair is evaluated from both sides, like the TPU's full stencil), so
-// the sums are deterministic.  Unused lanes (C rounded up to a warp)
-// and the full rather than half stencil are the known costs, left to
-// later work.
+// What bounds them on this card: the pair loop.  At the 64k LJ bench
+// shape (2352 cells, C = 40) a particle has ~730 live candidates in its 27
+// cells and ~55 of them inside r_cut, ~20 flops per candidate against a
+// few MB of state, so the fp32 issue rate, not memory; the evaluators
+// other than lj add a sqrtf and an expf or powf per pair inside r_cut.
+//
+// The plane and planar kernels run on the warp walk of cell_walk.cuh: a
+// block per tile of tx <= PAIR_TILE cells of an x-row stages the tile's
+// union (9 (dz, dy) rows of tx + 2 cells) once, compacted to the live
+// slots, with a box per union cell; a warp per home walks the union cells
+// inside its cut, lists the pairs inside it by ballot and evaluates them 32
+// at a time with the warp converged, so an evaluator pays its
+// transcendentals only inside the cut.  The sums are ordered: lane a folds
+// sum a over each batch, oldest pair first, with the first design's
+// per-pair operations, so every slot's sums are that design's bits (a block
+// per cell and a thread per slot walking all 27 C staged slots, padding
+// included, serially, each thread's in-cut branch diverging across its
+// warp); the bench job's trajectory rests on those bits.  Padding slots get
+// zero outputs, as they did.  No atomics: a pair is evaluated from both
+// sides, like the TPU's full stencil.
 //
 // The TPU megastep holds the whole state in VMEM with no grid.  Here a
 // window of k steps is ONE cooperative launch (hoomd_megastep): its
@@ -46,58 +55,108 @@
 
 #include <algorithm>
 
-#include "cell_tile.cuh"
+#include "cell_walk.cuh"
+
+// Cells per tile at most (chosen by timing at the bench plan:
+// profile_torch_bench.py tiles builds the other widths with -DPAIR_TILE=n)
+#ifndef PAIR_TILE
+#define PAIR_TILE 2
+#endif
 
 namespace cg = cooperative_groups;
 
 namespace hoomd_torch {
 
 // ---------------------------------------------------------------------------
-// cell_pair_plane / cell_pair_planar
+// cell_pair_plane / cell_pair_planar: a tile of tx <= TX cells of an x-row
+// (grid: tiles, ny, nz), the union staged once (cell_tile.cuh stage_union,
+// each union cell under the shift of the home cells that reach it; on a
+// grid 1 or 2 cells wide a cell of a row is two or three union cells),
+// compacted, with each union cell's box; the homes are the tile's live
+// slots (pack_homes), a warp per home (walk_home, ordered).  A home's own
+// coordinates are its staged entry (row (0, 0), union cell lc + 1, its
+// rank among its cell's live slots), the first design's x_i, and that
+// entry is the self pair.  Lane a of the home's warp writes output a: F
+// (3); PV: PE and the virial, halved.  pos and frc are strided (Vec3).
 
 template <int EV, bool APPROX, bool PV>
-__global__ void cell_pair_kernel(const Vec3 pos, const int* __restrict__ tag,
-                                 const float* __restrict__ shifts,
-                                 const float* __restrict__ par, const int np, const Geom g,
-                                 Vec3 frc, float* __restrict__ pe, float* __restrict__ vir) {
-    extern __shared__ float smem[];
-    const int n = 27 * g.C;
-    float* sx = smem;
-    float* sy = sx + n;
-    float* sz = sy + n;
-    unsigned char* sv = reinterpret_cast<unsigned char*>(sz + n);
-    const int cell = blockIdx.x;
-    stage_stencil(pos, tag, shifts, g, cell, sx, sy, sz, sv);
+__global__ void __launch_bounds__(kWalkWarps * 32)
+    pair_walk_kernel(const Vec3 pos, const int* __restrict__ tag,
+                     const float* __restrict__ shifts, const float* __restrict__ par,
+                     const int np, const Geom g, const int TX, const Vec3 frc,
+                     float* __restrict__ pe, float* __restrict__ vir) {
+    extern __shared__ float4 smem4[];
+    const int C = g.C;
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    const WalkSmem S = walk_smem(smem4, TX, C);
+    const Tile t = tile_of_block(g, TX);
+    const long long cell0 = (long long)t.x0 + g.nx * (t.iy + (long long)g.ny * t.iz);
+    for (int q = threadIdx.x; q < t.tx * C; q += blockDim.x) {   // the padding slots' outputs
+        const long long slot = cell0 * C + q;
+        if (tag[slot] >= 0) continue;
+        for (int a = 0; a < 3; ++a) frc.at(slot, a) = 0.0f;
+        if (PV) {
+            pe[slot] = 0.0f;
+            for (int c = 0; c < 6; ++c) vir[slot * 6 + c] = 0.0f;
+        }
+    }
+    pack_homes(tag, g, t, S.hslot, S.hstart);
+    const int nh = S.hstart[t.tx];
+    if (nh == 0) return;                        // the whole block: no live home
+    stage_union(tag, shifts, g, t, 0, 9, S.off,
+                [&](const int idx, const int, const int, const long long sl, const float* sh) {
+                    S.ent[idx] = make_float4(pos.at(sl, 0) + sh[0], pos.at(sl, 1) + sh[1],
+                                             pos.at(sl, 2) + sh[2], 0.0f);
+                });
+    stage_boxes(9 * t.W, S.ent, S.off, S.box);
     __syncthreads();
-    const int i = threadIdx.x;
-    if (i >= g.C) return;
     const PairPar P = load_pair_par(par, np);
-    float acc[10] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    const int ic = 13 * g.C + i;
-    if (sv[ic])
-        stencil_sum<EV, APPROX, PV>(sx[ic], sy[ic], sz[ic], ic, n, sx, sy, sz, sv, P, acc);
-    const long long slot = (long long)cell * g.C + i;
-    frc.at(slot, 0) = acc[0];
-    frc.at(slot, 1) = acc[1];
-    frc.at(slot, 2) = acc[2];
-    if (PV) {
-        pe[slot] = 0.5f * acc[3];
-        for (int c = 0; c < 6; ++c) vir[slot * 6 + c] = 0.5f * acc[4 + c];
+    float4* L = S.lst + w * kWalkList;
+    for (int p = w; p < nh; p += kWalkWarps) {  // warp-uniform
+        const long long slot = S.hslot[p];
+        const int lc = home_cell(S.hstart, t.tx, p);
+        const int self = S.off[4 * t.W + lc + 1] + p - S.hstart[lc];
+        const float4 h = S.ent[self];
+        float acc;
+        walk_home<EV, APPROX, PV, true>(h.x, h.y, h.z, self, S.ent, S.box, S.off, t.W, lc, P,
+                                        L, &acc);
+        if (lane < 3) frc.at(slot, lane) = acc;
+        if (PV && lane == 3) pe[slot] = 0.5f * acc;
+        if (PV && lane >= 4 && lane < 10) vir[slot * 6 + lane - 4] = 0.5f * acc;
+        __syncwarp();                           // the list is read before the next home
     }
 }
 
 template <int EV, bool APPROX, bool PV>
-static cudaError_t launch_cell_pair(const float* pos, long long pss, long long pcs,
+static cudaError_t launch_pair_walk(const float* pos, long long pss, long long pcs,
                                     const int* tag, const float* shifts, const float* par,
                                     int np, float* frc, long long fss, long long fcs,
                                     float* pe, float* vir, const Geom g, cudaStream_t st) {
-    const size_t smem = stencil_smem_bytes(g.C);
-    cudaError_t e = set_smem(cell_pair_kernel<EV, APPROX, PV>, smem);
+    const int tx = union_tile(g.nx, g.C, PAIR_TILE);
+    const size_t smem = walk_smem_bytes(tx, g.C);
+    cudaError_t e = set_smem(pair_walk_kernel<EV, APPROX, PV>, smem);
     if (e != cudaSuccess) return e;
-    cell_pair_kernel<EV, APPROX, PV><<<g.nx * g.ny * g.nz, threads_for(g.C), smem, st>>>(
-        Vec3{const_cast<float*>(pos), pss, pcs}, tag, shifts, par, np, g, Vec3{frc, fss, fcs},
-        pe, vir);
+    const dim3 grid((g.nx + tx - 1) / tx, g.ny, g.nz);
+    pair_walk_kernel<EV, APPROX, PV><<<grid, kWalkWarps * 32, smem, st>>>(
+        Vec3{const_cast<float*>(pos), pss, pcs}, tag, shifts, par, np, g, tx,
+        Vec3{frc, fss, fcs}, pe, vir);
     return cudaGetLastError();
+}
+
+// The build and occupancy of the plane (PV false) or planar (PV true)
+// kernel of evaluator ev at capacity C on a grid nx cells wide
+// (kernel_occupancy's out[5]) and its threads per block (out[5]).
+template <bool APPROX, bool PV>
+static int pair_walk_occupancy(const int ev, const int nx, const int C, int* out) {
+    out[5] = kWalkWarps * 32;
+    const size_t smem = walk_smem_bytes(union_tile(nx, C, PAIR_TILE), C);
+    if constexpr (APPROX)
+        return kernel_occupancy(pair_walk_kernel<EV_LJ, true, PV>, out[5], smem, out);
+    else
+        return dispatch_eval(ev, [&](auto t) {
+            return kernel_occupancy(pair_walk_kernel<decltype(t)::value, false, PV>, out[5],
+                                    smem, out);
+        });
 }
 
 // ---------------------------------------------------------------------------
@@ -720,10 +779,10 @@ int hoomd_cell_pair_plane(const float* pos, long long pss, long long pcs, const 
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const Geom g{nx, ny, nz, C};
     if (approx && ev == EV_LJ)
-        return launch_cell_pair<EV_LJ, true, false>(pos, pss, pcs, tag, shifts, par, np, frc,
+        return launch_pair_walk<EV_LJ, true, false>(pos, pss, pcs, tag, shifts, par, np, frc,
                                                    fss, fcs, nullptr, nullptr, g, st);
     return dispatch_eval(ev, [&](auto t) {
-        return launch_cell_pair<decltype(t)::value, false, false>(
+        return launch_pair_walk<decltype(t)::value, false, false>(
             pos, pss, pcs, tag, shifts, par, np, frc, fss, fcs, nullptr, nullptr, g, st);
     });
 }
@@ -735,9 +794,22 @@ int hoomd_cell_pair_planar(const float* pos, long long pss, long long pcs, const
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const Geom g{nx, ny, nz, C};
     return dispatch_eval(ev, [&](auto t) {
-        return launch_cell_pair<decltype(t)::value, false, true>(
+        return launch_pair_walk<decltype(t)::value, false, true>(
             pos, pss, pcs, tag, shifts, par, np, frc, 3, 1, pe, vir, g, st);
     });
+}
+
+// The build and occupancy of the plane kernel of evaluator ev (approx:
+// lj's fast reciprocal) at capacity C on a grid nx cells wide
+// (kernel_occupancy's out[5]) and its threads per block (out[5]).
+int hoomd_cell_pair_plane_occupancy(int ev, int approx, int nx, int C, int* out) {
+    return approx && ev == EV_LJ ? pair_walk_occupancy<true, false>(ev, nx, C, out)
+                                 : pair_walk_occupancy<false, false>(ev, nx, C, out);
+}
+
+// The same for the planar kernel (exact divide).
+int hoomd_cell_pair_planar_occupancy(int ev, int nx, int C, int* out) {
+    return pair_walk_occupancy<false, true>(ev, nx, C, out);
 }
 
 // k velocity-Verlet steps on plane-layout state (3, nz, ny, nx, C),

@@ -8,13 +8,10 @@
 // force (and, when asked, the half-pair energy and virial) against every
 // particle of the 27 surrounding cells, each neighbour cell carrying the
 // periodic image shift of build_cell_shifts.  It does not copy their
-// plane windows or lane rolls.
-//
-// Layout: one thread block per home cell, thread i owns slot i.  The
-// block stages the 27 neighbour cells (coordinates plus shift, and a
-// validity byte) into shared memory — 27*C*13 bytes, 14 KB at C = 40 —
-// and every thread walks the 27*C candidates in the same order, so each
-// shared-memory read is a broadcast.
+// plane windows or lane rolls.  Here: the pair evaluators (eval_pair),
+// one candidate's terms (pair_acc), a mixture's per-pair table, fixed-order
+// reductions and host helpers; the kernels stage and walk the cells
+// themselves (cell_tile.cuh, cell_walk.cuh, the megastep in cell_pair.cu).
 //
 // Rules kept from the JAX kernels, and made explicit:
 //   * validity comes from tag >= 0, never from coordinate magnitude, so
@@ -49,11 +46,6 @@ struct Geom {
     int nx, ny, nz, C;
 };
 
-// Shared-memory bytes one block of the stencil needs.
-__host__ __device__ inline size_t stencil_smem_bytes(int C) {
-    return (size_t)27 * C * (3 * sizeof(float) + 1);
-}
-
 // Slot of entry k (build_cell_shifts order: (dz, dy, dx), dx fastest) of
 // the stencil of `cell`, and the shift it is seen under.
 __device__ __forceinline__ long long stencil_slot(const Geom g, const int cell, const int k,
@@ -65,23 +57,6 @@ __device__ __forceinline__ long long stencil_slot(const Geom g, const int cell, 
     const int jy = (iy + (k / 3) % 3 - 1 + g.ny) % g.ny;
     const int jz = (iz + k / 9 - 1 + g.nz) % g.nz;
     return (long long)(jx + g.nx * (jy + g.ny * jz)) * g.C + s;
-}
-
-// Stage the 27 neighbour cells of `cell` into sx/sy/sz/sv.
-__device__ inline void stage_stencil(const Vec3 pos, const int* __restrict__ tag,
-                                     const float* __restrict__ shifts, const Geom g,
-                                     const int cell, float* sx, float* sy, float* sz,
-                                     unsigned char* sv) {
-    const int n = 27 * g.C;
-    for (int t = threadIdx.x; t < n; t += blockDim.x) {
-        const int k = t / g.C;
-        const long long slot = stencil_slot(g, cell, k, t - k * g.C);
-        const float* sh = shifts + ((long long)cell * 27 + k) * 3;
-        sx[t] = pos.at(slot, 0) + sh[0];
-        sy[t] = pos.at(slot, 1) + sh[1];
-        sz[t] = pos.at(slot, 2) + sh[2];
-        sv[t] = tag[slot] >= 0;
-    }
 }
 
 // ---------------------------------------------------------------------------
@@ -266,20 +241,6 @@ __device__ __forceinline__ void pair_acc(const float dx, const float dy, const f
         acc[7] += fdivr * dy * dy;
         acc[8] += fdivr * dy * dz;
         acc[9] += fdivr * dz * dz;
-    }
-}
-
-// Sum over the n staged candidates for the slot at (xi, yi, zi), skipping
-// the invalid ones and the candidate `self` (-1: none); acc as pair_acc's,
-// energy and virial for the caller to halve.
-template <int EV, bool APPROX, bool PV>
-__device__ inline void stencil_sum(const float xi, const float yi, const float zi,
-                                   const int self, const int n, const float* sx,
-                                   const float* sy, const float* sz,
-                                   const unsigned char* sv, const PairPar& P, float* acc) {
-    for (int t = 0; t < n; ++t) {
-        if (!sv[t] || t == self) continue;
-        pair_acc<EV, APPROX, PV>(xi - sx[t], yi - sy[t], zi - sz[t], P, acc);
     }
 }
 

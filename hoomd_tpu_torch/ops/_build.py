@@ -37,6 +37,8 @@ _SIGNATURES = {
                               I, I, P],
     'hoomd_cell_pair_planar': [P, LL, LL, P, P, P, I, P, P, P, I, I, I, I, I,
                                P],
+    'hoomd_cell_pair_plane_occupancy': [I, I, I, I, P],
+    'hoomd_cell_pair_planar_occupancy': [I, I, I, P],
     'hoomd_megastep': [P, P, P, P, P, P, P, P, P, I, P, P, P, P, P, I, P,
                        P, I, I, I, I, I, I, I, I, P],
     'hoomd_mega_candidates': [P, P, P, F, F, F, F, P, P, I, I, I, I, I, P],

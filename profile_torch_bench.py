@@ -14,7 +14,9 @@ NVIDIA GPU.
     python3 profile_torch_bench.py pppm-nve 16 32 [cpu]  # its NVE drift
     python3 profile_torch_bench.py pppm-mesh # the mesh's two formulations
     python3 profile_torch_bench.py tiles     # the tile kernels' tile widths
+    python3 profile_torch_bench.py tiles union   # those on a tile's union
     python3 profile_torch_bench.py rebin     # the migration kernels' tiles
+    python3 profile_torch_bench.py designs   # rows 2 and 3: walk, typed kernel
     python3 profile_torch_bench.py ka-bits [TREE]  # the KA job's end bits
     python3 profile_torch_bench.py sweeps [TREE]   # the HPMC sweeps' times
     python3 profile_torch_bench.py jobs [TREE] [JOB ...]  # jobs through TREE
@@ -73,8 +75,13 @@ formulation on random neutral clouds at config 4's density, at config
 4's size and past the dense gate, by CUDA events.  With ``tiles`` it
 times the typed planar kernel and the half stencil (csrc/cell_tile.cuh)
 at tile widths of 1 to 6 cells: rows 3t and 7t at the KA shape with the
-KA table, row 7 at the bench shape; then the row-blocked LJ kernel (row
-6) and the fused step (row 8) at the bench shape, 1 to 7 cells.  With
+KA table, row 7 at the bench shape; then the kernels on a tile's union
+at the bench shape, 1 to 7 cells: the planar and plane kernels (rows 3
+and 2), the row-blocked LJ kernel (row 6) and the fused step (row 8);
+with ``tiles union`` only the latter.  With
+``designs`` it times the two designs that sum rows 2 and 3 in their
+first design's order, the ordered warp walk and the typed tile kernel at
+one type, in turns at the bench fill (ordered_designs).  With
 ``rebin`` it times the migration sweep (row 10) at each tile of
 REBIN_TILES and the z place (row 11) at each of REBIN_PLACE_CELLS cells per
 block, on the bench fill drifted by up to 0.45 w and by up to 0.1 w, by
@@ -84,11 +91,13 @@ default this checkout) and prints T and PE/N at the end of its NVT
 window exactly; chip_smoke.py's KA_PARENT_T and KA_PARENT_PE come from
 it on the tree of the parent design.  With ``jobs [TREE] [JOB ...]`` it
 runs chip_smoke.py's jobs named (JOBS: ``sphere`` and ``cube``, the HPMC
-jobs; ``pallas``, ``pallas3d``, ``row``, ``planar_n3l``, the impl jobs'
-HOOMD_TPU_FAST_IMPL paths; ``fused``, the HOOMD_TPU_FUSED=on NVT job and
-its NVE continuation; ``bench``, the bench job with its warmup and one
-timed 3000-step window; ``migration``, the HOOMD_TPU_REBIN=pallas job
-(chip_smoke.py rebin_job) and a timed 1000-step window on the migration
+jobs; ``pallas``, ``pallas3d``, ``row``, ``planar_n3l``, ``planar``, the
+impl jobs' HOOMD_TPU_FAST_IMPL paths; ``plane_mega_off``, plane with
+HOOMD_TPU_MEGA=off, every step a single step on the plane kernel;
+``fused``, the HOOMD_TPU_FUSED=on NVT job and its NVE continuation;
+``bench``, the bench job with its warmup and one timed 3000-step window;
+``migration``, the HOOMD_TPU_REBIN=pallas job (chip_smoke.py rebin_job)
+and a timed 1000-step window on the migration
 rebin; by default sphere, cube, pallas) through the
 hoomd_tpu_torch of TREE, with their gates; run on two trees in turns, in
 separate processes, it compares their end-to-end numbers on one card.  With ``sweeps [TREE]`` it times
@@ -446,6 +455,76 @@ def profile_mesh(sizes=MESH_SIZES, dev=torch.device('cuda', 0)):
     print(json.dumps({'pppm_mesh_ms': res}), flush=True)
 
 
+def ordered_designs(dev=torch.device('cuda', 0), names=('lj', 'mie')):
+    """The two designs that sum rows 2 and 3 in their first design's order,
+    at the bench fill: the ordered warp walk (cell_pair_plane and
+    cell_pair_planar, csrc/cell_pair.cu) and the typed tile kernel at one
+    type (csrc/cell_pair_typed.cu with a (2 + np, 1, 1) table, its tiles
+    by cell_pair.pair_tile), in turns (walk, typed, typed, walk): ms per
+    wrapper call by CUDA events and device ms per recorded launch; F
+    alone (the plane kernel's exact divide: the typed kernel has no fast
+    reciprocal) and F, PE and virial; and whether the typed kernel gives
+    the walk's bits."""
+    import ctypes
+    from chip_smoke import (SHAPES, dev_fmt, device_kernels, eval_params,
+                            lattice_cells, lj_params, recorded_ms, same_bits)
+    from hoomd_tpu_torch.ops import cell_pair as cp
+    dims, cdim, C = SHAPES['bench']
+    carry, L, _, _ = lattice_cells(dims, cdim, C, 0.1, 3, dev)
+    sh = torch.as_tensor(cp.build_cell_shifts(cdim, L)[1], dtype=torch.float32,
+                         device=dev)
+    pos, tag = carry.pos, carry.tag
+    typ = torch.zeros_like(tag, dtype=torch.int32)
+    nc = pos.shape[0]
+    lib = cp._kernel_lib()
+    res = {}
+    for name in names:
+        if name == 'lj':
+            pv, ek = lj_params(dev)[0], {}
+            pn = cp.LJ_PNAMES
+        else:
+            pv, pn, _ = eval_params(name, dev)
+            ek = dict(eval_name=name, pnames=pn)
+        ev = cp.pair_eval.EVAL_IDS[name]
+        tx = cp.pair_tile(cdim[0], C, cp.PLANAR_TILE_SLOTS)
+        for pv_on in (False, True):
+            F = torch.empty_like(pos)
+            pe = torch.empty((nc, C), device=dev) if pv_on else None
+            vir = torch.empty((nc, C, 6), device=dev) if pv_on else None
+
+            def typed():
+                lib.check(lib.lib.hoomd_cell_pair_planar_typed(
+                    pos.data_ptr(), tag.data_ptr(), typ.data_ptr(),
+                    sh.data_ptr(), pv.data_ptr(), len(pn), 1, F.data_ptr(),
+                    pe.data_ptr() if pv_on else None,
+                    vir.data_ptr() if pv_on else None, *cdim, C, ev,
+                    int(pv_on), tx, torch.cuda.current_stream().cuda_stream),
+                    'typed kernel at T = 1')
+                return (F, pe, vir) if pv_on else (F,)
+            if pv_on:
+                walk = lambda: cp.cell_pair_planar(pos, cdim, sh, pv, C=C,
+                                                   cell_tag=tag, **ek)
+            else:
+                walk = lambda: (cp.cell_pair_plane(pos, cdim, sh, pv, C=C,
+                                                   cell_tag=tag, **ek),)
+            bits = same_bits(walk(), typed())
+            order = (walk, typed, typed, walk)
+            ms = [cuda_ms(f, 50) for f in order]
+            dv = [recorded_ms(device_kernels(f, 20))[0] for f in order]
+            key = f"{name} {'F, PE, virial' if pv_on else 'F'}"
+            res[key] = dict(walk_ms=ms[::3], typed_ms=ms[1:3],
+                            walk_device_ms=dv[::3], typed_device_ms=dv[1:3],
+                            typed_tile=tx, same_bits=bits)
+            print(f"ordered designs, {key} [bench cell_dim={cdim} C={C}]: "
+                  f"in turns walk, typed, typed, walk "
+                  f"{', '.join(f'{t:.4f}' for t in ms)} ms per call, device "
+                  f"{', '.join(dev_fmt(t) for t in dv)}"
+                  f"; the typed kernel (tiles of {tx}) "
+                  f"{'gives' if bits else 'does not give'} the walk's bits",
+                  flush=True)
+    print(json.dumps({'ordered_designs': res}), flush=True)
+
+
 def profile_tiles(widths=(1, 2, 3, 4, 5, 6), dev=torch.device('cuda', 0)):
     """The typed planar kernel and the half stencil (csrc/cell_tile.cuh)
     at each tile width: rows 3t and 7t at the KA shape with the KA table,
@@ -492,12 +571,15 @@ def profile_tiles(widths=(1, 2, 3, 4, 5, 6), dev=torch.device('cuda', 0)):
 
 
 def union_tiles(dev, widths=(1, 2, 3, 4, 5, 7)):
-    """The row-blocked LJ kernel (row 6) and the fused step (row 8, LJ
-    NVT), the two kernels on a tile's union (csrc/cell_walk.cuh), at the
-    bench shape and each tile width: ms per wrapper call by CUDA events
-    and device ms (per recorded launch, chip_smoke.py recorded_ms); row 6
-    through cell_pair.ROW_TILE, row 8 built once per width with
-    -DSTEP_TILE (csrc/cell_step.cu).  The widths taken marked."""
+    """The kernels on a tile's union (csrc/cell_walk.cuh): the planar
+    kernel (row 3, LJ), the plane kernel (row 2, LJ, fast reciprocal),
+    the row-blocked LJ kernel (row 6) and the fused step (row 8, LJ NVT),
+    at the bench shape and each tile width (1: the 27 cells of one cell):
+    ms per wrapper call by CUDA events and device ms (per recorded
+    launch, chip_smoke.py recorded_ms); rows 2 and 3 built once per width
+    with -DPAIR_TILE (csrc/cell_pair.cu), row 6 through cell_pair.ROW_TILE,
+    row 8 built once per width with -DSTEP_TILE (csrc/cell_step.cu).  The
+    widths taken marked."""
     from chip_smoke import (SHAPES, device_kernels, lattice_cells, lj_params,
                             plane_state, recorded_ms)
     from hoomd_tpu_torch.ops import cell_pair as cp
@@ -514,10 +596,22 @@ def union_tiles(dev, widths=(1, 2, 3, 4, 5, 7)):
         0.005, s, C=C, gt=st['gt'])
     row = lambda: cp.cell_pair_lj_row(carry.pos, cdim, sh, ljv, C=C,
                                       cell_tag=carry.tag)
+    planar = lambda: cp.cell_pair_planar(carry.pos, cdim, sh, pv, C=C,
+                                         cell_tag=carry.tag)
+    plane = lambda: cp.cell_pair_plane(carry.pos, cdim, sh, pv, C=C,
+                                       cell_tag=carry.tag, recip='approx')
     on = variant_calls('cell_step.cu', 'hoomd_step_plane',
                        {tx: [f'-DSTEP_TILE={tx}'] for tx in widths}, cp)
+    on_pair = variant_calls(
+        'cell_pair.cu', ('hoomd_cell_pair_plane', 'hoomd_cell_pair_planar'),
+        {tx: [f'-DPAIR_TILE={tx}'] for tx in widths}, cp)
     chosen = cp.ROW_TILE
-    res = {'6': {}, '8': {}}
+    res = {'3': {}, '2': {}, '6': {}, '8': {}}
+    for tx in widths:
+        for r, fn in (('3', planar), ('2', plane)):
+            call = on_pair[tx](fn)
+            res[r][tx] = (cuda_ms(call, 50),
+                          recorded_ms(device_kernels(call, 20))[0])
     try:
         for tx in widths:
             cp.ROW_TILE = tx
@@ -529,7 +623,9 @@ def union_tiles(dev, widths=(1, 2, 3, 4, 5, 7)):
         call = on[tx](step)
         res['8'][tx] = (cuda_ms(call, 50),
                         recorded_ms(device_kernels(call, 20))[0])
-    taken = {'6': chosen, '8': _step_tile()}
+    taken = {'3': _step_tile('cell_pair.cu', 'PAIR_TILE'),
+             '2': _step_tile('cell_pair.cu', 'PAIR_TILE'), '6': chosen,
+             '8': _step_tile()}
     for r, times in res.items():
         print(f"row {r} (cell_dim={cdim} C={C}): " + ', '.join(
             f"{tx} cells {ms:.4f} ms, device "
@@ -630,12 +726,13 @@ def rebin_host(cols, cdim, par, C, swept, emz, E=8):
     print(json.dumps({'rebin_host_ms': res}), flush=True)
 
 
-def _step_tile():
-    """STEP_TILE as csrc/cell_step.cu defines it."""
+def _step_tile(source='cell_step.cu', name='STEP_TILE'):
+    """The tile width csrc/<source> defines as ``name`` (STEP_TILE of
+    cell_step.cu, PAIR_TILE of cell_pair.cu)."""
     import re
     from hoomd_tpu_torch.ops import _build
-    src = (_build.SRC_DIR / 'cell_step.cu').read_text()
-    return int(re.search(r'#define STEP_TILE (\d+)', src).group(1))
+    src = (_build.SRC_DIR / source).read_text()
+    return int(re.search(rf'#define {name} (\d+)', src).group(1))
 
 
 def ka_bits(tree=None):
@@ -654,11 +751,12 @@ def ka_bits(tree=None):
         'PE_N': q['potential_energy'] / system.state.N}}), flush=True)
 
 
-# the jobs of ``jobs``: the HPMC jobs, the impl jobs' force paths, the
-# fused NVT + NVE job (HOOMD_TPU_FUSED=on), the bench job, the migration
-# rebin's job (HOOMD_TPU_REBIN=pallas)
-JOBS = ('sphere', 'cube', 'pallas', 'pallas3d', 'row', 'planar_n3l', 'fused',
-        'bench', 'migration')
+# the jobs of ``jobs``: the HPMC jobs, the impl jobs' force paths (and
+# plane with HOOMD_TPU_MEGA=off), the fused NVT + NVE job
+# (HOOMD_TPU_FUSED=on), the bench job, the migration rebin's job
+# (HOOMD_TPU_REBIN=pallas)
+JOBS = ('sphere', 'cube', 'pallas', 'pallas3d', 'row', 'planar_n3l', 'planar',
+        'plane_mega_off', 'fused', 'bench', 'migration')
 
 
 def bench_turn(card_name):
@@ -735,6 +833,8 @@ def job_times(tree=None, jobs=('sphere', 'cube', 'pallas')):
             fused_job()
         elif job == 'migration':
             migration_turn(c)
+        elif job == 'plane_mega_off':
+            impl_job('plane', mega='off')
         else:
             impl_job(job)
 
@@ -783,11 +883,13 @@ def variant_calls(source, entry, variants, mod):
     """csrc/<source> built once per variant (name -> nvcc -D switches),
     all in parallel, into the ignored build directory; returns, per
     variant, a function that runs a call with the wrapper module `mod`
-    bound to that build's C entry point `entry`."""
+    bound to that build's C entry point `entry` (a name, or a tuple of
+    names)."""
     import ctypes
     from types import SimpleNamespace
     from hoomd_tpu_torch.ops import _build
-    out_dir = _build.BUILD_DIR / f'variants_{entry}'
+    entries = (entry,) if isinstance(entry, str) else tuple(entry)
+    out_dir = _build.BUILD_DIR / f'variants_{entries[0]}'
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {k: subprocess.Popen(
         [_build._nvcc(), *_build.NVCC_FLAGS, *flags, '-o',
@@ -801,11 +903,14 @@ def variant_calls(source, entry, variants, mod):
     lib = mod._kernel_lib()
     libs = {}
     for i, k in enumerate(variants):
-        fn = getattr(ctypes.CDLL(str(out_dir / f'lib{i}.so')), entry)
-        fn.argtypes = _build._SIGNATURES[entry]
-        fn.restype = ctypes.c_int
+        so = ctypes.CDLL(str(out_dir / f'lib{i}.so'))
+        fns = {}
+        for e in entries:
+            fns[e] = getattr(so, e)
+            fns[e].argtypes = _build._SIGNATURES[e]
+            fns[e].restype = ctypes.c_int
         libs[k] = _build.KernelLibrary(
-            SimpleNamespace(**{**vars(lib.lib), entry: fn}), lib.paths, 0.0, '')
+            SimpleNamespace(**{**vars(lib.lib), **fns}), lib.paths, 0.0, '')
 
     def on(k, call):
         def run():
@@ -941,8 +1046,17 @@ def main(argv):
         sweep_times(argv[2] if len(argv) > 2 else None)
         return
     if argv[1:2] == ['tiles']:
+        # tiles [union]: every tile kernel, or those on a tile's union
         print('card:', card(), flush=True)
-        profile_tiles()
+        if argv[2:3] == ['union']:
+            res = union_tiles(torch.device('cuda', 0))
+            print(json.dumps({'tile_ms': res}), flush=True)
+        else:
+            profile_tiles()
+        return
+    if argv[1:2] == ['designs']:
+        print('card:', card(), flush=True)
+        ordered_designs()
         return
     if argv[1:2] == ['rebin']:
         print('card:', card(), flush=True)

@@ -16,7 +16,9 @@ direct dr form keeps those digits.  Megastep positions to 1e-5 and the
 danger flag exactly.
 
 The cases marked ``gpu`` hold each CUDA kernel against its plain version
-on the card; they skip where torch sees no CUDA device.  This file
+on the card (the plane and planar kernels for every evaluator, on edge
+fills, narrow grids and at the rounded r^2 of r_cut, two calls with
+equal bits); they skip where torch sees no CUDA device.  This file
 imports jax only inside the JAX-side helpers, so the gpu cases also run
 where jax is not installed:
 
@@ -285,25 +287,85 @@ def cuda():
     return torch.device('cuda', 0)
 
 
+def _same_bits(a, b):
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+def _cuda_pair_calls(cuda, cell_pos, cell_tag, shifts, cell_dim, pv, ev,
+                     tol=1e-4):
+    """cell_pair_planar and cell_pair_plane (exact divide; lj also the
+    fast reciprocal) of the evaluator ``ev`` on the card, each twice,
+    against the plain version at rtol = 1e-4, atol = tol: equal bits from
+    the two calls, nothing on a padding slot, one launch counted per
+    call.  Returns the planar kernel's (F, pe, vir)."""
+    pos, tag, sh, par = (torch.as_tensor(x, device=cuda)
+                         for x in (cell_pos, cell_tag, shifts, pv))
+    args, C = (pos, cell_dim, sh, par), pos.shape[1]
+    want = tcp.cell_pair_planar_plain(*args, cell_tag=tag, **ev)
+    recips = ('div', 'approx') if ev['eval_name'] == 'lj' else ('div',)
+    n0, m0 = tcp.cell_pair_planar.launches, tcp.cell_pair_plane.launches
+    got = tcp.cell_pair_planar(*args, C=C, cell_tag=tag, **ev)
+    again = tcp.cell_pair_planar(*args, C=C, cell_tag=tag, **ev)
+    for g, a, w in zip(got, again, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=tol)
+        assert _same_bits(g, a)
+        assert not g[tag < 0].any()
+    for recip in recips:
+        f = tcp.cell_pair_plane(*args, C=C, cell_tag=tag, recip=recip, **ev)
+        f2 = tcp.cell_pair_plane(*args, C=C, cell_tag=tag, recip=recip, **ev)
+        torch.testing.assert_close(f, want[0], rtol=1e-4, atol=tol)
+        assert _same_bits(f, f2)
+        assert not f[tag < 0].any()
+    assert tcp.cell_pair_planar.launches == n0 + 2
+    assert tcp.cell_pair_plane.launches == m0 + 2 * len(recips)
+    return got
+
+
+# grids 1 or 2 cells wide along an axis, where a cell of the stencil is
+# seen under two or three image shifts (C = 33)
+NARROW = [(1, 3, 3), (2, 2, 3), (3, 1, 2)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize('cell_dim,seed', GRIDS)
-def test_cuda_pair_kernels_match_plain(cuda, cell_dim, seed):
-    C = 16
-    cell_pos, cell_tag, L, _ = _cells(cell_dim, 2.1, C, 1.25, seed)
-    _, shift = tcp.build_cell_shifts(cell_dim, L)
-    args = (torch.as_tensor(cell_pos, device=cuda), cell_dim,
-            torch.as_tensor(shift, dtype=torch.float32, device=cuda),
-            torch.as_tensor(_params(), device=cuda))
-    tag = torch.as_tensor(cell_tag, device=cuda)
-    n0 = tcp.cell_pair_planar.launches
-    got = tcp.cell_pair_planar(*args, C=C, cell_tag=tag)
-    want = tcp.cell_pair_planar_plain(*args, cell_tag=tag)
-    assert tcp.cell_pair_planar.launches == n0 + 1
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
-    for recip in ('div', 'approx'):
-        got = tcp.cell_pair_plane(*args, C=C, cell_tag=tag, recip=recip)
-        torch.testing.assert_close(got, want[0], rtol=1e-4, atol=1e-5)
+def test_cuda_pair_kernels_match_plain(cuda):
+    """The plane and planar kernels (csrc/cell_pair.cu, the ordered walk
+    of csrc/cell_walk.cuh) against their plain versions for every
+    evaluator (_cuda_pair_calls): on the GRIDS fills (r_cut 2; lj to
+    atol 1e-5, the others 1e-4); on the
+    edge fills of the tile kernels (test_torch_force_impls.EDGE: a cell
+    filled to C, up to MAX_C on a 2x2x2 grid, an empty cell, a
+    one-particle cell, live slots among padding); on NARROW grids; and
+    on a pair one float32 step inside r_cut beside one a step outside
+    (r^2 rounded as torch rounds it): the first pairs, the second adds
+    nothing."""
+    from test_torch_force_impls import EDGE, _cut_pairs, _edge_fill
+    from test_torch_types import _typed_table
+    for name in tcp.pair_eval.FAST_EVALS:
+        pv2, pn = _typed_table(name, 1, rc=RCUT)
+        pv, _ = _typed_table(name, 1)
+        pv2, pv = pv2[:, 0, 0], pv[:, 0, 0]
+        ev = dict(eval_name=name, pnames=pn)
+        for cell_dim, seed in GRIDS:
+            cell_pos, cell_tag, L, _ = _cells(cell_dim, 2.1, 16, 1.25, seed)
+            _, shift = tcp.build_cell_shifts(cell_dim, L)
+            _cuda_pair_calls(cuda, cell_pos, cell_tag,
+                             shift.astype(np.float32), cell_dim, pv2, ev,
+                             tol=1e-5 if name == 'lj' else 1e-4)
+        fills = [EDGE[k] for k in EDGE] + [(cd, 33) for cd in NARROW]
+        for i, (cd, C) in enumerate(fills):
+            cell_pos, cell_tag, _, shifts = _edge_fill(cd, C, 40 + i)
+            F = _cuda_pair_calls(cuda, cell_pos, cell_tag, shifts, cd, pv,
+                                 ev)[0]
+            assert float(F.abs().max()) > 0.0     # the fill has pairs
+        cell_pos, cell_tag, _, shifts, cd, C = _cut_pairs(pv[0])
+        F = _cuda_pair_calls(cuda, cell_pos, cell_tag, shifts, cd, pv, ev,
+                             tol=1e-6)[0]
+        tag = torch.as_tensor(cell_tag, device=cuda)
+        f = F[tag >= 0][torch.argsort(tag[tag >= 0])]
+        assert not f[2:].any()                   # tags 2, 3: outside
+        if name == 'lj':
+            assert float(f[0].abs().max()) > 1e-2    # tags 0, 1: inside
 
 
 @pytest.mark.gpu
