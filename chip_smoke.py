@@ -138,8 +138,22 @@ from the root of the repository.  In order it prints:
      mean PE/N over four velocity seeds against the JAX package's; then
      the NaCl Madelung energy (madelung_job: 512 ions of one type, pppm
      alone, the one-type charged kernel held to its plain version at
-     that job's plan) to rel 2e-3.  The bench job's T and PE/N must
-     equal the recorded PR6_BENCH_T and PR6_BENCH_PE bit for bit;
+     that job's plan) to rel 2e-3; then BASELINE config 3, the
+     Kremer-Grest melt (kg_job: bench_all.py:80-155's script, 1024
+     chains of 32 beads, WCA pairs, FENE bonds, harmonic angles, the
+     default exclusions, Langevin at kT = 1): its metric line
+     kremer_grest_32k_particle_steps_per_sec, a finite state with every
+     tag kept, T = 1 +- 0.03 over the timed window, every bond shorter
+     than r0 sqrt(0.99), the plane kernel on every step and the planar
+     kernel at every thermo read, no megastep and no fused step, the
+     rebin of its gate; the torch calls of a step, its busy share and the
+     plane kernel's device time per recorded launch; the step's force
+     (the plane kernel plus the bonded terms and the exclusion
+     correction) against a float64 sum on the card; a 1000-step NVE
+     continuation gated on its drift; and the mean PE/N of its window at
+     4096 beads over four seeds against the JAX package's (KG_PE_JAX).
+     The bench job's T and PE/N must equal the recorded PR6_BENCH_T and
+     PR6_BENCH_PE bit for bit;
   7. the BASELINE.json config-5 job script (4096 hard cubes at phi = 0.4,
      50 settle and 200 timed sweeps) and the hard-sphere job (4096
      spheres at a = 1.05), each with its metric line, zero overlaps
@@ -3532,6 +3546,500 @@ def madelung_job():
     return counts, row
 
 
+# ---------------------------------------------------------------------------
+# the Kremer-Grest melt (BASELINE config 3, bench_all.py:80-155)
+
+KG_CHAINS, KG_LEN, KG_BOND, KG_RHO = 1024, 32, 0.97, 0.85
+KG_TEMP, KG_TEMP_TOL = 1.0, 0.03
+# the FENE bond's reach: past r0 sqrt(0.99) its force is clipped to zero
+KG_R0 = 1.5
+# the PE/N check's job: the config's script at 128 chains of 32 beads
+# (4096 beads at the same density), kg_warmup with KG_SEED_EQ runs of
+# 1024 steps (the config's six cut to one, for the run's time), then the
+# window of kg_window
+KG_SEED_CHAINS, KG_SEED_EQ = 128, 1
+# that job's mean PE/N over the window through the JAX package's fast
+# engine on the CPU, per seed of the start's random numbers (`PYTHONPATH=.
+# python tests/test_torch_bonded.py kg-trace SEED`; 3 is the config's).
+# The port's mean over the same seeds must lie within KG_PE_BAND of
+# theirs: 3 standard deviations of the difference of two such means, as
+# the seeds' spread estimates it (PPPM_PE_BAND's rule)
+KG_PE_JAX = {3: 20.575480461120605, 4: 20.566978454589844,
+             5: 20.57136688232422, 6: 20.577934646606444}
+KG_PE_BAND = 3.0 * float(np.std(list(KG_PE_JAX.values()), ddof=1)
+                         * np.sqrt(2.0 / len(KG_PE_JAX)))
+
+
+def kg_snapshot(data, n_chains=KG_CHAINS, seed=3):
+    """Config 3's start: n_chains straight chains of KG_LEN beads 0.97
+    apart along z, one column per site of a square lattice at rho = 0.85,
+    each chain shifted along z by a uniform draw; bonds between neighbours
+    along a chain and angles between consecutive triples; Gaussian
+    velocities of variance 1 less their mean.  The draws come from one
+    numpy RandomState(seed), 3 in the config.  A snapshot of either
+    package (``data``: its hoomd.data)."""
+    N = n_chains * KG_LEN
+    Lz = KG_LEN * KG_BOND
+    area = N / KG_RHO / Lz
+    side = int(np.ceil(np.sqrt(n_chains)))
+    dxy = np.sqrt(area) / side
+    box_L = side * dxy
+    snap = data.make_snapshot(
+        N, data.boxdim(Lx=box_L, Ly=box_L, Lz=Lz), particle_types=['A'],
+        bond_types=['polymer'], angle_types=['backbone'])
+    idx = 0
+    bonds, angles = [], []
+    rng = np.random.RandomState(seed)
+    for c in range(n_chains):
+        cx = (c % side + 0.5) * dxy - box_L / 2
+        cy = (c // side + 0.5) * dxy - box_L / 2
+        z0 = rng.uniform(0, KG_BOND)
+        for m in range(KG_LEN):
+            z = (z0 + m * KG_BOND) % Lz - Lz / 2
+            snap.particles.position[idx] = [cx, cy, z]
+            if m > 0:
+                bonds.append([idx - 1, idx])
+            if m > 1:
+                angles.append([idx - 2, idx - 1, idx])
+            idx += 1
+    v = rng.normal(0, 1.0, (N, 3))
+    v -= v.mean(axis=0)
+    snap.particles.velocity[:] = v
+    snap.bonds.resize(len(bonds))
+    snap.bonds.group[:] = bonds
+    snap.angles.resize(len(angles))
+    snap.angles.group[:] = angles
+    return snap
+
+
+def kg_script(hoomd, n_chains=KG_CHAINS, seed=3):
+    """Config 3's job script through the public API of ``hoomd`` (either
+    package, its context initialized), up to its first run: the WCA pair
+    (pair.lj, r_cut 2^(1/6), shift mode) on a cell list with the default
+    exclusions, bond.fene (k = 30, r0 = 1.5, sigma = epsilon = 1),
+    angle.harmonic (k = 1.5, t0 = pi), Langevin at kT = 1 (seed 17), dt =
+    0.001.  Returns (System, the integration mode)."""
+    md = hoomd.md
+    hoomd.init.read_snapshot(kg_snapshot(hoomd.data, n_chains, seed))
+    nl = md.nlist.cell()
+    wca = md.pair.lj(r_cut=2 ** (1 / 6), nlist=nl)
+    wca.pair_coeff.set('A', 'A', epsilon=1.0, sigma=1.0)
+    wca.set_params(mode='shift')
+    fene = md.bond.fene()
+    fene.bond_coeff.set('polymer', k=30.0, r0=KG_R0, sigma=1.0, epsilon=1.0)
+    ang = md.angle.harmonic()
+    ang.angle_coeff.set('backbone', k=1.5, t0=np.pi)
+    mode = md.integrate.mode_standard(dt=0.001)
+    md.integrate.langevin(group=hoomd.group.all(), kT=KG_TEMP, seed=17)
+    return hoomd.context.current.system, mode
+
+
+def kg_warmup(system, mode, eq_runs):
+    """The script's melt: 1000 steps at dt = 0.001, then 500 at dt = 0.005
+    and eq_runs runs of 1024 (six in the config)."""
+    system.run(1000, quiet=True)
+    mode.set_params(dt=0.005)
+    system.run(500, quiet=True)
+    for _ in range(eq_runs):
+        system.run(1024, quiet=True)
+
+
+def kg_window(system):
+    """T and PE/N read after every 100 of 1000 steps."""
+    N = system.state.N
+    temps, pes = [], []
+    for _ in range(10):
+        system.run(100, quiet=True)
+        q = system.thermo_quantities()
+        temps.append(q['temperature'])
+        pes.append(q['potential_energy'] / N)
+    return temps, pes
+
+
+# the equilibration runs of 1024 steps at full width: the config's six
+# cut to one, for this run's time (the host takes ~13 ms per step)
+KG_EQ = 1
+# the timed window: bench_all.py's 2000 steps, in KG_READS runs with T and
+# PE/N read after each (outside the timing)
+KG_STEPS, KG_READS = 2000, 10
+
+
+def kg_main(card):
+    """Config 3's job script at full width (kg_script: 1024 chains of 32
+    beads, N = 32 768) on the card: kg_warmup with KG_EQ runs of 1024
+    steps, then the timed window of KG_STEPS steps in KG_READS runs, T
+    and PE/N read after each outside the timing; its metric line
+    kremer_grest_32k_particle_steps_per_sec, then the gates of check_kg.
+    Returns (System, the launch counts of the script's run, the window's T
+    and PE/N reads, ms per step)."""
+    import torch
+    import hoomd_tpu_torch as hoomd
+    what = 'KG job'
+    hoomd.context.initialize("--mode=gpu --notice-level=0")
+    reset_launch_counts()
+    system, mode = kg_script(hoomd)
+    N = system.state.N
+    t0 = time.perf_counter()
+    kg_warmup(system, mode, KG_EQ)
+    t_warm = time.perf_counter() - t0
+    print(f"{what}: the melt and {KG_EQ} equilibration runs took "
+          f"{t_warm:.1f} s, {system.fast_stats}", flush=True)
+    temps, pes, el = [], [], 0.0
+    steps = KG_STEPS
+    for _ in range(KG_READS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        system.run(steps // KG_READS, quiet=True)  # ends in a synchronize
+        el += time.perf_counter() - t0
+        q = system.thermo_quantities()
+        temps.append(q['temperature'])
+        pes.append(q['potential_energy'] / N)
+    counts = launch_counts()
+    fast = system._program['fast']
+    ms = el / steps * 1e3
+    print(json.dumps({
+        "metric": "kremer_grest_32k_particle_steps_per_sec",
+        "value": steps * N / el, "unit": "particle-steps/s/chip",
+        "extra": {"N": N, "steps": steps, "elapsed_s": el,
+                  "ms_per_step": ms, "warmup_s": t_warm,
+                  "equilibration_runs": KG_EQ,
+                  "cell_dim": list(fast['cell_dim']), "C": fast['C'],
+                  "rebin": fast['rebin_impl'],
+                  "temperature": float(np.mean(temps)),
+                  "pe_per_particle": float(np.mean(pes)), "card": card,
+                  "package": "torch"}}), flush=True)
+    check_kg(system, temps, counts, 1500 + 1024 * KG_EQ + steps, KG_READS,
+             what)
+    return system, counts, temps, pes, ms
+
+
+def check_kg(system, temps, counts, script_steps, reads, what):
+    """The KG job's gates: a finite state with every tag in one slot; the
+    window's mean T = 1 +- 0.03; every bond shorter than r0 sqrt(0.99),
+    past which FENE has no force; the program the JAX fast engine runs
+    (the plane kernel, Langevin, no megastep, no fused step) on the rebin
+    its gate chose (xsel at this N; an xsel strike sorts until 8 clean
+    segments have passed); the plane kernel (row 2) launched on every
+    step, the planar kernel (row 3) at every thermo read, neither the
+    megastep, its candidate build nor the fused step."""
+    import torch
+    N = system.state.N
+    q = system.thermo_quantities()
+    snap = system.take_snapshot()
+    if not (np.isfinite(snap.particles.position).all()
+            and np.isfinite(snap.particles.velocity).all()
+            and np.isfinite(q['potential_energy'])):
+        raise RuntimeError(f"{what}: non-finite state")
+    tag = system._fast_carry.tag
+    kept = torch.sort(tag[tag >= 0]).values
+    if kept.numel() != N or not torch.equal(
+            kept.long(), torch.arange(N, device=kept.device)):
+        raise RuntimeError(f"{what}: the carry does not hold every tag once")
+    t_mean = float(np.mean(temps))
+    if abs(t_mean - KG_TEMP) > KG_TEMP_TOL:
+        raise RuntimeError(f"{what}: mean T over the window {t_mean:.4f} "
+                           f"outside {KG_TEMP} +- {KG_TEMP_TOL}")
+    blen = kg_bond_lengths(snap)
+    if not blen.max() < KG_R0 * np.sqrt(0.99):
+        raise RuntimeError(f"{what}: a bond of {blen.max():.4f}, past the "
+                           f"FENE clip {KG_R0 * np.sqrt(0.99):.4f}")
+    fast = system._program['fast']
+    prog = (fast['impl'], fast['kind'], fast['mega'], fast['fused'],
+            fast['ntypes'], fast['eval_name'])
+    if prog != ('plane', 'langevin', False, False, 1, 'lj'):
+        raise RuntimeError(f"{what}: not config 3's program {prog}")
+    if not (fast['rebin_impl'] == 'xsel'
+            or system._grow.get('fast_rebin_sort')):
+        raise RuntimeError(f"{what}: rebuilt on {fast['rebin_impl']}, its "
+                           f"gate names xsel")
+    check_rebin_lost(system, what)
+    if counts['cell_pair_plane'] < script_steps:
+        raise RuntimeError(f"{what}: the plane kernel ran on fewer steps "
+                           f"than the script's {script_steps} ({counts})")
+    if counts['cell_pair_planar'] < reads:
+        raise RuntimeError(f"{what}: the planar kernel missed a thermo read "
+                           f"({counts})")
+    for name in ('cell_megastep_planes', 'mega_candidates',
+                 'cell_step_plane_planes'):
+        if counts[name]:
+            raise RuntimeError(f"{what}: launched {name} ({counts})")
+    print(f"{what}: the gates held: T over the window {t_mean:.5f} (reads "
+          f"{', '.join(f'{t:.4f}' for t in temps)}), the longest bond "
+          f"{blen.max():.4f}, every tag kept, rebin {fast['rebin_impl']}, "
+          f"{system.fast_stats}, grow {system._grow}; launches={counts}",
+          flush=True)
+
+
+def kg_bond_lengths(snap):
+    """Each bond's length in a snapshot (float64, minimum image)."""
+    pos = np.asarray(snap.particles.position, np.float64)
+    L = np.array([snap.box.Lx, snap.box.Ly, snap.box.Lz])
+    b = np.asarray(snap.bonds.group)
+    d = pos[b[:, 1]] - pos[b[:, 0]]
+    d -= L * np.round(d / L)
+    return np.sqrt((d * d).sum(1))
+
+
+def kg_reference(pos, L, bonds, angles, excl):
+    """Config 3's forces in float64 on pos's device, apart from the port's
+    code: every pair closer than r_cut but the excluded ones (excl, the
+    (N, E) table of each tag's excluded tags, N padding) by the WCA force
+    24 (2 r^-14 - r^-8) r_ij; the FENE + WCA bonds and the harmonic angles
+    (k = 1.5, t0 = pi, their cosine clipped at 1 - 1e-7) as -grad of their
+    energies by autograd.  pos (N, 3) by tag.  Returns (F (N, 3), S (N,)):
+    S per bead sums the magnitudes of every term on it, the excluded
+    pairs' WCA forces included (the stencil sums them and the exclusion
+    correction takes them away)."""
+    import torch
+    N = pos.shape[0]
+    rc2 = 2.0 ** (1.0 / 3.0)
+    F = torch.zeros_like(pos)
+    S = torch.zeros(N, dtype=pos.dtype, device=pos.device)
+    et = torch.as_tensor(excl, dtype=torch.int64, device=pos.device)
+    for i0 in range(0, N, 256):
+        i1 = min(i0 + 256, N)
+        d = pos[i0:i1, None, :] - pos[None]
+        d = d - L * torch.round(d / L)
+        r2 = (d * d).sum(-1)
+        rows = torch.arange(i1 - i0, device=pos.device)
+        r2[rows, rows + i0] = 1e30
+        near = r2 < rc2
+        ex = torch.zeros_like(near)
+        part = et[i0:i1]
+        ok = part < N
+        ex[rows[:, None].expand_as(part)[ok], part[ok]] = True
+        inv2 = torch.where(near, 1.0 / r2, 0.0)
+        inv6 = inv2 * inv2 * inv2
+        coef = 24.0 * inv2 * inv6 * (2.0 * inv6 - 1.0)
+        F[i0:i1] = (torch.where(ex, 0.0, coef)[..., None] * d).sum(1)
+        S[i0:i1] = (coef.abs() * torch.sqrt(torch.where(near, r2, 0.0))
+                    ).sum(1)
+    x = pos.clone().requires_grad_(True)
+    b = torch.as_tensor(bonds, dtype=torch.int64, device=pos.device)
+    db = x[b[:, 1]] - x[b[:, 0]]
+    db = db - L * torch.round(db.detach() / L)
+    r = torch.sqrt((db * db).sum(-1))
+    xx = torch.clamp((r / KG_R0) ** 2, 0.0, 0.99)
+    s6 = r ** -6
+    wca = torch.where(r ** -2 > 2.0 ** (-1.0 / 3.0),
+                      4.0 * (s6 * s6 - s6) + 1.0, 0.0)
+    e_b = -0.5 * 30.0 * KG_R0 ** 2 * torch.log1p(-xx) + wca
+    a = torch.as_tensor(angles, dtype=torch.int64, device=pos.device)
+    d1 = x[a[:, 1]] - x[a[:, 0]]
+    d1 = d1 - L * torch.round(d1.detach() / L)
+    d2 = x[a[:, 2]] - x[a[:, 1]]
+    d2 = d2 - L * torch.round(d2.detach() / L)
+    n1 = torch.sqrt((d1 * d1).sum(-1))
+    n2 = torch.sqrt((d2 * d2).sum(-1))
+    c = torch.clamp((-d1 * d2).sum(-1) / (n1 * n2), -1.0 + 1e-7, 1.0 - 1e-7)
+    th = torch.arccos(c)
+    e_a = 0.5 * 1.5 * (th - np.pi) ** 2
+    gb, = torch.autograd.grad(e_b.sum() + e_a.sum(), x)
+    F = F - gb
+    # the bonded terms' magnitudes: |dV/dr| per bond on both ends, and
+    # |dV/dtheta| / min(|d1|, |d2|) per angle on its three beads
+    rd, xd = r.detach(), xx.detach()
+    fb = torch.where(xd < 0.99, 30.0 * rd / (1.0 - xd), 0.0)
+    fw = torch.where(wca.detach() > 0, 24.0 * (2.0 * rd ** -13 - rd ** -7),
+                     0.0)
+    mb = fb.abs() + fw.abs()
+    S = S.index_add(0, b[:, 0], mb).index_add(0, b[:, 1], mb)
+    ma = (1.5 * (th.detach() - np.pi).abs()
+          / torch.minimum(n1, n2).detach())
+    for k in range(3):
+        S = S.index_add(0, a[:, k], ma)
+    return F.detach(), S
+
+
+def kg_exactness(system, what):
+    """The port's force of a step on the job's state, the plane kernel
+    plus the tag-space terms (the bonds, the angles and the exclusion
+    correction: the engine's step force, run.force), against kg_reference
+    in float64 on the card, bead by bead: |port - reference| <= ATOL +
+    RTOL S.  S sums the magnitudes of the terms on the bead; RTOL of it
+    covers the float32 sums and, on each excluded pair, the residual the
+    correction leaves where the plane kernel takes the fast reciprocal
+    (__fdividef, under a thermostat) and the correction divides exactly:
+    a relative error of the WCA force, about 40 at r = 0.97.  A stale
+    slot table puts a bond's force on another bead, an error of ~10-100.
+    Returns (largest error, largest error / S)."""
+    import torch
+    fast = system._program['fast']
+    run, dyn = fast['run_chunk'], system._dyn['fast']
+    c = system._fast_carry
+    F = run.force(c, dyn).reshape(-1, 3)
+    tag = c.tag.reshape(-1).long()
+    live = tag >= 0
+    N = system.state.N
+    dev = c.pos.device
+    Ft = torch.zeros((N, 3), dtype=torch.float64, device=dev)
+    Ft[tag[live]] = F[live].double()
+    pos = torch.zeros((N, 3), dtype=torch.float64, device=dev)
+    pos[tag[live]] = c.pos.reshape(-1, 3)[live].double()
+    L = system._state_raw.box.L.double().to(dev)
+    snap = system.snapshot_template
+    nl = system._program['fast']['pair_force']._nlist
+    Fr, S = kg_reference(pos, L, snap.bonds.group, snap.angles.group,
+                         nl._build_exclusion_table(snap))
+    err = (Ft - Fr).abs()
+    allowed = ATOL + RTOL * S[:, None]
+    worst = float((err / S[:, None].clamp(min=1e-30)).max())
+    print(f"{what}: the step's force (plane kernel, recip "
+          f"{'approx' if fast['kind'] != 'nve' else 'div'}, plus the "
+          f"bonds, angles and exclusion correction) against the float64 "
+          f"sum on {N} beads: largest error {float(err.max()):.3e}, largest "
+          f"error / S {worst:.3e}, largest |F| {float(Fr.abs().max()):.3e}, "
+          f"largest S {float(S.max()):.3e}", flush=True)
+    if not bool((err <= allowed).all()):
+        i = int((err - allowed).max(1).values.argmax())
+        raise RuntimeError(f"{what}: bead {i}'s force {Ft[i].tolist()} "
+                           f"against the float64 sum's {Fr[i].tolist()} "
+                           f"(S {float(S[i]):.3e})")
+    return float(err.max()), worst
+
+
+def kg_seed_window(seed):
+    """The PE/N check's job on the card (that of tests/test_torch_bonded.py
+    kg-trace through the JAX package): the config's script
+    at KG_SEED_CHAINS chains, its start drawn from ``seed``, kg_warmup with
+    KG_SEED_EQ runs, then the window (kg_window).  Prints the window's
+    mean PE/N as the last line, a JSON object; its mean T must be 1 +-
+    0.03."""
+    import hoomd_tpu_torch as hoomd
+    hoomd.context.initialize("--mode=gpu --notice-level=0")
+    system, mode = kg_script(hoomd, KG_SEED_CHAINS, seed)
+    kg_warmup(system, mode, KG_SEED_EQ)
+    temps, pes = kg_window(system)
+    if abs(np.mean(temps) - KG_TEMP) > KG_TEMP_TOL:
+        raise RuntimeError(f"KG PE/N job, seed {seed}: mean T over the "
+                           f"window {np.mean(temps):.4f}")
+    print(json.dumps({"seed": seed, "pe": float(np.mean(pes)),
+                      "T": float(np.mean(temps)),
+                      "fast_stats": system.fast_stats}), flush=True)
+
+
+def kg_seed_processes():
+    """kg_seed_window for every seed of KG_PE_JAX, each in a process of its
+    own (the jobs are host-bound: they run side by side on the host's
+    cores and share the card), started here and read by kg_seed_results."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return {seed: subprocess.Popen(
+        [sys.executable, '-c', f'import chip_smoke; '
+         f'chip_smoke.kg_seed_window({seed})'], cwd=here,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for seed in KG_PE_JAX}
+
+
+def kg_seed_results(procs, timeout=900):
+    """Wait for kg_seed_processes' processes (killing all of them if one
+    fails or the time runs out); returns {seed: the window's mean PE/N}."""
+    out = {}
+    try:
+        for seed, p in procs.items():
+            so, se = p.communicate(timeout=timeout)
+            if p.returncode != 0:
+                raise RuntimeError(f"KG PE/N job, seed {seed}, failed: "
+                                   f"{se[-3000:]}")
+            res = json.loads(so.strip().splitlines()[-1])
+            print(f"KG PE/N job, seed {seed}: {res}", flush=True)
+            out[seed] = res['pe']
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def kg_job(card):
+    """BASELINE config 3 on the card: kg_main (the script at N = 32 768,
+    its metric line and gates); the torch calls of one step and per step
+    of 100; the busy share and the plane kernel's device time per recorded
+    launch over 50 profiled steps; kg_exactness on the end state; a
+    1000-step NVE continuation on the exact divide, gated on its drift,
+    while the PE/N check's job runs from each seed of KG_PE_JAX in
+    processes of its own (kg_seed_processes); the mean of the windows'
+    PE/N within KG_PE_BAND of the JAX package's.  Returns the
+    launch counts of the script's run."""
+    import torch
+    import hoomd_tpu_torch as hoomd
+    from hoomd_tpu_torch import md
+    what = 'KG job'
+    t_job = time.perf_counter()
+    system, counts, temps, pes, ms = kg_main(card)
+    t_main = time.perf_counter() - t_job
+    N = system.state.N
+    fast = system._program['fast']
+    run, dyn = fast['run_chunk'], system._dyn['fast']
+    c = system._fast_carry
+    calls_step = torch_calls(lambda: run.steps(c, dyn, 1))
+    calls_run = torch_calls(lambda: system.run(100, quiet=True)) / 100
+    busy, k_dev = device_profile(lambda: system.run(50, quiet=True),
+                                 f'50 steps of the {what}', top=8,
+                                 per_launch='pair_walk_kernel')
+    system.thermo_quantities()
+    err, rel = kg_exactness(system, what)
+    print(f"{what}: plan cell_dim={fast['cell_dim']} C={fast['C']} "
+          f"k={fast['k_rebuild']} rebin={fast['rebin_impl']} "
+          f"impl={fast['impl']}; {ms:.4f} ms/step over the timed "
+          f"{KG_STEPS} steps; window mean PE/N {float(np.mean(pes))!r}; "
+          f"{calls_step} torch calls in one step (one_step), "
+          f"{calls_run:.1f} per step over 100 (the run loop and its "
+          f"rebuilds); busy share {busy:.4f}; the plane kernel (row 2) "
+          f"{dev_fmt(k_dev)} ms per recorded launch on the device at this "
+          f"plan; {card}", flush=True)
+    # the PE/N check's jobs run beside the NVE continuation
+    t0 = time.perf_counter()
+    procs = kg_seed_processes()
+    try:
+        # NVE continuation, on the exact divide
+        for m in system.methods:
+            m.disable()
+        md.integrate.nve(group=hoomd.group.all())
+        q0 = system.thermo_quantities()
+        reset_launch_counts()
+        system.run(1000, quiet=True)
+        nve_counts = launch_counts()
+        q1 = system.thermo_quantities()
+        e0 = q0['kinetic_energy'] + q0['potential_energy']
+        e1 = q1['kinetic_energy'] + q1['potential_energy']
+        drift = abs(e1 - e0) / N
+        kind = system._program['fast']['kind']
+        print(f"{what} NVE continuation ({kind}): E/N {e0 / N:.6f} -> "
+              f"{e1 / N:.6f}, drift {drift:.3e} per particle over 1000 "
+              f"steps at dt = 0.005, T={q1['temperature']:.5f}, "
+              f"{system.fast_stats}, launches={nve_counts}", flush=True)
+        if not np.isfinite(e1) or drift >= NVE_DRIFT_MAX or kind != 'nve':
+            raise RuntimeError(f"{what} NVE: energy drift {drift:.3e} per "
+                               f"particle per 1000 steps (bound "
+                               f"{NVE_DRIFT_MAX})")
+        if nve_counts['cell_pair_plane'] < 1000 or nve_counts[
+                'cell_megastep_planes']:
+            raise RuntimeError(f"{what} NVE: not every step on the plane "
+                               f"kernel ({nve_counts})")
+        # PE/N against the JAX package's, over seeds at 4096 beads
+        pes_s = kg_seed_results(procs)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    port = float(np.mean(list(pes_s.values())))
+    jax = float(np.mean(list(KG_PE_JAX.values())))
+    print(f"{what}: PE/N over the window at {KG_SEED_CHAINS * KG_LEN} beads "
+          f"per seed, port {pes_s}, JAX package {KG_PE_JAX}; means {port!r} "
+          f"and {jax!r}, apart {port - jax:.4e} (band {KG_PE_BAND:.4e}); "
+          f"the script to its window's end took {t_main:.1f} s, the NVE "
+          f"continuation and the seeds' processes beside it "
+          f"{time.perf_counter() - t0:.1f} s, the job "
+          f"{time.perf_counter() - t_job:.1f} s", flush=True)
+    if not abs(port - jax) <= KG_PE_BAND:
+        raise RuntimeError(f"{what}: mean PE/N over seeds {sorted(pes_s)} "
+                           f"{port:.4f}, the JAX package's {jax:.4f} +- "
+                           f"{KG_PE_BAND:.4f}")
+    return counts
+
+
 def ka_cells(dev, ntypes, jitter=0.05, seed=5):
     """The cell-major carry of the KA start (ka_snapshot), jittered by up
     to ``jitter`` lattice spacings, on the engine's plan of it: two types
@@ -4164,6 +4672,7 @@ def main():
         'cell_pair_planar_q_typed']
     counts, rows['cell_pair_planar_q'] = madelung_job()
     launches['cell_pair_planar_q'] = counts['cell_pair_planar_q']
+    kg_job(card)
     print(f"MD jobs done at {time.perf_counter() - t0:.1f} s", flush=True)
     launches['fused_poly_sweep'] = hpmc_job('cube', card)['fused_poly_sweep']
     launches['fused_sphere_sweep'] = hpmc_job('sphere', card)[

@@ -19,7 +19,9 @@ hoomd``:
 The port so far runs two paths.  MD: a liquid of one to four particle
 types with one of ten pair potentials on the cell-major engine (nve,
 nvt, langevin), on the JAX package's force paths (HOOMD_TPU_FAST_IMPL;
-a mixture on those that take one).  HPMC: hard spheres and one-type
+a mixture on those that take one), with bonds and angles
+(md.bond.fene / harmonic, md.angle.harmonic / cosinesq) and the cell
+list's exclusions beside the pair force.  HPMC: hard spheres and one-type
 convex polyhedra on the fused checkerboard sweep:
 
     hoomd.context.initialize('--mode=gpu')

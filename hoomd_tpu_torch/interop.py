@@ -1,6 +1,6 @@
 """numpy arrays from the JAX package -> the port's objects (snapshots,
-fast-engine carries, pair parameter tables, PPPM parameters, hull
-tables, cell planes).
+fast-engine carries, pair parameter tables, PPPM parameters, bonded group
+tables and their parameters, hull tables, cell planes).
 
 The parity tests feed both packages identical inputs through these
 functions: the JAX side's arrays go through numpy, never as JAX arrays.
@@ -92,3 +92,19 @@ def planes_from_numpy(planes, device='cpu'):
     tensors on ``device``."""
     return [torch.as_tensor(np.asarray(p, np.float32), device=device)
             for p in planes]
+
+
+def bonded_groups_from_numpy(groups, device='cpu'):
+    """A JAX package's bonded group table ((M, arity) tags or slots: a
+    snapshot's bonds.group, angles.group, or a fast program's excl_pairs)
+    -> the int64 tensor ops.bonded takes, on ``device``."""
+    return torch.as_tensor(np.array(groups, np.int64), device=device)
+
+
+def bonded_params_from_numpy(params, device='cpu'):
+    """A JAX package's per-group parameter dict (a bonded force's
+    _pack_params, or an entry of its fast engine's dyn['bonded']: name ->
+    (M,) array) -> name -> float32 tensor on ``device``, as ops.bonded's
+    terms and the port's dyn['bonded'] take it."""
+    return {k: torch.as_tensor(np.array(v, np.float32), device=device)
+            for k, v in params.items()}

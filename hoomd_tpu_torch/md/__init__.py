@@ -1,6 +1,6 @@
 """Molecular dynamics package (counterpart of hoomd_tpu/md): the slice's
-nlist, pair, charge and integrate namespaces."""
+nlist, pair, bond, angle, charge and integrate namespaces."""
 
-from . import charge, integrate, nlist, pair
+from . import angle, bond, charge, integrate, nlist, pair
 
-__all__ = ['charge', 'integrate', 'nlist', 'pair']
+__all__ = ['angle', 'bond', 'charge', 'integrate', 'nlist', 'pair']

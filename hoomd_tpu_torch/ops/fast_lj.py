@@ -54,6 +54,14 @@ pair) on the charged cell_pair_planar for 'plane', 'planar' and
 its PE and virial at refresh.  Every step is a one_step: the megastep
 and the fused step are off.
 
+Bond and angle forces and the neighbour list's exclusion corrections
+(``bonded_cfg``, hoomd_tpu/ops/fast_lj.py:469-571) are tag-space terms
+(ops/bonded.py) evaluated in slot space: every rebuild maps each term's
+tag groups to the slots of the new layout (the carry's bslots), and every
+step adds their forces to the pair force before the kick or the Langevin
+bath, refresh_forces their PE and virial too.  Such a program runs every
+step as a one_step: the megastep and the fused step are off.
+
 A megastep program keeps, beside each reference (ref_pos), its
 MegaCycle: the candidate set of that reference (cell_pair.mega_candidates,
 built by rebuild_carry and to_fast, once per rebuild) and the mass and
@@ -80,6 +88,7 @@ import torch
 
 from .._config import PAD_COORD, int_dtype
 from .. import variant as variant_mod
+from . import bonded as ops_bonded
 from . import hashrng
 from .cell_pair import (LJ_PNAMES, MegaWorkspace, build_cell_shifts,
                         candidate_pads, cell_pair_lj, cell_pair_lj_pallas3d,
@@ -119,6 +128,9 @@ class FastCarry:
                               # particle with no stage overflowing; either
                               # flag makes the host retry
     cycle: object = None     # MegaCycle of ref_pos (megastep programs)
+    bslots: tuple = ()       # per bonded term, its groups' slots in this
+                             # layout (ops/bonded.group_slots), set at every
+                             # rebuild; then the members' slots of all terms
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
@@ -214,7 +226,8 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
                         method_seed, k_rebuild=4, rebin_impl='sort',
                         rebin_E=8, impl='plane', mega=True, fused=False,
                         eval_name='lj', pnames=LJ_PNAMES, ntypes=1,
-                        charges=None, mesh_cfg=None, device='cpu'):
+                        charges=None, mesh_cfg=None, bonded_cfg=(),
+                        device='cpu'):
     """Returns (to_fast, refresh_forces, run, to_state).
 
     rebin_impl: 'sort', 'xsel' or 'pallas' (the migration sweep and place
@@ -230,6 +243,10 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
     charged evaluator (ewald, lj_ewald); mesh_cfg: {'fn': the PPPM mesh
     hook fn(pos, q, box, params, want_pv)}, with its parameters in
     dyn['mesh'].  A charged program runs no megastep and no fused step.
+    bonded_cfg: the tag-space terms, each {'term': an ops.bonded term,
+    'groups': (Mb, arity) tag table}, with their parameters in
+    dyn['bonded'] (name -> (Mb,) device tensor, in the same order); with
+    any, the megastep and the fused step are off.
 
     dyn layout: {'pv': device tensor [rc2, e_shift, *pnames], of shape
     (2 + NP, T, T) for a mixture, 'lj' (lj, one type): device tensor
@@ -244,15 +261,17 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
                                   f"particle type only ({ntypes} particle "
                                   f"types)")
     needs_q = charges is not None
+    have_bonded = len(bonded_cfg) > 0
     # hoomd_tpu/ops/fast_lj.py:692-707: the megastep and the fused step
-    # are single-type and uncharged (the mesh hook runs between force and
-    # kick)
-    use_mega = mega and impl == 'plane' and ntypes == 1 and not needs_q
+    # are single-type, uncharged (the mesh hook runs between force and
+    # kick) and free of tag-space terms (added between force and kick)
+    use_mega = (mega and impl == 'plane' and ntypes == 1 and not needs_q
+                and not have_bonded)
     # hoomd_tpu/ops/fast_lj.py:692-695: the fused single step serves the
     # windows only with the megastep off, and the head and tail single
     # steps whenever it holds
     use_fused = (fused and impl == 'plane' and ntypes == 1 and not needs_q
-                 and method_kind in ('nve', 'nvt'))
+                 and not have_bonded and method_kind in ('nve', 'nvt'))
     ev_kw = dict(eval_name=eval_name, pnames=pnames)
     idt = int_dtype()
     fdt = torch.float32
@@ -403,6 +422,67 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
                                    cell_tag=tag, **ev_kw)
         return out if want_pv else out[0]
 
+    if have_bonded:
+        bond_groups = [torch.as_tensor(np.asarray(cfg['groups']),
+                                       dtype=torch.int64, device=dev)
+                       for cfg in bonded_cfg]
+        box_L = box.L.to(device=dev, dtype=fdt)
+
+    def _slot_groups(tag_cells):
+        """The tag groups -> slot groups of this layout
+        (hoomd_tpu/ops/fast_lj.py:526-542): one scatter of the slots by
+        tag, then a gather per term; a tag with no slot maps to M, which
+        marks its group as padding.  Returns the carry's bslots: each
+        term's ops_bonded.group_slots, then the members' slots of all terms
+        in the order of _bonded_terms' rows."""
+        if not have_bonded:
+            return ()
+        tag_f = tag_cells.reshape(M).long()
+        live = tag_f >= 0
+        s_of_t = torch.full((N + 1,), M, dtype=torch.int64, device=dev)
+        s_of_t[torch.where(live, tag_f, N)] = torch.where(
+            live, torch.arange(M, device=dev), M)
+        slots = tuple(ops_bonded.group_slots(s_of_t[g.clamp(max=N)], M)
+                      for g in bond_groups)
+        return slots + (torch.cat([sl[2] for sl in slots]),)
+
+    def _with_slots(c: FastCarry):
+        return c.replace(bslots=_slot_groups(c.tag)) if have_bonded else c
+
+    def _bonded_terms(pos_cells, bslots, dyn, want_pv):
+        """The tag-space terms' force (nc, C, 3) on the slots, and with
+        want_pv their PE (nc, C) and virial (nc, C, 6)
+        (hoomd_tpu/ops/fast_lj.py:544-571): each term on its slot groups,
+        the unwrapped positions min-imaged; all terms' member rows summed
+        by one index_add_ per output."""
+        pos_flat = pos_cells.reshape(M, 3)
+        outs = [ops_bonded.group_terms(pos_flat, box_L, sl, p, cfg['term'],
+                                       want_pv)
+                for sl, p, cfg in zip(bslots, dyn['bonded'], bonded_cfg)]
+        idx = bslots[-1]
+        frc = torch.zeros((M, 3), dtype=fdt, device=dev).index_add_(
+            0, idx, torch.cat([o[0] for o in outs]))
+        if not want_pv:
+            return frc.reshape(nc, C, 3), None, None
+        pe = torch.zeros(M, dtype=fdt, device=dev).index_add_(
+            0, idx, torch.cat([o[1] for o in outs]))
+        vir = torch.zeros((M, 6), dtype=fdt, device=dev).index_add_(
+            0, idx, torch.cat([o[2] for o in outs]))
+        return (frc.reshape(nc, C, 3), pe.reshape(nc, C),
+                vir.reshape(nc, C, 6))
+
+    def step_force(c: FastCarry, dyn, pos=None, valid=None):
+        """The force of a one_step at ``pos`` (by default the carry's
+        positions): the pair force (and a charged job's mesh force) plus
+        the tag-space terms, zero on padding (``valid``, the live slots'
+        (nc, C, 1) mask, if the caller has it)."""
+        pos = c.pos if pos is None else pos
+        valid = (c.tag >= 0)[..., None] if valid is None else valid
+        frc = _all_forces(pos, c.tag, c.typ, dyn, False)
+        if have_bonded:
+            frc = frc + _bonded_terms(pos, c.bslots, dyn, False)[0]
+        return torch.where(valid, frc, 0.0)
+
     def _kt(dyn, ts):
         return variant_mod.eval_packed(dyn['kT'], ts)
 
@@ -443,8 +523,7 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
         danger = c.danger | (md2 > 1.0)
         wmax = torch.maximum(c.wmax, md2)
 
-        frc = torch.where(valid, _all_forces(pos, c.tag, c.typ, dyn, False),
-                          0.0)
+        frc = step_force(c, dyn, pos, valid)
         if method_kind == 'langevin':
             kT = _kt(dyn, c.timestep)
             u = torch.stack([hashrng.uniform_pm1(method_seed, c.timestep,
@@ -619,8 +698,9 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
         next half-kick sees them in slot order.  The sort carries typ; the
         xsel and migration rebins run for one type only (the host's gate),
         so typ stays, type 0 in every slot.  A megastep program builds the
-        new reference's candidate set."""
-        return _with_cycle(_rebin_carry(c))
+        new reference's candidate set; a program with tag-space terms maps
+        their groups to the new slots."""
+        return _with_cycle(_with_slots(_rebin_carry(c)))
 
     def _rebin_carry(c: FastCarry):
         if rebin_impl == 'xsel':
@@ -716,7 +796,7 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
             cat(state.image, 0), cat(state.tag, -1),
             cat(state.typeid.to(idt), 0), cat(state.mass, 1.0))
         shape3 = (nc, C, 3)
-        return _with_cycle(FastCarry(
+        return _with_cycle(_with_slots(FastCarry(
             pos=p.reshape(shape3), vel=v.reshape(shape3),
             frc=torch.zeros(shape3, dtype=fdt, device=dev),
             pe=torch.zeros((nc, C), dtype=fdt, device=dev),
@@ -728,10 +808,13 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
             danger=torch.zeros((), dtype=torch.bool, device=dev), since=0,
             wmax=torch.zeros((), dtype=fdt, device=dev),
             rebin_ovf=torch.zeros((), dtype=torch.bool, device=dev),
-            rebin_lost=torch.zeros((), dtype=torch.bool, device=dev)))
+            rebin_lost=torch.zeros((), dtype=torch.bool, device=dev))))
 
     def refresh_forces(carry, dyn):
         frc, pe, vir = _all_forces(carry.pos, carry.tag, carry.typ, dyn, True)
+        if have_bonded:
+            fb, peb, virb = _bonded_terms(carry.pos, carry.bslots, dyn, True)
+            frc, pe, vir = frc + fb, pe + peb, vir + virb
         valid = (carry.tag >= 0)[..., None]
         return carry.replace(frc=torch.where(valid, frc, 0.0), pe=pe,
                              vir=vir)
@@ -763,4 +846,5 @@ def build_fast_lj_chunk(*, N, box, cell_dim, C, r_buff, rcut, method_kind,
     run.wins = run_wins
     run.steps = run_steps
     run.cycles = run_cycles
+    run.force = step_force
     return to_fast, refresh_forces, run, to_state

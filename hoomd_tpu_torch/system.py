@@ -3,11 +3,13 @@
 The port runs two engines: the cell-major pair engine of ops/fast_lj.py
 for MD (one to four particle types, one of the ten stencil evaluators of
 ops/pair_eval.py, or a charged job: md.charge.pppm with its real-space
-Ewald pair and at most one unshifted pair.lj, or md.pair.ewald alone),
-and the fused checkerboard sweep of hpmc/ for hard-particle MC
-(an HPMC integrator replaces the MD pipeline, as in the JAX package).  A
-configuration outside them raises NotImplementedError naming the first
-gate it failed; there is no general engine to fall back to yet.
+Ewald pair and at most one unshifted pair.lj, or md.pair.ewald alone;
+beside the pair force any bond and angle forces, and the neighbour
+list's exclusions, as tag-space terms), and the fused checkerboard sweep
+of hpmc/ for hard-particle MC (an HPMC integrator replaces the MD
+pipeline, as in the JAX package).  A configuration outside them raises
+NotImplementedError naming the first gate it failed; there is no general
+engine to fall back to yet.
 
 An HPMC run is one chunk: its sweeps queue on the device, and ONE
 device->host read of the cell-overflow flag ends it.  On overflow the
@@ -173,6 +175,7 @@ class System:
         """Gates + construction of the cell-major pair engine."""
         from ._config import real_dtype
         from .md import charge as md_charge
+        from .md._bonded import BondedForce
         from .ops import pair_eval
         from .ops.cell_pair import MAX_C, MAX_TYPES
         from .ops.fast_lj import build_fast_lj_chunk, plan_fast_lj
@@ -188,8 +191,12 @@ class System:
         # beside its real-space ewald pair, which fuses with at most one
         # unshifted lj pair on the same nlist and cutoff into the lj_ewald
         # evaluator; or a standalone ewald pair
+        # bond and angle forces ride beside one pair force as tag-space terms
+        # (hoomd_tpu/system.py:390-398)
+        bonded_objs = [g for g in forces if isinstance(g, BondedForce)]
         mesh_list = [g for g in forces if isinstance(g, md_charge.pppm)]
-        pair_list = [g for g in forces if g not in mesh_list]
+        pair_list = [g for g in forces
+                     if g not in mesh_list and g not in bonded_objs]
         if len(mesh_list) > 1:
             _decline('multiple pppm instances')
         charged = None
@@ -238,10 +245,16 @@ class System:
             # general engine)
             _decline(f'{ntypes} particle types (at most {MAX_TYPES})')
         snap = self.snapshot_template
-        for name in ('bonds', 'angles', 'dihedrals', 'impropers',
-                     'constraints', 'pairs'):
+        # bonds and angles ride as tag-space terms; the other topologies'
+        # forces and constraints are not ported
+        for name in ('dihedrals', 'impropers', 'constraints', 'pairs'):
             if getattr(snap, name).N:
                 _decline(f'bonded topology ({name})')
+        if bonded_objs and os.environ.get('HOOMD_TPU_CHAIN', 'off') == 'on':
+            # the JAX package's in-kernel chain megastep (off by default
+            # there, hoomd_tpu/system.py:560-575) is not ported
+            _decline('HOOMD_TPU_CHAIN=on (the in-kernel chain megastep is not '
+                     'ported; unset it for the tag-space bonded terms)')
         f = pair_list[0]
         if charged is not None:
             # (hoomd_tpu/system.py:477-487)
@@ -261,6 +274,17 @@ class System:
         nl = f._nlist
         if nl is None:
             _decline('no neighbor list attached')
+        # the excluded tag pairs (t < u) of the pair force's neighbour list,
+        # whose pair terms the engine subtracts (hoomd_tpu/system.py:501-517)
+        excl_pairs = None
+        et = nl._build_exclusion_table(snap)
+        if et is not None:
+            t_idx = np.repeat(np.arange(et.shape[0]), et.shape[1])
+            u = et.reshape(-1)
+            keep = (u < et.shape[0]) & (t_idx < u)
+            if keep.any():
+                excl_pairs = np.stack([t_idx[keep], u[keep]],
+                                      axis=1).astype(np.int32)
         if (np.asarray(snap.particles.body) >= 0).any():
             _decline('rigid/floppy body particles')
         if np.any(np.asarray(snap.particles.moment_inertia) > 0):
@@ -370,13 +394,14 @@ class System:
             charges = np.asarray(snap.particles.charge, np.float64)
             if charged['mesh'] is not None:
                 mesh_cfg = {'fn': charged['mesh']._make_compute(self)}
+        bonded_cfg = self._bonded_cfg_for(f, bonded_objs, excl_pairs, charged)
         to_fast, refresh, run_chunk, to_state = build_fast_lj_chunk(
             N=N, box=box, cell_dim=tuple(cell_dim), C=C, r_buff=r_buff,
             rcut=rcut, method_kind=kind, method_seed=getattr(m, 'seed', 0),
             k_rebuild=k_rebuild, rebin_impl=rebin_impl, rebin_E=rebin_E,
             impl=impl, mega=mega, fused=fused, eval_name=eval_name,
             pnames=pnames, ntypes=ntypes, charges=charges, mesh_cfg=mesh_cfg,
-            device=self.device)
+            bonded_cfg=bonded_cfg, device=self.device)
         return {'to_fast': to_fast, 'refresh': refresh,
                 'run_chunk': run_chunk, 'to_state': to_state,
                 'C': C, 'cell_dim': tuple(cell_dim), 'method': m,
@@ -385,7 +410,32 @@ class System:
                 'impl': impl, 'mega': run_chunk.mega,
                 'fused': run_chunk.fused, 'eval_name': eval_name,
                 'pnames': pnames, 'ntypes': ntypes, 'pair_force': f,
-                'charged': charged}
+                'charged': charged, 'bonded_forces': bonded_objs,
+                'excl_pairs': excl_pairs}
+
+    def _bonded_cfg_for(self, f, bonded_objs, excl_pairs, charged):
+        """The engine's tag-space terms (hoomd_tpu/system.py:794-847): each
+        bonded force's term on its tag groups, then the exclusion
+        correction on the excluded pairs.  Uncharged, the correction
+        subtracts the pair evaluator, less its shift in shift mode, inside
+        r_cut; charged, qiqj erfc(kappa r)/r and the lj term of lj_ewald
+        inside r_cut and, with a mesh, the mesh's qiqj erf(kappa r)/r at
+        any distance.  Their parameters come from _fast_dyn, in this
+        order."""
+        from .ops import bonded as ops_bonded
+        cfg = [{'term': type(g)._term,
+                'groups': np.asarray(g._topology_data(self).group, np.int64)}
+               for g in bonded_objs]
+        if excl_pairs is not None:
+            if charged is not None:
+                lj = charged['lj']
+                term = ops_bonded.charged_exclusion(
+                    None if lj is None else lj._evaluator,
+                    charged['mesh'] is not None)
+            else:
+                term = ops_bonded.exclusion(f._evaluator, f.mode == 'shift')
+            cfg.append({'term': term, 'groups': excl_pairs})
+        return cfg
 
     def _reset_cadence(self):
         for key in ('fast_m', 'fast_m_ceil', 'fast_m_pinned', 'fast_k_cap',
@@ -434,7 +484,7 @@ class System:
             if charged['mesh'] is not None:
                 out['mesh'] = self._dyn['forces'][forces.index(
                     charged['mesh'])]
-            return self._method_dyn(out)
+            return self._method_dyn(self._bonded_dyn(out))
         if fast['ntypes'] == 1:
             rc = T(fp['rcut'][0, 0])
             scal = {k: T(v[0, 0]) for k, v in fp['tables'].items()}
@@ -455,7 +505,53 @@ class System:
         if fast['eval_name'] == 'lj' and fast['ntypes'] == 1:
             # the LJ-only kernels' parameter order
             out['lj'] = torch.stack([scal['lj1'], scal['lj2'], rc2, e_shift])
-        return self._method_dyn(out)
+        return self._method_dyn(self._bonded_dyn(out))
+
+    def _bonded_dyn(self, out):
+        """The tag-space terms' parameters, in _bonded_cfg_for's order
+        (hoomd_tpu/system.py:1170-1188, 1076-1097): each bonded force's
+        per-group coefficients, then the excluded pairs' evaluator
+        parameters gathered by their typeids, with rcut2, rcut and
+        e_shift, or for a charged job lj1, lj2, kappa, rcut2 and the
+        charge products qiqj."""
+        fast = self._program['fast']
+        forces = self._program['forces']
+        dev = self.device
+
+        def T(x):
+            return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+        bd = [{k: T(v) for k, v in
+               self._dyn['forces'][forces.index(g)].items()}
+              for g in fast['bonded_forces']]
+        ep = fast['excl_pairs']
+        if ep is not None:
+            f = fast['pair_force']
+            fp = self._dyn['forces'][forces.index(f)]
+            tids = np.asarray(self.snapshot_template.particles.typeid)
+            ti, tj = tids[ep[:, 0]], tids[ep[:, 1]]
+            rc_e = T(fp['rcut'][ti, tj])
+            charged = fast['charged']
+            if charged is not None:
+                ewp = self._dyn['forces'][forces.index(charged['ewald'])]
+                p = {'kappa': T(ewp['tables']['kappa'][ti, tj])}
+                if charged['lj'] is not None:
+                    p['lj1'] = T(fp['tables']['lj1'][ti, tj])
+                    p['lj2'] = T(fp['tables']['lj2'][ti, tj])
+                q = np.asarray(self.snapshot_template.particles.charge)
+                p['qiqj'] = T(q[ep[:, 0]] * q[ep[:, 1]])
+                p['rcut2'] = rc_e * rc_e
+            else:
+                p = {k: T(v[ti, tj]) for k, v in fp['tables'].items()}
+                p['rcut2'] = rc_e * rc_e
+                p['rcut'] = rc_e
+                if f.mode == 'shift':
+                    _, p['e_shift'] = f._evaluator.energy_force(p['rcut2'], p)
+                else:
+                    p['e_shift'] = torch.zeros_like(rc_e)
+            bd.append(p)
+        if bd:
+            out['bonded'] = tuple(bd)
+        return out
 
     def _method_dyn(self, out):
         """The integration method's entries of the engine's dyn."""

@@ -98,7 +98,9 @@ HOOMD_TPU_MEGA=off, every step a single step on the plane kernel;
 ``bench``, the bench job with its warmup and one timed 3000-step window;
 ``migration``, the HOOMD_TPU_REBIN=pallas job (chip_smoke.py rebin_job)
 and a timed 1000-step window on the migration
-rebin; by default sphere, cube, pallas) through the
+rebin; ``kg``, config 3's job through its timed window and gates
+(chip_smoke.py kg_main) and the torch calls of one step; by default
+sphere, cube, pallas) through the
 hoomd_tpu_torch of TREE, with their gates; run on two trees in turns, in
 separate processes, it compares their end-to-end numbers on one card.  With ``sweeps [TREE]`` it times
 each HPMC sweep (fused_sphere_sweep, fused_poly_sweep) at its job
@@ -754,9 +756,9 @@ def ka_bits(tree=None):
 # the jobs of ``jobs``: the HPMC jobs, the impl jobs' force paths (and
 # plane with HOOMD_TPU_MEGA=off), the fused NVT + NVE job
 # (HOOMD_TPU_FUSED=on), the bench job, the migration rebin's job
-# (HOOMD_TPU_REBIN=pallas)
+# (HOOMD_TPU_REBIN=pallas), the Kremer-Grest job (config 3)
 JOBS = ('sphere', 'cube', 'pallas', 'pallas3d', 'row', 'planar_n3l', 'planar',
-        'plane_mega_off', 'fused', 'bench', 'migration')
+        'plane_mega_off', 'fused', 'bench', 'migration', 'kg')
 
 
 def bench_turn(card_name):
@@ -813,6 +815,24 @@ def migration_turn(card_name, steps=1000):
         'fast_stats': system.fast_stats, 'card': card_name}}), flush=True)
 
 
+def kg_turn(card_name):
+    """chip_smoke.py's Kremer-Grest job through its timed window and gates
+    (kg_main: config 3's script at N = 32 768), then the torch calls of
+    one step: particle-steps/s, ms per step, and T and PE/N over the
+    window."""
+    from chip_smoke import kg_main, torch_calls
+    system, counts, temps, pes, ms = kg_main(card_name)
+    fast = system._program['fast']
+    c = system._fast_carry
+    calls = torch_calls(lambda: fast['run_chunk'].steps(
+        c, system._dyn['fast'], 1))
+    print(json.dumps({'kg_job': {
+        'particle_steps_per_sec': system.state.N / ms * 1e3,
+        'ms_per_step': ms, 'T': float(np.mean(temps)),
+        'PE_N': float(np.mean(pes)), 'torch_calls_per_step': calls,
+        'fast_stats': system.fast_stats, 'card': card_name}}), flush=True)
+
+
 def job_times(tree=None, jobs=('sphere', 'cube', 'pallas')):
     """chip_smoke.py's jobs named in ``jobs`` (JOBS) through the
     hoomd_tpu_torch of ``tree`` (by default this checkout), with their
@@ -833,6 +853,8 @@ def job_times(tree=None, jobs=('sphere', 'cube', 'pallas')):
             fused_job()
         elif job == 'migration':
             migration_turn(c)
+        elif job == 'kg':
+            kg_turn(c)
         elif job == 'plane_mega_off':
             impl_job('plane', mega='off')
         else:

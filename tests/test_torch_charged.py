@@ -680,30 +680,35 @@ def _charged_edge_fill(fill, ntypes, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize('ntypes', [1, 2, 4])
 @pytest.mark.parametrize('name', CHARGED)
 @pytest.mark.parametrize('fill', list(EDGE) + ['madelung'])
-def test_cuda_charged_edge_fills_match_plain(cuda, fill, name, ntypes):
-    """The charged kernel on the edge fills and the Madelung plan: F, PE
-    and virial, and F alone, against the plain version at rtol = atol =
-    1e-4, and equal bits from two calls."""
-    cell_pos, cell_tag, typ, q, shifts, cd, C, rc = _charged_edge_fill(
-        fill, ntypes, 23)
-    pv = _charged_table(name, ntypes, rc)
-    pos, tag, ty, sh, pvt, qt = (torch.as_tensor(x, device=cuda) for x in
-                                 (cell_pos, cell_tag, typ, shifts, pv, q))
-    kw = dict(eval_name=name, pnames=tpe.kernel_pnames(name), ntypes=ntypes,
-              cell_typ=ty if ntypes > 1 else None, cell_q=qt)
-    fn = tcp.cell_pair_planar
-    got = fn(pos, cd, sh, pvt, C=C, cell_tag=tag, **kw)
-    again = fn(pos, cd, sh, pvt, C=C, cell_tag=tag, **kw)
-    F = fn(pos, cd, sh, pvt, C=C, cell_tag=tag, want_pv=False, **kw)
-    want = tcp.cell_pair_planar_plain(pos, cd, sh, pvt, cell_tag=tag, **kw)
-    for g, a, w in zip(got, again, want):
-        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
-        assert torch.equal(g, a)
-    torch.testing.assert_close(F, want[0], rtol=1e-4, atol=1e-4)
-    assert float(want[0].abs().max()) > 0.1   # the fill has pairs in the cut
+def test_cuda_charged_edge_fills_match_plain(cuda, fill, name):
+    """The charged kernel on the edge fills and the Madelung plan, with
+    one, two and four types: F, PE and virial, and F alone, against the
+    plain version at rtol = atol = 1e-4, and equal bits from two calls."""
+    for ntypes in (1, 2, 4):
+        cell_pos, cell_tag, typ, q, shifts, cd, C, rc = _charged_edge_fill(
+            fill, ntypes, 23)
+        pv = _charged_table(name, ntypes, rc)
+        pos, tag, ty, sh, pvt, qt = (torch.as_tensor(x, device=cuda)
+                                     for x in (cell_pos, cell_tag, typ,
+                                               shifts, pv, q))
+        kw = dict(eval_name=name, pnames=tpe.kernel_pnames(name),
+                  ntypes=ntypes, cell_typ=ty if ntypes > 1 else None,
+                  cell_q=qt)
+        fn = tcp.cell_pair_planar
+        got = fn(pos, cd, sh, pvt, C=C, cell_tag=tag, **kw)
+        again = fn(pos, cd, sh, pvt, C=C, cell_tag=tag, **kw)
+        F = fn(pos, cd, sh, pvt, C=C, cell_tag=tag, want_pv=False, **kw)
+        want = tcp.cell_pair_planar_plain(pos, cd, sh, pvt, cell_tag=tag,
+                                          **kw)
+        for g, a, w in zip(got, again, want):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4,
+                                       msg=f'{ntypes} types')
+            assert torch.equal(g, a), f'{ntypes} types'
+        torch.testing.assert_close(F, want[0], rtol=1e-4, atol=1e-4)
+        # the fill has pairs in the cut
+        assert float(want[0].abs().max()) > 0.1, f'{ntypes} types'
 
 
 @pytest.mark.gpu
