@@ -151,9 +151,21 @@ from the root of the repository.  In order it prints:
      (the plane kernel plus the bonded terms and the exclusion
      correction) against a float64 sum on the card; a 1000-step NVE
      continuation gated on its drift; and the mean PE/N of its window at
-     4096 beads over four seeds against the JAX package's (KG_PE_JAX).
-     The bench job's T and PE/N must equal the recorded PR6_BENCH_T and
-     PR6_BENCH_PE bit for bit;
+     4096 beads over four seeds against the JAX package's (KG_PE_JAX);
+     then the bench.py script on the general engine (general_job:
+     HOOMD_TPU_FAST=off, its timed window cut to 1000 steps; no cell
+     kernel launched, T and PE/N gates, lists rebuilt without overflow,
+     its forces and PE at the end state against the plane and planar
+     kernels', ms per step, busy share, torch calls per step, rebuilds
+     per 100 steps); examples/lj_liquid.py through the port (readme_job: the fast
+     engine, the log's rows and the GSD frames against thermo_quantities()
+     and take_snapshot() at their steps, a restart after a Nose-Hoover
+     leg with the same step, xi, eta and PE); BASELINE config 1
+     (config1_job: bench_all.py:36-67's script, its metric line
+     readme_lj_n1000_langevin_particle_steps_per_sec).  Every job meant
+     for the kernels asserts that it ran on the cell-major engine
+     (require_engine).  The bench job's T and PE/N must equal the
+     recorded PR6_BENCH_T and PR6_BENCH_PE bit for bit;
   7. the BASELINE.json config-5 job script (4096 hard cubes at phi = 0.4,
      50 settle and 200 timed sweeps) and the hard-sphere job (4096
      spheres at a = 1.05), each with its metric line, zero overlaps
@@ -1784,8 +1796,8 @@ def eval_job(name):
         return (sn.particles.position.astype(np.float64)
                 + sn.particles.image * box_L)
     msd = float(((unwrapped(s1) - unwrapped(s0)) ** 2).sum(1).mean())
-    fast = system._program['fast']
     what = f'{name} job'
+    fast = require_engine(system, what)
     if not (np.isfinite(s1.particles.position).all()
             and np.isfinite(s1.particles.velocity).all()
             and np.isfinite(q['potential_energy'])):
@@ -1849,7 +1861,7 @@ def fused_job():
         what = 'HOOMD_TPU_MEGA=off HOOMD_TPU_FUSED=on job'
         q = check_lj_output(system, N, what)
         check_rebin_lost(system, what)
-        fast = system._program['fast']
+        fast = require_engine(system, what)
         if counts['cell_step_plane_planes'] <= 0 or not fast['fused']:
             raise RuntimeError(f"the {what} never ran the fused step")
         if counts['cell_megastep_planes'] or fast['mega']:
@@ -2416,9 +2428,22 @@ def rebuild_phase(system, parent_lib=None):
           flush=True)
 
 
-def bench_job(t_start, nvt_steps=500, warmup=True):
+def require_engine(system, what, fast=True):
+    """A job meant for the cell-major kernels must run on them, not slip
+    onto the general engine (and the general job the other way round).
+    Returns the fast engine's program (None for the general one)."""
+    prog = system._program.get('fast')
+    if (prog is not None) != fast:
+        raise RuntimeError(
+            f"{what} ran on the {'general' if prog is None else 'fast'} "
+            f"engine, not the {'fast' if fast else 'general'} one")
+    return prog
+
+
+def bench_job(t_start, nvt_steps=500, warmup=True, general=False):
     """bench.py's job script through hoomd_tpu_torch, up to the end of
-    its warmup.  Returns the System and N."""
+    its warmup (on the general engine with ``general``, which has no
+    cadence to warm up).  Returns the System and N."""
     import hoomd_tpu_torch as hoomd
     from hoomd_tpu_torch import md
     hoomd.context.initialize("--mode=gpu --notice-level=0")
@@ -2444,7 +2469,13 @@ def bench_job(t_start, nvt_steps=500, warmup=True):
     mode.set_params(dt=0.005)
     md.integrate.nvt(group=hoomd.group.all(), kT=1.2, tau=0.5)
     system.run(nvt_steps, quiet=True)
-    fast = system._program['fast']
+    fast = require_engine(system, 'the bench job script', fast=not general)
+    if general:
+        cfg = system._program['general']['nl_cfgs'][0]
+        print(f"general engine: cell_dim={cfg.cell_dim} "
+              f"cell_cap={cfg.cell_cap} max_neigh={cfg.max_neigh}",
+              flush=True)
+        return system, N
     print(f"plan: cell_dim={fast['cell_dim']} C={fast['C']} "
           f"k={fast['k_rebuild']} rebin={fast['rebin_impl']} "
           f"impl={fast['impl']} megastep={fast['mega']}", flush=True)
@@ -2722,6 +2753,407 @@ def bench_script(card):
 
 
 # ---------------------------------------------------------------------------
+# the general engine, the README example and BASELINE config 1
+
+# the timed window: bench.py times 3000 steps; cut to 1000 for this
+# script's time limit (the general engine takes ~9.5 ms per step here)
+GENERAL_WINDOW = 1000
+GENERAL_T_EVERY = 100      # the window's T is read every this many steps
+
+
+def general_steps(system, steps):
+    """Run ``steps`` steps; returns the seconds, ending on the card."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    system.run(steps, quiet=True)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+# the general engine's forces and PE against the kernels': |general -
+# kernel| <= ATOL + GENERAL_RTOL_S * S + POS_ULP * D.  S sums the
+# magnitudes of the particle's pair terms (|f_ij| for the force, |e_ij| /
+# 2 for the PE): the sides sum ~40 terms in other orders (float32: ~40
+# eps S) and the plane kernel takes the fast reciprocal under the
+# thermostat (2 ulps of 1/r^2).  D sums the terms' slopes (|df_ij/dr|;
+# for the PE |f_ij| / 2): a pair across the box's faces gets its
+# separation as x_i - (x_j + L) in the kernels and as x_i - x_j - L
+# round(.) here, which round apart by up to an ulp of L (3.8e-6 at L =
+# 42.3) on each side; at r ~ 0.95 that moves the pair's force by ~4e-3,
+# and a pair that close to r_cut may fall inside the cut on one side
+# only: E counts the particle's pairs within POS_ULP of r_cut, and each
+# may add |f(r_cut)| (0.039) to the force's difference.  A dropped pair
+# away from the cut stays visible: ATOL is below 0.039.
+GENERAL_RTOL_S, POS_ULP = 1e-5, 8e-6
+
+
+def lj_term_scales(system, rc=2.5):
+    """S, D and E of general_vs_kernels for the general engine's LJ job,
+    from its neighbour list: (force S, force D, PE S, PE D, E |f(r_cut)|),
+    each (N,)."""
+    import torch
+    st = system.state
+    N = st.N
+    j = system._nl_data[0].idx
+    jj = j.clamp(max=N - 1)
+    dr = st.box.min_image(st.pos[:, None] - st.pos[jj])
+    r2 = (dr * dr).sum(-1)
+    valid = (j < N) & (r2 < rc * rc)
+    r2inv = 1.0 / torch.where(valid, r2, 1.0)
+    r6 = r2inv ** 3
+    f = (r2inv * r6 * (48.0 * r6 - 24.0)).abs() * r2.sqrt()
+    df = (r2inv * r6 * (624.0 * r6 - 168.0)).abs()
+    e = (4.0 * r6 * (r6 - 1.0)).abs()
+    S_f, D_f, S_e = (torch.where(valid, x, 0.0).sum(1) for x in (f, df, e))
+    edge = ((j < N) & ((r2.sqrt() - rc).abs() <= POS_ULP)).sum(1)
+    f_cut = abs(48.0 * rc ** -13 - 24.0 * rc ** -7)
+    return S_f, D_f, 0.5 * S_e, 0.5 * S_f, edge * f_cut
+
+
+def general_vs_kernels(system, what):
+    """At the general job's end state: its per-particle forces and PE
+    against the cell-major engine's plane kernel (the step force) and
+    planar kernel (F, PE) on a fast system built from the same snapshot,
+    particle by particle within GENERAL_RTOL_S's bound.  Returns the
+    largest force and PE differences and the kernels' launches."""
+    import torch
+    import hoomd_tpu_torch as hoomd
+    from hoomd_tpu_torch import md
+    st = system.state
+    F_gen, pe_gen = st.net_force, st.net_pe
+    S_f, D_f, S_e, D_e, E_f = lj_term_scales(system)
+    snap = system.take_snapshot()
+    hoomd.context.initialize("--mode=gpu --notice-level=0")
+    hoomd.init.read_snapshot(snap)
+    lj = md.pair.lj(r_cut=2.5, nlist=md.nlist.cell(r_buff=0.4))
+    lj.pair_coeff.set('A', 'A', epsilon=1.0, sigma=1.0)
+    lj.set_params(mode='shift')
+    md.integrate.mode_standard(dt=0.005)
+    md.integrate.nvt(group=hoomd.group.all(), kT=1.2, tau=0.5)
+    fsys = hoomd.context.current.system
+    fsys._ensure_ready()
+    fast = require_engine(fsys, f'{what}: the fast system')
+    reset_launch_counts()
+    carry = fsys._fresh_carry()
+    plane = fast['run_chunk'].force(carry, fsys._dyn['fast'])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    tag = carry.tag.reshape(-1).long()
+    live = tag >= 0
+    worst = {}
+    t_live = tag[live]
+    for name, got, want, S, D, E in (
+            ('plane F', F_gen, plane.reshape(-1, 3)[live], S_f[:, None],
+             D_f[:, None], E_f[:, None]),
+            ('planar F', F_gen, carry.frc.reshape(-1, 3)[live], S_f[:, None],
+             D_f[:, None], E_f[:, None]),
+            ('planar PE', pe_gen, carry.pe.reshape(-1)[live], S_e, D_e,
+             0.0)):
+        got, S, D = got[t_live], S[t_live], D[t_live]
+        E = E[t_live] if torch.is_tensor(E) else E
+        err = (got - want).abs()
+        bound = ATOL + GENERAL_RTOL_S * S + POS_ULP * D + E
+        worst[name] = (float(err.max()), float((err / bound).max()))
+        bad = err > bound
+        if bool(bad.any()):
+            i = int(bad.reshape(bad.shape[0], -1).any(1).nonzero()[0, 0])
+            raise RuntimeError(f"{what}: particle {int(t_live[i])}'s "
+                               f"{name} {got[i].tolist()} against the "
+                               f"kernel's {want[i].tolist()} (S "
+                               f"{S[i].tolist()}, D {D[i].tolist()})")
+    for name in ('cell_pair_plane', 'cell_pair_planar'):
+        if counts[name] <= 0:
+            raise RuntimeError(f"{what}: the force check never launched "
+                               f"{name}")
+    return worst, counts
+
+
+def general_job(card):
+    """bench.py's job script at full width on the general engine
+    (HOOMD_TPU_FAST=off): 64 000 particles, the 1000-step Langevin melt
+    at dt 0.001, Nose-Hoover at kT 1.2 and dt 0.005, 500 steps, then the
+    timed window (GENERAL_WINDOW steps, bench.py's 3000 cut to 1000),
+    T read every 100.
+    Gates: the general engine ran and launched no cell kernel; the
+    window's mean T = 1.2 +- 0.03; PE/N in PE_RANGE; lists rebuilt, no
+    overflow left; at the end state its forces and PE against the plane
+    and planar kernels (general_vs_kernels).  Prints ms per step,
+    particle-steps/s, busy share, torch calls per step and rebuilds per 100
+    steps."""
+    import torch
+    t_job = time.perf_counter()
+    what = 'general job'
+    os.environ['HOOMD_TPU_FAST'] = 'off'
+    try:
+        reset_launch_counts()
+        system, N = bench_job(t_job, nvt_steps=500, general=True)
+        nl0 = int(system._nl_data[0].n_rebuilds)
+        temps, el = [], 0.0
+        for _ in range(GENERAL_WINDOW // GENERAL_T_EVERY):
+            el += general_steps(system, GENERAL_T_EVERY)
+            temps.append(system.thermo_quantities()['temperature'])
+        counts = launch_counts()
+        rebuilds = int(system._nl_data[0].n_rebuilds) - nl0
+        require_engine(system, what, fast=False)
+        if any(counts.values()):
+            raise RuntimeError(f"{what} launched cell kernels: {counts}")
+        q = system.thermo_quantities()
+        snapf = system.take_snapshot()
+        if not (np.isfinite(snapf.particles.position).all()
+                and np.isfinite(snapf.particles.velocity).all()):
+            raise RuntimeError(f"{what}: non-finite state")
+        t_mean = float(np.mean(temps))
+        pe = q['potential_energy'] / N
+        if abs(t_mean - TEMP_TARGET) > TEMP_TOL:
+            raise RuntimeError(f"{what}: mean T {t_mean:.4f} over the window")
+        if not PE_RANGE[0] <= pe <= PE_RANGE[1]:
+            raise RuntimeError(f"{what}: PE/N = {pe:.4f} outside {PE_RANGE}")
+        d = system._nl_data[0]
+        if rebuilds <= 0 or bool(d.overflow | d.cell_overflow):
+            raise RuntimeError(f"{what}: {rebuilds} list rebuilds in the "
+                               f"window, overflow flags {bool(d.overflow)}, "
+                               f"{bool(d.cell_overflow)}")
+        g = system._program['general']
+        aux = tuple(system._method_aux_by_obj[m]
+                    for m in system._program['methods'])
+        st, nls, dyn = system.state, system._nl_data, system._dyn['general']
+        calls = torch_calls(lambda: g['run_chunk'](st, nls, aux, dyn,
+                                                   100)) / 100
+        busy = device_profile(lambda: system.run(100, quiet=True),
+                              f'100 steps of the {what}', top=6)
+    finally:
+        os.environ.pop('HOOMD_TPU_FAST', None)
+    worst, kcounts = general_vs_kernels(system, what)
+    ms = el / GENERAL_WINDOW * 1e3
+    cfg = g['nl_cfgs'][0]
+    print(json.dumps({
+        "metric": "lj_melt_64k_nvt_general_engine_particle_steps_per_sec",
+        "value": GENERAL_WINDOW / el * N, "unit": "particle-steps/s/chip",
+        "extra": {"N": N, "steps": GENERAL_WINDOW, "elapsed_s": el,
+                  "ms_per_step": ms, "temperature": t_mean,
+                  "pe_per_particle": pe, "busy_share": busy,
+                  "torch_calls_per_step": calls,
+                  "rebuilds_per_100_steps": rebuilds * 100 / GENERAL_WINDOW,
+                  "max_neigh": cfg.max_neigh, "cell_dim": list(cfg.cell_dim),
+                  "cell_cap": cfg.cell_cap,
+                  "card": card, "package": "torch"}}), flush=True)
+    print(f"{what}: mean T {t_mean:.5f}, PE/N {pe:.5f}, {ms:.4f} ms per step, "
+          f"busy share {busy:.4f}, {calls:.1f} torch calls per step, "
+          f"{rebuilds} rebuilds in {GENERAL_WINDOW} steps; against the "
+          f"kernels at the end state: largest differences {worst}, launches {kcounts}; the "
+          f"job took {time.perf_counter() - t_job:.1f} s", flush=True)
+
+
+README_STEPS = 10_000      # examples/lj_liquid.py's run, uncut
+README_NVT_STEPS = 500     # the NVT leg before the restart check
+
+
+def readme_job(card):
+    """examples/lj_liquid.py (README.md's example) through hoomd_tpu_torch
+    on the card: its statements with the two import lines changed, the
+    log and trajectory in a temporary directory, and a probe
+    (analyze.callback every 100 steps, registered after them) that keeps
+    thermo_quantities() and, every 2000 steps, take_snapshot().  Gates:
+    the fast engine; the log's header and one row per 100 steps of
+    [0, 10000), each equal (as :.9g text) to the probe's values at its
+    step; the GSD file's frames at 0, 2000, ..., 8000, the last equal to
+    the probe's snapshot bit for bit; the planar kernel launched (thermo
+    reads) and a force kernel on the steps.  Then the
+    restart flow (.claude/skills/verify/SKILL.md): a 500-step Nose-Hoover
+    leg at kT 0.2, dump.gsd(...).write_restart(), init.read_gsd(...,
+    restart=) in a fresh context with nvt.restore_state(): the same step,
+    xi and eta bit for bit, PE within 2e-6 relative, and 100 more steps
+    run.  Returns the launch counts of the example's run."""
+    import shutil
+    import tempfile
+    import torch
+    import hoomd_tpu_torch as hoomd
+    from hoomd_tpu_torch.io.frames import FrameReader
+    what = 'README job'
+    t_job = time.perf_counter()
+    with open(os.path.join('examples', 'lj_liquid.py')) as f:
+        src = f.read()
+    tmp = tempfile.mkdtemp(prefix='readme_job_')
+    try:
+        log_fn = os.path.join(tmp, 'log-output.log')
+        gsd_fn = os.path.join(tmp, 'trajectory.htpf')
+        for a, b in (
+                ('import hoomd_tpu as hoomd', 'import hoomd_tpu_torch as hoomd'),
+                ('from hoomd_tpu import md', 'from hoomd_tpu_torch import md'),
+                ('"log-output.log"', repr(log_fn)),
+                ('"trajectory.htpf"', repr(gsd_fn)),
+                ('hoomd.run(10_000)', 'hoomd.analyze.callback(_probe, '
+                 'period=100)\nhoomd.run(10_000)')):
+            if src.count(a) != 1:
+                raise RuntimeError(f"{what}: examples/lj_liquid.py has no "
+                                   f"single {a!r}")
+            src = src.replace(a, b)
+        seen = {}
+
+        def _probe(ts):
+            s = hoomd.context.current.system
+            seen[ts] = (s.thermo_quantities(),
+                        s.take_snapshot() if ts % 2000 == 0 else None)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exec(compile(src, 'examples/lj_liquid.py', 'exec'),
+             {'_probe': _probe, '__name__': '__lj_liquid__'})
+        torch.cuda.synchronize()
+        el = time.perf_counter() - t0
+        counts = launch_counts()
+        system = hoomd.context.current.system
+        fast = require_engine(system, what)
+        with open(log_fn) as f:
+            rows = [ln.split('\t') for ln in f.read().splitlines()]
+        if rows[0] != ['timestep', 'potential_energy', 'temperature']:
+            raise RuntimeError(f"{what}: log header {rows[0]}")
+        steps = [int(r[0]) for r in rows[1:]]
+        if steps != list(range(0, README_STEPS, 100)):
+            raise RuntimeError(f"{what}: log rows at {steps[:3]}...{steps[-3:]}")
+        for r in rows[1:]:
+            q = seen[int(r[0])][0]
+            if r[1:] != [f"{q['potential_energy']:.9g}",
+                         f"{q['temperature']:.9g}"]:
+                raise RuntimeError(f"{what}: log row {r} against "
+                                   f"thermo_quantities() at its step")
+        reader = FrameReader(gsd_fn)
+        frames = [reader.read(i) for i in range(len(reader))]
+        if [f[1] for f in frames] != list(range(0, README_STEPS, 2000)):
+            raise RuntimeError(f"{what}: GSD frames at "
+                               f"{[f[1] for f in frames]}")
+        last, want = frames[-1][0], seen[frames[-1][1]][1]
+        for name in ('position', 'velocity', 'image', 'typeid', 'mass'):
+            if not np.array_equal(getattr(last.particles, name),
+                                  getattr(want.particles, name)):
+                raise RuntimeError(f"{what}: the last GSD frame's {name} "
+                                   f"differs from take_snapshot()'s")
+        # thermo reads take the planar kernel; the steps the megastep's
+        # windows, and the plane kernel those a window leaves over
+        if counts['cell_pair_planar'] <= 0 or (
+                counts['cell_megastep_planes'] + counts['cell_pair_plane']) <= 0:
+            raise RuntimeError(f"{what}: launches {counts}")
+        q_end = seen[README_STEPS - 100][0]
+        print(f"{what}: {README_STEPS} steps in {el:.2f} s "
+              f"({el / README_STEPS * 1e3:.4f} ms per step with the log, the "
+              f"dump and the probe), plan {fast['cell_dim']} C={fast['C']} "
+              f"rebin {fast['rebin_impl']} megastep {fast['mega']}, "
+              f"{system.fast_stats}; T {q_end['temperature']:.5f} PE/N "
+              f"{q_end['potential_energy'] / system.state.N:.5f} at step "
+              f"{README_STEPS - 100}; {len(rows) - 1} log rows and "
+              f"{len(frames)} frames checked; launches {counts}", flush=True)
+        # the restart flow on a Nose-Hoover leg
+        system.methods[0].disable()
+        nvt = hoomd.md.integrate.nvt(group=hoomd.group.all(), kT=0.2, tau=0.5)
+        hoomd.run(README_NVT_STEPS, quiet=True)
+        restart_fn = os.path.join(tmp, 'restart.gsd')
+        hoomd.dump.gsd(restart_fn, period=None, overwrite=True).write_restart()
+        ts0 = system.timestep
+        pe0 = system.thermo_quantities()['potential_energy']
+        aux0 = {k: float(v) for k, v in system._method_aux_by_obj[nvt].items()}
+        hoomd.context.initialize("")
+        hoomd.init.read_gsd(os.path.join(tmp, 'absent.gsd'),
+                            restart=restart_fn)
+        lj = hoomd.md.pair.lj(r_cut=2.5, nlist=hoomd.md.nlist.cell())
+        lj.pair_coeff.set('A', 'A', epsilon=1.0, sigma=1.0)
+        hoomd.md.integrate.mode_standard(dt=0.005)
+        nvt1 = hoomd.md.integrate.nvt(group=hoomd.group.all(), kT=0.2,
+                                      tau=0.5)
+        nvt1.restore_state()
+        sys1 = hoomd.context.current.system
+        pe1 = sys1.thermo_quantities()['potential_energy']
+        require_engine(sys1, f'{what}: the restarted system')
+        aux1 = {k: float(v) for k, v in sys1._method_aux_by_obj[nvt1].items()}
+        if sys1.timestep != ts0 or aux1 != aux0 or aux0['xi'] == 0.0:
+            raise RuntimeError(f"{what}: restart at step {sys1.timestep} with "
+                               f"{aux1}, written at {ts0} with {aux0}")
+        if abs(pe1 - pe0) > 2e-6 * abs(pe0):
+            raise RuntimeError(f"{what}: PE {pe1!r} at the restart, {pe0!r} "
+                               f"at the checkpoint")
+        hoomd.run(100, quiet=True)
+        if not np.isfinite(sys1.thermo_quantities()['potential_energy']):
+            raise RuntimeError(f"{what}: non-finite PE after the restart")
+        print(f"{what}: restart at step {ts0}: PE {pe0!r} -> {pe1!r}, "
+              f"xi, eta {aux0} equal bit for bit; the job took "
+              f"{time.perf_counter() - t_job:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts
+
+
+CONFIG1_STEPS = 20000      # bench_all.py's timed steps, uncut
+CONFIG1_T_TOL = 0.15       # ~5 sigma of the instantaneous T at N = 1000
+
+
+def config1_job(card):
+    """BASELINE config 1, bench_all.py:36-67's script: the README example
+    at N = 1000 (sc a = 2.0, nlist.cell, pair.lj r_cut 2.5), Langevin at
+    kT 1.2, seed 4, dt 0.005; 2000 + 6 x 1024 warmup steps, then 20 000
+    timed.  Prints readme_lj_n1000_langevin_particle_steps_per_sec with
+    T and the rebin used.  Gates: the fast engine, a finite state, T =
+    1.2 +- CONFIG1_T_TOL at the end, the planar kernel launched (thermo
+    reads) and a force kernel on the steps.  Returns the launch counts."""
+    import torch
+    import hoomd_tpu_torch as hoomd
+    from hoomd_tpu_torch import md
+    what = 'config-1 job'
+    t_job = time.perf_counter()
+    hoomd.context.initialize("--notice-level=0")
+    hoomd.init.create_lattice(unitcell=hoomd.lattice.sc(a=2.0), n=10)
+    system = hoomd.context.current.system
+    N = system.state.N
+    nl = md.nlist.cell()
+    lj = md.pair.lj(r_cut=2.5, nlist=nl)
+    lj.pair_coeff.set('A', 'A', epsilon=1.0, sigma=1.0)
+    md.integrate.mode_standard(dt=0.005)
+    md.integrate.langevin(group=hoomd.group.all(), kT=1.2, seed=4)
+    reset_launch_counts()
+    t_warm = time.perf_counter()
+    system.run(2000, quiet=True)
+    for _ in range(6):
+        system.run(1024, quiet=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t_warm = t0 - t_warm
+    system.run(CONFIG1_STEPS, quiet=True)
+    torch.cuda.synchronize()
+    el = time.perf_counter() - t0
+    q = system.thermo_quantities()
+    counts = launch_counts()
+    fast = require_engine(system, what)
+    pss = CONFIG1_STEPS / el * N
+    print(json.dumps({
+        "metric": "readme_lj_n1000_langevin_particle_steps_per_sec",
+        "value": pss, "unit": "particle-steps/s/chip",
+        "extra": {"N": N, "tps": CONFIG1_STEPS / el, "steps": CONFIG1_STEPS,
+                  "elapsed_s": el, "temperature": q['temperature'],
+                  "pe_per_particle": q['potential_energy'] / N,
+                  "rebin": fast['rebin_impl'],
+                  "cell_dim": list(fast['cell_dim']), "C": fast['C'],
+                  "k": fast['k_rebuild'],
+                  "fast_m": int(system._grow.get('fast_m', 1)),
+                  "megastep": fast['mega'], "card": card,
+                  "package": "torch"}}), flush=True)
+    snapf = system.take_snapshot()
+    if not (np.isfinite(snapf.particles.position).all()
+            and np.isfinite(q['potential_energy'])):
+        raise RuntimeError(f"{what}: non-finite state")
+    if abs(q['temperature'] - 1.2) > CONFIG1_T_TOL:
+        raise RuntimeError(f"{what}: T = {q['temperature']:.4f}")
+    if counts['cell_pair_planar'] <= 0 or (
+            counts['cell_megastep_planes'] + counts['cell_pair_plane']) <= 0:
+        raise RuntimeError(f"{what}: launches {counts}")
+    busy = device_profile(lambda: system.run(200, quiet=True),
+                          f'200 steps of the {what}', top=6)
+    print(f"{what}: the warmup's 8144 steps took {t_warm:.1f} s, the timed "
+          f"window {el / CONFIG1_STEPS * 1e3:.4f} ms per step, busy share "
+          f"{busy:.4f}, {system.fast_stats}, launches {counts}; the job took "
+          f"{time.perf_counter() - t_job:.1f} s", flush=True)
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # mixtures: the Kob-Andersen melt
 
 # the Kob-Andersen 80:20 binary LJ mixture (W. Kob and H. C. Andersen,
@@ -2869,7 +3301,7 @@ def ka_job(card):
     q = check_ka(system, typeid0, temps, counts, 'cell_pair_planar_typed',
                  what)
     N = system.state.N
-    fast = system._program['fast']
+    fast = require_engine(system, what)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     system.run(500, quiet=True)
@@ -2956,6 +3388,7 @@ def ka_n3l_job():
         counts = launch_counts()
         q = check_ka(system, typeid0, temps, counts,
                      'cell_pair_planar_n3l_typed', what)
+        require_engine(system, what)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         system.run(100, quiet=True)
@@ -3287,7 +3720,8 @@ def pppm_job(card):
     system = pppm_script(hoomd)
     N = system.state.N
     system._ensure_ready()
-    plan0 = (system._program['fast']['cell_dim'], system._program['fast']['C'])
+    fast = require_engine(system, 'config-4 job')
+    plan0 = (fast['cell_dim'], fast['C'])
     if plan0 != PPPM_SHAPE:
         raise RuntimeError(f"{what}: the plan of the lattice start {plan0}, "
                            f"not {PPPM_SHAPE}")
@@ -3407,6 +3841,7 @@ def pppm_seed_window(hoomd, seed):
     pppm_warmup(system)
     system.run(1000, quiet=True)
     temps, pes = pppm_window(system)
+    require_engine(system, f'config-4 job, seed {seed}')
     if abs(np.mean(temps) - PPPM_TEMP) > PPPM_TEMP_TOL:
         raise RuntimeError(f"config-4 job, seed {seed}: mean T over the "
                            f"NVT window {np.mean(temps):.4f}")
@@ -3496,7 +3931,7 @@ def madelung_job():
     pe = system.thermo_quantities()['potential_energy'] / N
     counts = launch_counts()
     fmax = float(system.state.net_force.abs().max())
-    fast = system._program['fast']
+    fast = require_engine(system, 'Madelung job')
     cdim, C = fast['cell_dim'], fast['C']
     want = -1.747565 / 2
     print(f"Madelung job: PE per ion {pe!r} (want {want}, rel "
@@ -3695,7 +4130,7 @@ def kg_main(card):
         temps.append(q['temperature'])
         pes.append(q['potential_energy'] / N)
     counts = launch_counts()
-    fast = system._program['fast']
+    fast = require_engine(system, 'config-3 job')
     ms = el / steps * 1e3
     print(json.dumps({
         "metric": "kremer_grest_32k_particle_steps_per_sec",
@@ -3910,6 +4345,7 @@ def kg_seed_window(seed):
     system, mode = kg_script(hoomd, KG_SEED_CHAINS, seed)
     kg_warmup(system, mode, KG_SEED_EQ)
     temps, pes = kg_window(system)
+    require_engine(system, f'KG PE/N job, seed {seed}')
     if abs(np.mean(temps) - KG_TEMP) > KG_TEMP_TOL:
         raise RuntimeError(f"KG PE/N job, seed {seed}: mean T over the "
                            f"window {np.mean(temps):.4f}")
@@ -4673,6 +5109,9 @@ def main():
     counts, rows['cell_pair_planar_q'] = madelung_job()
     launches['cell_pair_planar_q'] = counts['cell_pair_planar_q']
     kg_job(card)
+    general_job(card)
+    readme_job(card)
+    config1_job(card)
     print(f"MD jobs done at {time.perf_counter() - t0:.1f} s", flush=True)
     launches['fused_poly_sweep'] = hpmc_job('cube', card)['fused_poly_sweep']
     launches['fused_sphere_sweep'] = hpmc_job('sphere', card)[

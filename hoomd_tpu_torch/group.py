@@ -1,7 +1,8 @@
 """Particle groups (counterpart of hoomd_tpu/group.py).
 
-A group is an immutable set of particle tags.  The slice's integration
-methods run on ``all()`` only; the System gates any other group.
+A group is an immutable set of particle tags.  The cell-major engine
+runs a method on ``all()`` only; a method on any other group runs on the
+general engine.
 """
 
 from __future__ import annotations
@@ -41,3 +42,17 @@ def tags(tag_min, tag_max=None, name=None):
         tag_max = tag_min
     return group(name or f"tags_{tag_min}-{tag_max}",
                  np.arange(tag_min, tag_max + 1))
+
+
+def type(type=None, name=None, update=False):
+    """Every particle of one type name."""
+    sys_ = _sys()
+    tid = sys_.particle_types.index(type)
+    typeid = sys_.snapshot_template.particles.typeid
+    return group(name or f"type_{type}",
+                 np.nonzero(np.asarray(typeid) == tid)[0])
+
+
+def tag_list(name, tags):
+    """An explicit list of tags."""
+    return group(name, tags)

@@ -2,7 +2,10 @@
 
 from __future__ import annotations
 
+import os
+
 from . import context, data
+from .io.frames import FrameReader
 from .system import System
 
 
@@ -32,3 +35,24 @@ def create_lattice(unitcell, n):
     if snap.box.dimensions == 2:
         nz = 1
     return _finish_init(snap.replicate(nx, ny, nz))
+
+
+def read_gsd(filename, restart=None, frame=-1, time_step=None):
+    """Initialize from a frame of a GSD file, or from ``restart`` when
+    that file exists (the restartable-job idiom): the snapshot, its step,
+    and the integration methods' saved variables, which each method takes
+    back with ``restore_state()``."""
+    fn = filename
+    if restart is not None and os.path.exists(restart):
+        fn, frame = restart, -1
+    snap, ts, op_state = FrameReader(fn).read(frame)
+    sysdata = _finish_init(snap)
+    system = context.current.system
+    system.state = system.state.replace(
+        timestep=int(ts if time_step is None else time_step))
+    restored = {}
+    for k, v in op_state.items():
+        method, _, var = k.partition('/')
+        restored.setdefault(method, {})[var] = v
+    system._restored_method_state = restored
+    return sysdata

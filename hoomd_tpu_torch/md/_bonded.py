@@ -4,16 +4,20 @@ of hoomd_tpu/md/_bonded.py).
 Topology is the snapshot's (M, arity) tag table of a kind (bonds,
 angles); the cell engine maps it to particle slots at every rebuild
 (ops/fast_lj.py) and evaluates the kind's term of ops/bonded.py there.
-The port has no general engine, so the JAX package's per-force compute
-closure (_make_compute) has no counterpart here.
+On the general engine, whose particles stay in tag order, the force's
+compute closure (_make_compute) maps tags to slots through rtag and
+evaluates the same term.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+import torch
+
 from .. import context
 from ..operation import Force
+from ..ops.bonded import bonded_force
 
 
 class type_coeff:
@@ -57,8 +61,27 @@ class BondedForce(Force):
 
     def __init__(self, name=None):
         Force.__init__(self, name)
+        self._log_base = (f"{self._topology[:-1]}_{type(self).__name__}"
+                          f"_energy")
         self.coeff = type_coeff()
         context.current.system.add_force(self)
+
+    def _rcut_matrix(self, types):  # bonded forces take no neighbour list
+        return np.zeros((len(types), len(types)))
+
+    def _make_compute(self, system):
+        """The general engine's force function: (state, nl, params) ->
+        (force, pe, virial) of every group, params being _pack_params as
+        device tensors (hoomd_tpu/md/_bonded.py:95-108)."""
+        group_tags = torch.as_tensor(
+            np.asarray(self._topology_data(system).group, np.int64),
+            device=system.device)
+        term = type(self)._term
+
+        def compute(state, nl, params):
+            groups = state.rtag.long()[group_tags]
+            return bonded_force(state.pos, state.box, groups, params, term)
+        return compute
 
     def _topology_data(self, system):
         data = getattr(system.snapshot_template, self._topology)

@@ -4,11 +4,12 @@ The ten pair potentials the cell-stencil engine runs (lj, gauss, yukawa,
 morse, mie, buckingham, lj1208, force_shifted_lj, dpd_conservative,
 moliere), and ewald, the real-space Ewald pair, which reads the
 particles' charges: md.charge.pppm attaches one, or it runs on its own.
-The JAX package's slj, reaction_field, zbl and dlvo need diameters or
-charges that its stencil engine declines; they are not ported.  Coefficients follow the reference's
-``pair_coeff.set('A', 'B', epsilon=..., ...)`` protocol, with per-pair
-r_cut overrides and shift modes 'none' / 'shift' / 'xplor' (the System
-gates 'xplor' out of the slice).
+Each also runs on the general engine's neighbour-list pair force
+(ops/pair_force.py, ``_make_compute``), which takes the shift mode
+'xplor' (per-pair r_on) beside 'none' and 'shift'.  The JAX package's
+slj, reaction_field, zbl, dlvo, table, dpd and dpdlj are not ported.
+Coefficients follow the reference's ``pair_coeff.set('A', 'B',
+epsilon=..., ...)`` protocol, with per-pair r_cut and r_on overrides.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import numpy as np
 from .. import context
 from ..operation import Force
 from ..ops import pair_eval
+from ..ops.pair_force import pair_force_nlist
 
 
 class coeff:
@@ -64,10 +66,12 @@ class pair(Force):
 
     def __init__(self, r_cut, nlist, name=None):
         Force.__init__(self, name)
+        self._log_base = f"pair_{type(self).__name__}_energy"
         self.r_cut = float(r_cut) if r_cut is not None else None
         self.pair_coeff = coeff()
         self.mode = 'none'
         self._nlist = nlist
+        nlist.subscribe(self)
         context.current.system.add_force(self)
 
     def set_params(self, mode=None):
@@ -103,16 +107,45 @@ class pair(Force):
             raw[name] = t
         return raw
 
+    def _ron_matrix(self, types):
+        """XPLOR's r_on per type pair: its pair_coeff, else r_cut."""
+        rc = self._rcut_matrix(types)
+        m = rc.copy()
+        for i, a in enumerate(types):
+            for j, b in enumerate(types):
+                ro = self.pair_coeff.get(a, b, 'r_on')
+                if ro is not None:
+                    m[i, j] = ro
+        return m
+
     def _pack_params(self, system):
-        """{'tables': derived coefficient tables, 'rcut': (T, T)}, float32
-        host numpy: derived in float32 as the JAX package derives them."""
+        """{'tables': derived coefficient tables, 'rcut': (T, T)[, 'ron'
+        in xplor mode]}, float32 host numpy: derived in float32 as the
+        JAX package derives them."""
         types = system.particle_types
         raw = {k: v.astype(np.float32)
                for k, v in self._coeff_tables(types).items()}
         derived = self._evaluator.derive(raw)
-        return {'tables': {k: np.asarray(v, np.float32)
-                           for k, v in derived.items()},
-                'rcut': self._rcut_matrix(types).astype(np.float32)}
+        out = {'tables': {k: np.asarray(v, np.float32)
+                          for k, v in derived.items()},
+               'rcut': self._rcut_matrix(types).astype(np.float32)}
+        if self.mode == 'xplor':
+            out['ron'] = self._ron_matrix(types).astype(np.float32)
+        return out
+
+    def _make_compute(self, system):
+        """The general engine's force function: (state, nl, params) ->
+        (force, pe, virial), params being _pack_params as device
+        tensors."""
+        ev = self._evaluator
+        mode = self.mode
+
+        def compute(state, nl, params):
+            return pair_force_nlist(
+                state.pos, state.typeid, state.charge, state.diameter,
+                nl.idx, state.box, ev, params['tables'], params['rcut'],
+                ron_table=params.get('ron'), mode=mode)
+        return compute
 
 
 def _make_pair_class(eval_name, doc):

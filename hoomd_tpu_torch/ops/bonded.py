@@ -16,9 +16,10 @@ sigma and an angle outside the clip of its cosine give no force.
 the group's energy and virial (-sum_k b_k (x) g_k) split equally among its
 members, as the JAX driver does.  Group tables hold slot indices; a row
 with an index >= the number of positions is padding and adds nothing.
-The box is orthorhombic and periodic (the cell engine's gate), so the
-minimum image is d - L round(d / L) per axis, which rounds as the JAX
-package's Box.min_image does on such a box.
+The cell engine's box is orthorhombic and periodic, and it passes the
+edge lengths L: the minimum image is d - L round(d / L) per axis, which
+rounds as the JAX package's Box.min_image does on such a box.  The
+general engine passes its Box, tilted or not.
 """
 
 from __future__ import annotations
@@ -38,6 +39,14 @@ def min_image(d, L):
     """Nearest periodic image of displacements d (..., 3) in the
     orthorhombic periodic box of edge lengths L (3,)."""
     return d - L * torch.round(d / L)
+
+
+def _min_image(d, L):
+    """min_image in a box given by its edge lengths L (3,), or in a
+    Box, tilted or not (the general engine's)."""
+    if isinstance(L, torch.Tensor):
+        return min_image(d, L)
+    return L.min_image(d)
 
 
 def _norm(b):
@@ -216,7 +225,7 @@ def group_terms(pos, L, slots, params, term, want_pv):
     g, valid, _ = slots
     arity = g.shape[1]
     r = pos[g]                                          # (M, arity, 3)
-    disps = tuple(min_image(r[:, k + 1] - r[:, k], L)
+    disps = tuple(_min_image(r[:, k + 1] - r[:, k], L)
                   for k in range(arity - 1))
     energy, grads = term(disps, params, want_pv)
     grads = [torch.where(valid, gk, 0.0) for gk in grads]

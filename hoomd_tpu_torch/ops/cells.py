@@ -25,6 +25,34 @@ def choose_cell_dim(box_L_np, r_max, dimensions=3):
     return tuple(int(d) for d in dim)
 
 
+def build_cell_adj(cell_dim, reach=(1, 1, 1)):
+    """Host-side (ncells, n_adj) int32 adjacency of each cell to its
+    (2 reach + 1)^3 stencil, periodic-wrapped, sorted and deduplicated:
+    a duplicate (a dimension with fewer cells than the stencil spans)
+    becomes the sentinel id ncells, an all-padding row of the cell list.
+    reach > 1 on an axis searches a wider neighbourhood of narrower cells
+    (the nlist stencil and tree variants)."""
+    nx, ny, nz = cell_dim
+    rx, ry, rz = reach
+    ncells = nx * ny * nz
+    ids = np.arange(ncells)
+    ix, iy, iz = ids % nx, (ids // nx) % ny, ids // (nx * ny)
+    adj = np.empty((ncells, (2 * rx + 1) * (2 * ry + 1) * (2 * rz + 1)),
+                   np.int32)
+    c = 0
+    for dz in range(-rz, rz + 1):
+        for dy in range(-ry, ry + 1):
+            for dx in range(-rx, rx + 1):
+                adj[:, c] = ((ix + dx) % nx
+                             + nx * ((iy + dy) % ny + ny * ((iz + dz) % nz)))
+                c += 1
+    adj.sort(axis=1)
+    dup = np.zeros_like(adj, dtype=bool)
+    dup[:, 1:] = adj[:, 1:] == adj[:, :-1]
+    adj[dup] = ncells
+    return adj
+
+
 def cell_index(pos, box, cell_dim):
     """Flat cell id x + nx*(y + ny*z) per particle."""
     nx, ny, nz = cell_dim

@@ -315,6 +315,8 @@ class lj_ewald:
 FAST_EVALS = ('lj', 'gauss', 'yukawa', 'morse', 'mie', 'buckingham',
               'lj1208', 'force_shifted_lj', 'dpd_conservative', 'moliere')
 CHARGED_EVALS = ('ewald', 'lj_ewald')
+# the evaluators the general engine's neighbour-list pair force runs
+GENERAL_EVALS = FAST_EVALS + ('ewald',)
 ALL_EVALUATORS = {name: globals()[name]
                   for name in FAST_EVALS + CHARGED_EVALS}
 EVAL_IDS = {name: i for i, name in enumerate(FAST_EVALS + CHARGED_EVALS)}

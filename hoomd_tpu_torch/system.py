@@ -1,15 +1,34 @@
 """System orchestration: the run loop (counterpart of hoomd_tpu/system.py).
 
-The port runs two engines: the cell-major pair engine of ops/fast_lj.py
-for MD (one to four particle types, one of the ten stencil evaluators of
-ops/pair_eval.py, or a charged job: md.charge.pppm with its real-space
-Ewald pair and at most one unshifted pair.lj, or md.pair.ewald alone;
-beside the pair force any bond and angle forces, and the neighbour
-list's exclusions, as tag-space terms), and the fused checkerboard sweep
-of hpmc/ for hard-particle MC (an HPMC integrator replaces the MD
-pipeline, as in the JAX package).  A configuration outside them raises
-NotImplementedError naming the first gate it failed; there is no general
-engine to fall back to yet.
+The port runs three engines.  For MD the cell-major pair engine of
+ops/fast_lj.py (one to four particle types, one of the ten stencil
+evaluators of ops/pair_eval.py, or a charged job: md.charge.pppm with
+its real-space Ewald pair and at most one unshifted pair.lj, or
+md.pair.ewald alone; beside the pair force any bond and angle forces,
+and the neighbour list's exclusions, as tag-space terms) wherever its
+gates pass, and the general engine everywhere else: any number of pair,
+bond and angle forces on padded neighbour lists (ops/neighbor.py,
+ops/pair_force.py), nve, nvt and langevin methods on any groups, any
+number of types, tilted and 2D boxes, the xplor shift.  A configuration
+the fast engine declines falls back to the general engine with the JAX
+package's notice; one neither runs raises NotImplementedError naming
+both gates.  HOOMD_TPU_FAST=off takes the general engine outright.
+Unlike the JAX package, whose default takes its fast engine on the TPU
+only, the port's default takes it wherever the gates pass, on the card
+and on the CPU.  For hard-particle MC the fused checkerboard sweep of
+hpmc/ (an HPMC integrator replaces the MD pipeline).
+
+A run advances in chunks that end where an analyzer or updater is due
+(their period and phase, or a variable period) or the run's callback
+fires; those host operations run between chunks, as in the JAX package.
+
+A general-engine chunk is a loop of steps: the methods' drift, the
+neighbour lists' skin test and rebuild, the forces, the methods' kick.
+Its step functions are out of place, so the state at the chunk's start
+survives the chunk; after it ONE device->host read of the lists'
+overflow flags decides: on overflow the capacities grow (neighbours to
+int(1.5 max_neigh) + 8, cells to int(1.5 cap) + 4) and the chunk reruns
+from that state, at most 16 times (hoomd_tpu/system.py:1866-1881).
 
 An HPMC run is one chunk: its sweeps queue on the device, and ONE
 device->host read of the cell-overflow flag ends it.  On overflow the
@@ -51,9 +70,13 @@ import torch
 from .state import snapshot_from_state, state_from_snapshot
 
 
+class _Declined(Exception):
+    """A gate of the fast engine failed; the argument names it."""
+
+
 class System:
     """Holds the device state and the registered operations, and runs
-    them on the cell-major engine."""
+    them on the fast or the general engine."""
 
     def __init__(self, snapshot, device='cpu'):
         self.device = torch.device(device)
@@ -66,6 +89,10 @@ class System:
         self.nlists = []
         self.methods = []
         self.integrator_mode = None
+        self.analyzers = []
+        self.updaters = []
+        self._nl_data = None
+        self._restored_method_state = {}
         self._program = None
         self._dirty_flag = True
         self._params_dirty = True
@@ -127,6 +154,12 @@ class System:
         self.hpmc_integrator = mc
         self._dirty()
 
+    def register_analyzer(self, a):
+        self.analyzers.append(a)
+
+    def register_updater(self, u):
+        self.updaters.append(u)
+
     def _dirty(self):
         self._dirty_flag = True
         self._params_dirty = True
@@ -145,9 +178,17 @@ class System:
     def _active(self):
         forces = [f for f in self.forces if f.enabled]
         methods = [m for m in self.methods if m.enabled]
-        return forces, methods
+        nlists = []
+        for f in forces:
+            if f._nlist is not None and f._nlist not in nlists:
+                nlists.append(f._nlist)
+        return forces, nlists, methods
 
-    def _rebuild_program(self):
+    def _rebuild_program(self, keep_fast=False):
+        """Plan the engine for the active forces and methods.  keep_fast:
+        a replan inside the cell-major engine's run (its retry, cadence or
+        dt replan), where a decline raises: a run never changes engine
+        midway, as in the JAX package."""
         # a new plan may change the layout: materialize the carry first
         if self._fast_state_stale:
             self._sync_fast_state()
@@ -161,29 +202,63 @@ class System:
             self._params_dirty = False
             self._forces_fresh = True       # no forces in pure HPMC
             return
-        forces, methods = self._active()
-        fast = self._build_fast(forces, methods)
+        forces, nlists, methods = self._active()
+        fast, why = self._maybe_build_fast(forces, methods, keep_fast)
         self._program = {'kind': 'md', 'fast': fast, 'forces': forces,
-                         'methods': methods}
+                         'nlists': nlists, 'methods': methods,
+                         'general': None}
+        if fast is None:
+            self._program['general'] = self._build_general(
+                forces, nlists, methods, why)
+            self._nl_data = self._fresh_nls()
         for m in methods:
             if m not in self._method_aux_by_obj:
                 self._method_aux_by_obj[m] = m._init_aux(self.device)
         self._dirty_flag = False
         self._params_dirty = True
 
+    def _maybe_build_fast(self, forces, methods, keep_fast=False):
+        """(the cell-major engine's program, None), or (None, the first
+        gate it failed) with the JAX package's notice; with keep_fast a
+        failed gate raises NotImplementedError naming it."""
+        if os.environ.get('HOOMD_TPU_FAST', 'auto') == 'off':
+            return None, 'HOOMD_TPU_FAST=off'
+        try:
+            return self._build_fast(forces, methods), None
+        except _Declined as e:
+            why = e.args[0]
+            if keep_fast:
+                raise NotImplementedError(
+                    f"the cell-major engine's replan declined during a run "
+                    f"({why}); a run does not change engine midway.  This "
+                    f"usually means the dynamics diverged (NaN or crowded "
+                    f"positions): check dt and the initial configuration, "
+                    f"or set HOOMD_TPU_FAST=off for the general engine") \
+                    from None
+            from .util import notice
+            notice(2, f"fast engine declined ({why}); using the general "
+                      f"engine")
+            return None, why
+
     def _build_fast(self, forces, methods):
-        """Gates + construction of the cell-major pair engine."""
+        """Gates + construction of the cell-major pair engine; a failed
+        gate raises _Declined."""
         from ._config import real_dtype
         from .md import charge as md_charge
         from .md._bonded import BondedForce
         from .ops import pair_eval
         from .ops.cell_pair import MAX_C, MAX_TYPES
-        from .ops.fast_lj import build_fast_lj_chunk, plan_fast_lj
+        from .ops.fast_lj import (FAST_IMPLS, build_fast_lj_chunk,
+                                  plan_fast_lj)
 
         def _decline(why):
-            raise NotImplementedError(
-                f"hoomd_tpu_torch runs the cell-major LJ engine only, and "
-                f"this configuration is outside it: {why}")
+            raise _Declined(why)
+
+        # a force path that does not exist is an error, not a gate
+        impl = os.environ.get('HOOMD_TPU_FAST_IMPL') or 'plane'
+        if impl not in FAST_IMPLS:
+            raise ValueError(f"force impl (HOOMD_TPU_FAST_IMPL) {impl!r} is "
+                             f"not one of {', '.join(FAST_IMPLS)}")
 
         def _eval_of(g):
             return getattr(getattr(g, '_evaluator', None), '__name__', None)
@@ -252,9 +327,11 @@ class System:
                 _decline(f'bonded topology ({name})')
         if bonded_objs and os.environ.get('HOOMD_TPU_CHAIN', 'off') == 'on':
             # the JAX package's in-kernel chain megastep (off by default
-            # there, hoomd_tpu/system.py:560-575) is not ported
-            _decline('HOOMD_TPU_CHAIN=on (the in-kernel chain megastep is not '
-                     'ported; unset it for the tag-space bonded terms)')
+            # there, hoomd_tpu/system.py:560-575) is not ported: a request
+            # for it is refused, not routed to another engine
+            raise NotImplementedError(
+                'HOOMD_TPU_CHAIN=on (the in-kernel chain megastep is not '
+                'ported; unset it for the tag-space bonded terms)')
         f = pair_list[0]
         if charged is not None:
             # (hoomd_tpu/system.py:477-487)
@@ -353,7 +430,6 @@ class System:
         # single steps as fused steps on 'plane' with nve or nvt
         # (fast_lj.py:692-695); with the megastep on, only the head and
         # tail steps of a run.
-        impl = os.environ.get('HOOMD_TPU_FAST_IMPL') or 'plane'
         mega = os.environ.get('HOOMD_TPU_MEGA', 'on') != 'off'
         fused = os.environ.get('HOOMD_TPU_FUSED') == 'on'
         # the LJ-only kernels host no other evaluator and no mixture; the
@@ -413,6 +489,132 @@ class System:
                 'charged': charged, 'bonded_forces': bonded_objs,
                 'excl_pairs': excl_pairs}
 
+    def _build_general(self, forces, nlists, methods, why_fast):
+        """Gates + construction of the general engine
+        (hoomd_tpu/system.py:199-341): closures over the forces' compute
+        functions, the lists' configurations and the methods.  A
+        configuration it does not run raises NotImplementedError naming
+        the fast engine's gate (why_fast, or None when the fast engine
+        runs the job and this program only serves force_energy) and its
+        own."""
+        from .md import charge as md_charge
+        from .md._bonded import BondedForce
+        from .ops import pair_eval
+        from .ops.neighbor import update_neighbor_list
+        from . import rng
+
+        def decline(why):
+            if why_fast is None:
+                raise NotImplementedError(
+                    f"hoomd_tpu_torch's general engine does not run {why}")
+            raise NotImplementedError(
+                f"hoomd_tpu_torch runs neither of its engines on this "
+                f"configuration: the fast engine declined ({why_fast}), and "
+                f"the general engine does not run {why}")
+        mode = self.integrator_mode
+        if mode is not None and mode.aniso:
+            decline('anisotropic integration')
+        for f in forces:
+            if isinstance(f, md_charge.pppm):
+                decline('md.charge.pppm (its mesh runs on the fast engine '
+                        'only)')
+            if isinstance(f, BondedForce):
+                continue
+            ev = getattr(f, '_evaluator', None)
+            name = getattr(ev, '__name__', None)
+            if name not in pair_eval.GENERAL_EVALS \
+                    or ev is not pair_eval.ALL_EVALUATORS[name]:
+                decline(f'pair evaluator {name!r} (it runs '
+                        f'{", ".join(pair_eval.GENERAL_EVALS)})')
+            if f._nlist is None:
+                decline(f'pair force {name!r} without a neighbor list')
+        snap = self.snapshot_template
+        for name in ('dihedrals', 'impropers', 'constraints', 'pairs'):
+            if getattr(snap, name).N:
+                decline(f'bonded topology ({name})')
+        if (np.asarray(snap.particles.body) >= 0).any():
+            decline('rigid/floppy body particles')
+        if np.any(np.asarray(snap.particles.moment_inertia) > 0):
+            decline('rotational degrees of freedom (moment_inertia)')
+        for m in methods:
+            if type(m).__name__ not in ('nve', 'langevin', 'nvt'):
+                decline(f'integration method {type(m).__name__!r}')
+
+        nl_cfgs = [nl._build_config(self, grow=self._grow.get(nl))
+                   for nl in nlists]
+        force_fns = [f._make_compute(self) for f in forces]
+        force_nl_slot = [nlists.index(f._nlist) if f._nlist in nlists else -1
+                         for f in forces]
+        seeds = [getattr(m, 'seed', 0) for m in methods]
+
+        def update_nls(state, nls):
+            return tuple(update_neighbor_list(
+                state.pos, state.typeid, state.tag, state.diameter,
+                state.box, nls[k], r_buff=cfg.r_buff, r_max=cfg.r_max,
+                cell_dim=cfg.cell_dim, cell_cap=cfg.cell_cap,
+                cell_adj=cfg.cell_adj, rmax_table=cfg.rmax_table,
+                max_neigh=cfg.max_neigh, excl_tags=cfg.excl_tags,
+                diameter_shift=cfg.diameter_shift, body=state.body,
+                exclude_body=cfg.exclude_body)
+                for k, cfg in enumerate(nl_cfgs))
+
+        def net_force(state, nls, fparams):
+            F = torch.zeros_like(state.pos)
+            pe = torch.zeros_like(state.net_pe)
+            vir = torch.zeros_like(state.net_virial)
+            for fn, slot, fp in zip(force_fns, force_nl_slot, fparams):
+                f, p, v = fn(state, nls[slot] if slot >= 0 else None, fp)
+                F, pe, vir = F + f, pe + p, vir + v
+            return state.replace(net_force=F, net_pe=pe, net_virial=vir)
+
+        def one_step(state, nls, auxs, dyn):
+            dt = dyn['dt']
+            auxs = list(auxs)
+            for i, m in enumerate(methods):
+                state, auxs[i] = m._step1(state, auxs[i], dyn['methods'][i],
+                                          dt, None)
+            nls = update_nls(state, nls)
+            state = net_force(state, nls, dyn['forces'])
+            for i, m in enumerate(methods):
+                key = (rng.step_key(seeds[i], state.timestep, salt=4096 + i)
+                       if m._needs_key else None)
+                state, auxs[i] = m._step2(state, auxs[i], dyn['methods'][i],
+                                          dt, key)
+            return state.replace(timestep=state.timestep + 1), nls, \
+                tuple(auxs)
+
+        def run_chunk(state, nls, auxs, dyn, nsteps):
+            for _ in range(nsteps):
+                state, nls, auxs = one_step(state, nls, auxs, dyn)
+            return state, nls, auxs
+
+        def prep(state, nls, dyn):
+            """The forces at the current positions (Integrator::prepRun)."""
+            nls = update_nls(state, nls)
+            return net_force(state, nls, dyn['forces']), nls
+
+        return {'nl_cfgs': nl_cfgs, 'force_fns': force_fns,
+                'force_nl_slot': force_nl_slot, 'update_nls': update_nls,
+                'one_step': one_step, 'run_chunk': run_chunk, 'prep': prep}
+
+    def _fresh_nls(self):
+        from .ops.neighbor import fresh_neighbor_list
+        st = self._state_raw
+        return tuple(fresh_neighbor_list(st.N, cfg.max_neigh, st.pos.dtype,
+                                         self.device)
+                     for cfg in self._program['general']['nl_cfgs'])
+
+    def _general(self):
+        """The general program, built beside the fast one on first use
+        (force_energy on the fast engine)."""
+        p = self._program
+        if p['general'] is None:
+            p['general'] = self._build_general(p['forces'], p['nlists'],
+                                               p['methods'], None)
+            self._nl_data = self._fresh_nls()
+            self._pack_dyn()
+        return p['general']
+
     def _bonded_cfg_for(self, f, bonded_objs, excl_pairs, charged):
         """The engine's tag-space terms (hoomd_tpu/system.py:794-847): each
         bonded force's term on its tag groups, then the exclusion
@@ -451,7 +653,18 @@ class System:
             'forces': tuple(f._pack_params(self) for f in p['forces']),
             'methods': tuple(m._pack_params(self) for m in p['methods']),
         }
-        self._dyn['fast'] = self._fast_dyn()
+        if p['fast'] is not None:
+            self._dyn['fast'] = self._fast_dyn()
+        if p['general'] is not None:
+            dev = self.device
+
+            def T(x):
+                if isinstance(x, dict):
+                    return {k: T(v) for k, v in x.items()}
+                return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+            self._dyn['general'] = {
+                'dt': T(dt_val), 'methods': self._dyn['methods'],
+                'forces': tuple(T(fp) for fp in self._dyn['forces'])}
         self._params_dirty = False
 
     def _fast_dyn(self):
@@ -598,13 +811,15 @@ class System:
         return fast['refresh'](carry, self._dyn['fast'])
 
     def _run_fast_chunk(self, chunk):
-        """Run ``chunk`` steps in segments with the retry protocol."""
+        """Run ``chunk`` steps in segments with the retry protocol.  A
+        replan that the engine's gates decline (a cell capacity past the
+        kernels') raises NotImplementedError naming the gate."""
         dt_now = float(self.integrator_mode.dt or 0.005)
         k_dt = getattr(self, '_fast_k_dt', dt_now)
         if abs(dt_now - k_dt) > 0.25 * max(k_dt, 1e-12):
             # the kernel window was sized for another dt: replan
             self._reset_cadence()
-            self._rebuild_program()
+            self._rebuild_program(keep_fast=True)
             self._pack_dyn()
         done = 0
         seg_cap = getattr(self, '_fast_seg_cap', 512)
@@ -691,7 +906,7 @@ class System:
                             (q for q in (8, 6, 4, 3, 2, 1) if q < k_now), 1)
                         need_rebuild = True
                 if need_rebuild:
-                    self._rebuild_program()
+                    self._rebuild_program(keep_fast=True)
                     self._pack_dyn()
             else:
                 raise RuntimeError(
@@ -728,7 +943,7 @@ class System:
             return
         self._grow.pop('fast_xsel_retry', None)
         self._grow.pop('fast_rebin_sort', None)
-        self._rebuild_program()
+        self._rebuild_program(keep_fast=True)
         self._pack_dyn()
 
     def _grow_cadence(self, carry, seg, k_now, m_now, wmax):
@@ -782,18 +997,20 @@ class System:
                 and not self._grow.get('fast_k_grown')):
             self._grow['fast_k_grown'] = True
             self._grow['fast_m'] = max(k_now * max(m_next, m_now) // 4, 1)
-            self._rebuild_program()
+            self._rebuild_program(keep_fast=True)
             self._pack_dyn()
 
     def _prep_forces(self):
         """Forces, PE and virial at the current positions."""
         self._ensure_ready()
         for _ in range(6):
+            if self._program['fast'] is None:
+                return self._prep_general()
             carry = self._fresh_carry()
             if not bool(carry.overflow):
                 break
             self._grow_capacity()
-            self._rebuild_program()
+            self._rebuild_program(keep_fast=True)
             self._pack_dyn()
         else:
             raise RuntimeError("cell capacity still overflowing after "
@@ -801,6 +1018,73 @@ class System:
         self._state_raw = self._program['fast']['to_state'](
             carry, self._state_raw)
         self._forces_fresh = True
+
+    # -- the general engine ------------------------------------------------------
+    def _prep_general(self):
+        """The general engine's forces at the current positions
+        (Integrator::prepRun), growing the lists until they fit."""
+        for _ in range(16):
+            state, nls = self._general()['prep'](self.state, self._nl_data,
+                                                 self._dyn['general'])
+            if not self._check_overflow(nls):
+                break
+        else:
+            raise RuntimeError("neighbor list capacity still overflowing "
+                               "after repeated growth")
+        self.state, self._nl_data = state, nls
+        self._forces_fresh = True
+
+    def _run_general_chunk(self, chunk):
+        """``chunk`` general-engine steps from the current state, rerun
+        from it while a list overflowed."""
+        state0 = self.state
+        for _ in range(16):
+            methods = self._program['methods']
+            aux0 = tuple(self._method_aux_by_obj[m] for m in methods)
+            state, nls, auxs = self._program['general']['run_chunk'](
+                state0, self._nl_data, aux0, self._dyn['general'], chunk)
+            if not self._check_overflow(nls):
+                break
+        else:
+            raise RuntimeError("neighbor list capacity still overflowing "
+                               "after repeated growth")
+        self.state, self._nl_data = state, nls
+        for m, a in zip(methods, auxs):
+            self._method_aux_by_obj[m] = a
+        self._forces_fresh = True
+
+    def _check_overflow(self, nls):
+        """After a general-engine chunk or build: grow the capacity of
+        every list that overflowed (one host read of all their flags) and
+        rebuild the program then.  Returns True when the caller must
+        retry.  (The port changes no box during a run, so the JAX
+        package's regrid of cells a box change shrank has no case here.)"""
+        if not nls:
+            return False
+        flags = torch.stack([torch.stack([d.overflow, d.cell_overflow])
+                             for d in nls]).cpu().numpy()
+        grew = False
+        for nl_obj, (ovf, covf), cfg in zip(self._program['nlists'], flags,
+                                            self._general()['nl_cfgs']):
+            g = self._grow.setdefault(nl_obj, {})
+            if ovf:
+                g['max_neigh'] = max(g.get('max_neigh', 0),
+                                     int(cfg.max_neigh * 1.5) + 8)
+                grew = True
+            if covf:
+                g['cell_cap'] = max(g.get('cell_cap', 0),
+                                    int(cfg.cell_cap * 1.5) + 4)
+                grew = True
+        if grew:
+            self._rebuild_program()
+            self._pack_dyn()
+        return grew
+
+    def reset_nlist(self):
+        """Rebuild the general engine's lists at the next step."""
+        if (self._program is not None and self._program['kind'] == 'md'
+                and self._program.get('general') is not None):
+            self._nl_data = self._fresh_nls()
 
     def _run_hpmc(self, nsweeps):
         """Run ``nsweeps`` sweeps as one chunk with the grow-and-retry
@@ -826,18 +1110,48 @@ class System:
         self._hpmc_counters = {'moves': moves, 'cell_overflow': ovf}
 
     # -- run loop ---------------------------------------------------------------
-    def run(self, nsteps, quiet=False):
-        """Advance the simulation by nsteps."""
+    def run(self, nsteps, callback=None, callback_period=0, quiet=False):
+        """Advance the simulation by nsteps (hoomd_tpu/system.py:1688-1795):
+        analyzers and updaters fire on the host at the steps they are
+        due, in [start, end), a chunk of device steps runs up to the next
+        such step, and ``callback(step)`` runs every callback_period steps
+        (a negative return ends the run)."""
         nsteps = int(nsteps)
         self._ensure_ready()
         start = self.timestep
+        end = start + nsteps
         t0 = time.perf_counter()
+        if self._program['kind'] == 'md' and self._program['fast'] is None:
+            self._prep_forces()
         if not quiet:
             print(f"** starting run at step {start} **")
-        if nsteps > 0 and self._program['kind'] == 'hpmc':
-            self._run_hpmc(nsteps)
-        elif nsteps > 0:
-            self._run_fast_chunk(nsteps)
+        cur = start
+        while cur < end:
+            for op in self.analyzers + self.updaters:
+                if op._due(cur):
+                    self._fire(op, cur)
+            if callback is not None and callback_period and \
+                    cur % callback_period == 0:
+                res = callback(cur)
+                if res is not None and res < 0:
+                    break
+            stops = [end]
+            for op in self.analyzers + self.updaters:
+                nxt = op._next_stop(cur)
+                if nxt is not None:
+                    stops.append(nxt)
+            if callback is not None and callback_period:
+                stops.append(cur + callback_period - cur % callback_period)
+            chunk = max(int(min(stops)) - cur, 1)
+            # an op may have reconfigured the simulation
+            self._ensure_ready()
+            if self._program['kind'] == 'hpmc':
+                self._run_hpmc(chunk)
+            elif self._program['fast'] is not None:
+                self._run_fast_chunk(chunk)
+            else:
+                self._run_general_chunk(chunk)
+            cur += chunk
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
         elapsed = time.perf_counter() - t0
@@ -846,6 +1160,13 @@ class System:
             tps = done / elapsed if elapsed > 0 else 0.0
             print(f"** run complete: {done} steps in {elapsed:.3f} s = "
                   f"{tps:.1f} TPS **")
+
+    def _fire(self, op, ts):
+        from .operation import Analyzer
+        if isinstance(op, Analyzer):
+            op.analyze(self, ts)
+        else:
+            op.update(self, ts)
 
     # -- observables -------------------------------------------------------------
     def take_snapshot(self):
@@ -857,35 +1178,106 @@ class System:
         self.particle_types = list(snap.particles.types)
         self._dirty()
 
-    def thermo_quantities(self):
+    def restore_method_state(self, method):
+        """Give ``method`` the variables init.read_gsd read for its
+        class (xi, eta of nvt)."""
+        saved = self._restored_method_state.get(type(method).__name__)
+        if saved is None:
+            return
+        if self._fast_state_stale:
+            self._sync_fast_state()     # the carry's aux is superseded
+        self._method_aux_by_obj[method] = {
+            k: torch.as_tensor(np.asarray(v, np.float32), device=self.device)
+            for k, v in saved.items()}
+        self._fast_carry = None
+        self._dirty()
+
+    def _member_mask(self, st, member_tags):
+        member = torch.zeros(st.N, dtype=torch.bool, device=self.device)
+        member[torch.as_tensor(np.asarray(member_tags, np.int64),
+                               device=self.device)] = True
+        return member[st.tag.long()]
+
+    def thermo_quantities(self, member_tags=None):
         """Kinetic/potential energy, temperature and pressure (with its
-        tensor) of all particles, summed in float64."""
+        tensor) of a group (all particles by default), summed in float64
+        (hoomd_tpu/system.py:1949-2019).  The port integrates no rotation,
+        so the rotational entries are 0."""
         st = self.state          # materializes a resident carry first
         if not self._forces_fresh and self.forces:
             self._prep_forces()
             st = self.state
-        n = st.N
+        if member_tags is None:
+            mask = None
+            n = st.N
+        else:
+            mask = self._member_mask(st, member_tags)
+            n = len(member_tags)
+
+        def sel(x):
+            if mask is None:
+                return x
+            return torch.where(mask.reshape((-1,) + (1,) * (x.dim() - 1)),
+                               x, 0.0)
         dim = st.box.dimensions
         m = st.mass.double()
-        v = st.vel.double()
+        v = sel(st.vel.double())
         ke = 0.5 * float((m * (v * v).sum(-1)).sum())
-        pe = float(st.net_pe.double().sum())
+        pe = float(sel(st.net_pe.double()).sum())
         ndof = dim * n
         T = 2.0 * ke / ndof if ndof else 0.0
         vol = float(st.box.volume())
-        w_sum = st.net_virial.double().sum(0).cpu().numpy()
+        w_sum = sel(st.net_virial.double()).sum(0).cpu().numpy()
         P = (2.0 * ke + w_sum[0] + w_sum[3] + w_sum[5]) / (dim * vol)
         mom = (m[:, None] * v).sum(0).cpu().numpy()
         mvv = (m[:, None, None] * v[:, :, None]
                * v[:, None, :]).sum(0).cpu().numpy()
+        L, tilt, _ = st.box.to_numpy()
         out = {
             'temperature': T, 'pressure': float(P),
             'kinetic_energy': ke, 'potential_energy': pe,
+            'rotational_kinetic_energy': 0.0, 'rotational_ndof': 0.0,
+            'temperature_rotational': 0.0,
             'ndof': float(ndof), 'num_particles': float(n),
-            'volume': vol, 'momentum': float(np.linalg.norm(mom)),
+            'volume': vol,
+            'lx': float(L[0]), 'ly': float(L[1]), 'lz': float(L[2]),
+            'xy': float(tilt[0]), 'xz': float(tilt[1]), 'yz': float(tilt[2]),
+            'momentum': float(np.linalg.norm(mom)),
         }
         names = ('xx', 'xy', 'xz', 'yy', 'yz', 'zz')
         idx = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
         for c, (nm, (a, b)) in enumerate(zip(names, idx)):
             out[f'pressure_{nm}'] = float((mvv[a, b] + w_sum[c]) / vol)
         return out
+
+    def force_energy(self, force, group=None):
+        """Total PE of one force, optionally over a group, recomputed at
+        the current positions through the general engine's force
+        function (hoomd_tpu/system.py:2021-2035); on the fast engine its
+        lists are brought up to date first."""
+        self._ensure_ready()
+        if force not in self._program['forces']:
+            return 0.0
+        if self._program['fast'] is not None:
+            st = self.state
+            for _ in range(16):
+                nls = self._general()['update_nls'](st, self._nl_data)
+                if not self._check_overflow(nls):
+                    break
+            else:
+                raise RuntimeError("neighbor list capacity still "
+                                   "overflowing after repeated growth")
+            self._nl_data = nls
+        elif not self._forces_fresh:
+            self._prep_forces()
+        st = self.state
+        p = self._program
+        g = self._general()
+        i = p['forces'].index(force)
+        slot = g['force_nl_slot'][i]
+        nl = self._nl_data[slot] if slot >= 0 else None
+        _, pe, _ = g['force_fns'][i](st, nl, self._dyn['general']['forces'][i])
+        pe = pe.double()
+        if group is not None:
+            pe = torch.where(self._member_mask(st, group.member_tags), pe, 0.0)
+        return float(pe.sum())

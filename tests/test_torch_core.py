@@ -190,26 +190,34 @@ def test_port_imports_no_jax():
 
 
 def _lj_script(types=('A',), charge=0.0, mode='shift', tilt=0.0,
-               group='all', pair='lj', pppm=False):
-    snap = th.data.make_snapshot(64, th.data.boxdim(Lx=8.0, Ly=8.0, Lz=8.0,
-                                                    xy=tilt),
-                                 particle_types=list(types))
+               group='all', pair='lj', pppm=False, h=th, v_sigma=0.0):
+    """64 particles on a 4^3 lattice in an 8^3 box (tilted by xy = tilt),
+    through package ``h``; velocities normal with width v_sigma."""
+    snap = h.data.make_snapshot(64, h.data.boxdim(Lx=8.0, Ly=8.0, Lz=8.0,
+                                                  xy=tilt),
+                                particle_types=list(types))
     g = (np.arange(4) + 0.5) * 2.0 - 4.0
     snap.particles.position[:] = np.stack(
         np.meshgrid(g, g, g, indexing='ij'), -1).reshape(-1, 3)
     snap.particles.typeid[:] = np.arange(64) % len(types)
     snap.particles.charge[:] = charge
-    th.init.read_snapshot(snap)
-    nl = th.md.nlist.cell(r_buff=0.4)
-    lj = getattr(th.md.pair, pair)(r_cut=2.5, nlist=nl)
+    if v_sigma:
+        snap.particles.velocity[:] = np.random.RandomState(8).normal(
+            0.0, v_sigma, (64, 3))
+    h.init.read_snapshot(snap)
+    nl = h.md.nlist.cell(r_buff=0.4)
+    lj = getattr(h.md.pair, pair)(r_cut=2.5, nlist=nl)
     lj.pair_coeff.set(list(types), list(types), epsilon=1.0, sigma=1.0)
+    if mode == 'xplor':
+        lj.pair_coeff.set(types[0], types[0], r_on=1.8)
     lj.set_params(mode=mode)
     if pppm:
-        p = th.md.charge.pppm(group=th.group.all(), nlist=nl)
+        p = h.md.charge.pppm(group=h.group.all(), nlist=nl)
         p.set_params(Nx=8, Ny=8, Nz=8, order=5, rcut=2.5)
-    th.md.integrate.mode_standard(dt=0.005)
-    grp = th.group.all() if group == 'all' else th.group.tags(0, 9)
-    th.md.integrate.nve(group=grp)
+    h.md.integrate.mode_standard(dt=0.005)
+    grp = h.group.all() if group == 'all' else h.group.tags(0, 9)
+    h.md.integrate.nve(group=grp)
+    return h.context.current.system
 
 
 @pytest.mark.parametrize('kw,gate', [
@@ -222,14 +230,40 @@ def _lj_script(types=('A',), charge=0.0, mode='shift', tilt=0.0,
       f"HOOMD_TPU_FAST_IMPL={impl} runs the lj evaluator only")
      for impl in ('row', 'pallas', 'pallas3d')]
    + [(dict(types=tuple('ABCDE')), '5 particle types')])
-def test_configs_outside_the_slice_raise(torch_ctx, monkeypatch, kw, gate):
+def test_configs_outside_the_slice_raise(torch_ctx, monkeypatch, capfd, kw,
+                                         gate):
+    """Jobs past a gate of the cell-major engine.  Each runs on the general
+    engine, with the JAX package's notice naming the gate, and is held to
+    the JAX package's general engine on the same script: positions within
+    2e-5 and velocities within 2e-4 by tag after 10 steps, the same images.
+    pppm, which has no general-engine form in the port, still raises,
+    naming both engines' gates."""
+    import hoomd_tpu as jh
     kw = dict(kw)
     impl = kw.pop('impl', None)
     if impl is not None:
         monkeypatch.setenv('HOOMD_TPU_FAST_IMPL', impl)
-    _lj_script(**kw)
-    with pytest.raises(NotImplementedError, match=re.escape(gate)):
-        th.run(1, quiet=True)
+    if kw.get('pppm'):
+        _lj_script(**kw)
+        with pytest.raises(NotImplementedError, match=re.escape(gate) + '.*'
+                           'general engine does not run md.charge.pppm'):
+            th.run(1, quiet=True)
+        return
+    jsys = _lj_script(h=jh, v_sigma=1.0, **kw)
+    tsys = _lj_script(v_sigma=1.0, **kw)
+    th.context.current.options.notice_level = 2
+    capfd.readouterr()
+    th.run(10, quiet=True)
+    err = capfd.readouterr().err
+    assert 'fast engine declined (' in err and gate in err, err
+    assert tsys._program['fast'] is None
+    jsys.run(10, quiet=True)
+    a = jsys.take_snapshot().particles
+    b = tsys.take_snapshot().particles
+    assert np.abs(a.velocity).max() > 0.5
+    np.testing.assert_allclose(b.position, a.position, rtol=0, atol=2e-5)
+    np.testing.assert_allclose(b.velocity, a.velocity, rtol=0, atol=2e-4)
+    assert np.array_equal(b.image, a.image)
 
 
 def test_lj_job_with_charges_equals_the_uncharged_one(torch_ctx):
@@ -293,6 +327,30 @@ def _nvt_system(seed=6):
     th.md.integrate.mode_standard(dt=0.004)
     th.md.integrate.nvt(group=th.group.all(), kT=1.0, tau=0.3)
     return th.context.current.system
+
+
+def test_a_replan_past_the_gates_during_a_run_raises(torch_ctx, monkeypatch):
+    """A run never changes engine midway, as in the JAX package: when a
+    capacity overflow's replan takes the cell capacity past the kernels'
+    MAX_C, the run raises NotImplementedError naming that gate, and the
+    program stays the cell-major one."""
+    from hoomd_tpu_torch.ops import cell_pair
+    s = _nvt_system()
+    s._grow['fast_plan_conservative'] = True   # an overflow grows C
+    s.run(8, quiet=True)
+    fast = s._program['fast']
+    monkeypatch.setattr(cell_pair, 'MAX_C', fast['C'])
+    real = fast['run_chunk']
+
+    def overflowing(carry, dyn, seg, m):
+        out = real(carry, dyn, seg, m)
+        return out.replace(overflow=torch.ones_like(out.overflow))
+    fast['run_chunk'] = overflowing
+    with pytest.raises(NotImplementedError,
+                       match=re.escape(f"above the kernels' {fast['C']}")):
+        s.run(8, quiet=True)
+    assert s._program['fast'] is fast
+    assert s.fast_stats['retries'] == 1
 
 
 def test_danger_retry_rewinds_the_thermostat_with_the_particles(torch_ctx):

@@ -232,6 +232,8 @@ def test_single_eval_job_matches_jax(name, monkeypatch):
     snap = js.take_snapshot()
     jf = np.asarray(js.state.net_force)[np.asarray(js.state.rtag)]
     jpe = float(np.asarray(js.state.net_pe).sum())
+    # the port honours HOOMD_TPU_FAST=off too: its side runs without it
+    monkeypatch.delenv('HOOMD_TPU_FAST')
     try:
         ts = _job(th, name, interop.snapshot_from_numpy(snap))
         assert ts._program['fast']['eval_name'] == name

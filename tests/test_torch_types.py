@@ -36,8 +36,11 @@ inputs made from a seed:
     engine (HOOMD_TPU_FAST=off); the JAX fast engine takes type 0's gamma
     for every particle (hoomd_tpu/system.py:1139-1141), so it is held to
     the port only with equal gammas (the Langevin case above);
-  * the gates: 5 types, and pallas, pallas3d, row with 2 types, raise
-    NotImplementedError by name; a 2-type system at N = 4096 builds on
+  * the gates: 5 types, and pallas, pallas3d, row with 2 types, leave
+    the cell-major engine for the general one with a notice naming the
+    gate (5 types held to the JAX package's general engine, the three
+    paths to the port's under HOOMD_TPU_FAST=off); a 2-type system at
+    N = 4096 builds on
     the sort, with no megastep and no fused step; wrappers refuse a
     table whose shape does not match ntypes;
   * types survive rebuilds: after sort rebuilds, a capacity-overflow
@@ -293,12 +296,13 @@ def _ka_script(hoomd, snap, method, gamma=None, kT=1.0, dt=0.002):
     return hoomd.context.current.system
 
 
-def _trajectory(hoomd, snap, method, reads=5, every=4, thermo=True, **kw):
+def _trajectory(hoomd, snap, method, reads=5, every=4, thermo=True,
+                notice='--notice-level=0', **kw):
     """Positions, velocities, PE and pressure (with ``thermo``, else
     None) after every ``every`` steps of the job script, ``reads``
     times."""
     if hoomd is th:
-        hoomd.context.initialize('--mode=cpu --notice-level=0')
+        hoomd.context.initialize(f'--mode=cpu {notice}')
         snap = interop.snapshot_from_numpy(snap)
     else:
         hoomd.context.initialize('--notice-level=0')
@@ -417,30 +421,57 @@ def test_langevin_friction_per_type(torch_ctx, monkeypatch):
 # gates, rebuilds, interop
 
 
-def _run_one(snap, impl, monkeypatch):
+def _run_one(snap, impl, monkeypatch, notice='--notice-level=0'):
     monkeypatch.setenv('HOOMD_TPU_FAST_IMPL', impl)
-    th.context.initialize('--mode=cpu --notice-level=0')
+    th.context.initialize(f'--mode=cpu {notice}')
     system = _ka_script(th, interop.snapshot_from_numpy(snap), 'nvt')
     system._ensure_ready()
     return system
 
 
-def test_five_types_raise(torch_ctx, monkeypatch):
+def test_five_types_raise(torch_ctx, monkeypatch, capfd):
+    """5 types are past the cell-major engine's gate: the job runs on the
+    general engine, with the notice naming the gate, and follows the JAX
+    package's general engine (_same_trajectory)."""
+    import hoomd_tpu as jh
     snap = _ka_snapshot(6, 1.2, 5, ntypes=4)
     snap.particles.types = list(TYPES) + ['E']
     monkeypatch.delenv('HOOMD_TPU_FAST_IMPL', raising=False)
-    th.context.initialize('--mode=cpu --notice-level=0')
-    _ka_script(th, interop.snapshot_from_numpy(snap), 'nvt')
-    with pytest.raises(NotImplementedError, match='5 particle types'):
-        th.run(1, quiet=True)
+    capfd.readouterr()
+    system, got = _trajectory(th, snap, 'nvt', reads=2, every=3,
+                              notice='--notice-level=2')
+    assert 'fast engine declined (5 particle types' in capfd.readouterr().err
+    assert system._program['fast'] is None
+    _, want = _trajectory(jh, snap, 'nvt', reads=2, every=3)
+    _same_trajectory(got, want)
+
+
+# the JAX package's general-engine trajectory of the 512-particle KA NVT
+# job, kept by the first mixture case that builds it
+_JAX_KA512_NVT = []
 
 
 @pytest.mark.parametrize('impl', ['pallas', 'pallas3d', 'row'])
-def test_single_type_impls_refuse_a_mixture(torch_ctx, monkeypatch, impl):
-    with pytest.raises(NotImplementedError,
-                       match=f'HOOMD_TPU_FAST_IMPL={impl} runs one particle '
-                             f'type only \\(2 particle types\\)'):
-        _run_one(_ka512(), impl, monkeypatch)
+def test_single_type_impls_refuse_a_mixture(torch_ctx, monkeypatch, capfd,
+                                            impl):
+    """The LJ-only force paths refuse a mixture: the job leaves the
+    cell-major engine, with the notice naming the gate, for the general
+    engine, and follows the JAX package's general engine on the same
+    script (_same_trajectory)."""
+    import hoomd_tpu as jh
+    monkeypatch.setenv('HOOMD_TPU_FAST_IMPL', impl)
+    capfd.readouterr()
+    system, got = _trajectory(th, _ka512(), 'nvt', reads=2, every=3,
+                              notice='--notice-level=2')
+    assert (f'fast engine declined (HOOMD_TPU_FAST_IMPL={impl} runs one '
+            f'particle type only (2 particle types))'
+            in capfd.readouterr().err)
+    assert system._program['fast'] is None
+    if not _JAX_KA512_NVT:
+        monkeypatch.delenv('HOOMD_TPU_FAST_IMPL')
+        _JAX_KA512_NVT.append(
+            _trajectory(jh, _ka512(), 'nvt', reads=2, every=3)[1])
+    _same_trajectory(got, _JAX_KA512_NVT[0])
 
 
 @pytest.mark.parametrize('impl', ['plane', 'planar', 'planar_n3l'])
